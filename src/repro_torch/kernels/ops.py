@@ -1,0 +1,63 @@
+"""Public wrappers of the partitioner kernels, routed by device.
+
+A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
+hand-written kernel or raises. There is no other route and no fallback: a
+kernel that fails to build or launch raises to the caller.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import edge_phase as _edge_phase
+from repro_torch.kernels import la_update as _la_update
+
+LAUNCH_COUNTERS = {
+    "fused_edge_phase": _edge_phase.LAUNCHES,
+    "la_update": _la_update.LAUNCHES,
+}
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches so far}`` for every kernel wrapper."""
+    return {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in LAUNCH_COUNTERS.values():
+        c.reset()
+
+
+def _route(t: torch.Tensor, what: str) -> str:
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise ValueError(f"{what} has no implementation for device {t.device}")
+
+
+def fused_edge_phase(edge_dst, edge_rows, edge_vals, labels, lam, actions,
+                     feasible, *, row_ptr, block_v: int, k: int,
+                     weight_mode: str = "self_lambda"):
+    """(hist_score, w_acc), both [nb, block_v, k] f32 — see
+    `repro_torch.kernels.edge_phase`.
+
+    The `repro.kernels.ops.fused_edge_phase` signature plus ``row_ptr``
+    ([nb, block_v+1] int32, the row runs of the row-sorted slabs), which the
+    CUDA kernel walks instead of scattering by ``edge_rows``.
+    """
+    if _route(edge_dst, "fused_edge_phase") == "cpu":
+        return _edge_phase.fused_edge_phase_plain(
+            edge_dst, edge_rows, edge_vals, labels, lam, actions, feasible,
+            block_v=block_v, k=k, weight_mode=weight_mode)
+    return _edge_phase.fused_edge_phase_cuda(
+        edge_dst, edge_vals, row_ptr, labels, lam, actions, feasible,
+        block_v=block_v, k=k, weight_mode=weight_mode)
+
+
+def la_update(probs, weights, signals, alpha: float, beta: float, *,
+              renorm: bool = True):
+    """Weighted-LA probability update (eqs. 8/9) on [..., k] — see
+    `repro_torch.kernels.la_update`. Returns a new tensor."""
+    if _route(probs, "la_update") == "cpu":
+        return _la_update.la_update_plain(probs, weights, signals, alpha,
+                                          beta, renorm=renorm)
+    return _la_update.la_update_cuda(probs, weights, signals, alpha, beta,
+                                     renorm=renorm)
