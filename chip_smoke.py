@@ -8,23 +8,46 @@ failure raises and the script exits non-zero without printing a result:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
-  3. parity   each kernel on small odd-k inputs against the plain version on
-              the CPU; then 3 supersteps on the card (kernels) against 3 on
-              the CPU (plain versions) from one state with the same random
-              draws, both weight modes: labels, lambda and loads equal,
-              probabilities within tolerance
-  4. graph    the paper's WIKI graph at full size (1.79M vertices), built on
-              the host (in a thread started before phase 2, overlapping the
-              kernel build and phase 3) and laid out on the card in 8 blocks
-  5. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes (K1 bit-exact, K2 at atol 5e-6 / rtol
-              5e-5), then timed: median of 30 launches after warm-up, CUDA
-              events, L2 flushed before each launch
-  6. main     ``run_partitioner("revolver", WIKI, k=8, seed=0)`` on the card,
+              (ptxas registers and spills printed)
+  3. parity   each partitioner kernel on small odd-k inputs against the
+              plain version on the CPU; then 3 supersteps on the card
+              (kernels) against 3 on the CPU (plain versions) from one state
+              with the same random draws, both weight modes: labels, lambda
+              and loads equal, probabilities within tolerance
+  4. attn     K4 and K5 on small odd shapes (GQA groups 1, 4, 8; causal,
+              windowed, Sq < Skv and Sq > Skv, ragged lengths, kv_len 0, 1,
+              S and mixed, with m and l) against their plain versions on the
+              CPU, f32 and bf16; then reduced GQA tinyllama in f32 (TF32 off):
+              prefill and 8 greedy decode steps on the card (kernels) against
+              the same on the CPU (plain versions), from one set of weights
+  5. lm-full  tinyllama-1.1b at full width, bf16, random weights from seed 0
+              on the card: prefill(1024) + decode(token 1025) against
+              prefill(1025)
+  6. graph    the paper's WIKI graph at full size (1.79M vertices), built on
+              the host (in a thread started before phase 2, overlapping
+              phases 2-5) and laid out on the card in 8 blocks
+  7. kernels  each partitioner kernel against its plain PyTorch version on
+              the card, at the main path's shapes (K1 bit-exact, K2 at atol
+              5e-6 / rtol 5e-5), then timed: median of 30 launches after
+              warm-up, CUDA events, L2 flushed before each launch
+  8. main     ``run_partitioner("revolver", WIKI, k=8, seed=0)`` on the card,
               with every launch counter set to 0 just before and read just
-              after; each kernel must have launched 8 times per superstep
-  7. profile  a few supersteps under torch.profiler: device busy share and
+              after; each partitioner kernel must have launched 8 times per
+              superstep
+  9. profile  a few supersteps under torch.profiler: device busy share and
               device time by kernel
+ 10. serve    ``Engine.generate`` on tinyllama-1.1b (batch 8, 1024-token
+              prompts, 128 new tokens, greedy), with every launch counter set
+              to 0 just before and read just after: K4 once per layer, K5
+              once per layer and decode step; rates, time to first token,
+              peak memory, and the device busy share over decode steps under
+              torch.profiler (after the graph thread joined, so the host is
+              not shared)
+ 11. attn-kernels  K4 and K5 at the serving shapes against their plain
+              versions on the card, then timed as in phase 7 but replayed
+              from a CUDA graph (device time without the wrapper's host
+              time; the eager time is printed beside), with
+              ``scaled_dot_product_attention`` as the yardstick
 
 The lines before the last are one JSON object per phase result, the
 ``{"kernels": [...]}`` summary and the nvidia-smi line; the last line is
@@ -47,7 +70,27 @@ N_BLOCKS = 8
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 K2_TOL = dict(atol=5e-6, rtol=5e-5)
+PARTITIONER_KERNELS = ("fused_edge_phase", "la_update")
+# attention kernels against their plain versions: in f32 the two differ in
+# summation order and fma contraction only (each is ~1e-6 from the exact
+# result), but one run saw the CPU plain version 7.3e-5 off the card's, so
+# f32 takes 1e-4, and the f32 kernel is also held to an f64 reference at
+# 5e-5; in bf16 the output is rounded to bf16 from f32 values that differ
+# that little, so by at most one bf16 ulp
+ATTN_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+            "bfloat16": dict(atol=2e-2, rtol=1e-2)}
+EXACT_TOL = dict(atol=5e-5, rtol=5e-5)
+# reduced GQA tinyllama, f32, card (kernels, cuBLAS) against CPU (plain
+# versions): summation order through 2 layers and 8 decode steps
+LM_TOL = dict(atol=1e-4, rtol=1e-4)
+# tinyllama-1.1b in bf16: prefill(1024) + decode against prefill(1025) take
+# different kernels and GEMM shapes; each rounds to bf16 (2^-9 relative) at
+# ~10 points per layer over 22 layers, ~3 % relative error in a random walk
+FULL_REL_TOL = 5e-2
+GQA = dict(n_heads=8, n_kv=2, d_model=128)
+SERVE = dict(batch=8, prompt=1024, new=128, s_max=1152)
 # the golden-worker graph of the JAX package's tests
 PARITY_GRAPH = dict(n=1024, m=8192, n_comm=16, mixing=0.25,
                     degree_exponent=0.5, seed=3)
@@ -86,6 +129,19 @@ def time_ms(torch, fn, flush, reps: int = 30, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(torch, fn, flush, reps: int = 30) -> float:
+    """Median device time of one ``fn()`` call, L2 flushed before each:
+    the call is captured once in a CUDA graph and replayed between CUDA
+    events, so the host time of the Python wrapper is not counted (at
+    decode sizes it is longer than the kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(torch, graph.replay, flush, reps)
 
 
 def check_k1_small(torch, np, seed: int) -> None:
@@ -229,6 +285,13 @@ def profile_phase(torch, dg, steps: int = 3):
             state = revolver_superstep(dg, cfg, state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return {"supersteps": steps, "wall_ms_per_superstep": wall_us / steps / 1e3,
+            **device_busy(prof, wall_us, steps, "superstep")}
+
+
+def device_busy(prof, wall_us: float, steps: int, unit: str) -> dict:
+    """Device busy time and share (union of kernel spans over the wall),
+    kernels and the top device time by kernel, per step."""
     spans, by_name = [], {}
     for e in prof.events():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -247,12 +310,305 @@ def profile_phase(torch, dg, steps: int = 3):
         busy += cur_e - cur_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
-        "supersteps": steps,
-        "wall_ms_per_superstep": wall_us / steps / 1e3,
-        "device_busy_ms_per_superstep": busy / steps / 1e3 if spans else None,
+        f"device_busy_ms_per_{unit}": busy / steps / 1e3 if spans else None,
         "device_busy_share": busy / wall_us if spans else None,
-        "device_kernels_per_superstep": len(spans) / steps,
-        "top_device_ms_per_superstep": {n: t / steps / 1e3 for n, t in top},
+        f"device_kernels_per_{unit}": len(spans) / steps,
+        f"top_device_ms_per_{unit}": {n: t / steps / 1e3 for n, t in top},
+    }
+
+
+def max_err(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def check_close(torch, got, want, tol: dict, what: str) -> float:
+    err = max_err(torch, got, want)
+    require(torch.allclose(got.float(), want.float(), **tol),
+            f"{what}: max abs err {err} beyond {tol}")
+    return err
+
+
+def attention_f64(torch, q, k, v, mask):
+    """Masked-softmax attention in f64 on [B,H,Sq,D] / [B,Hkv,Sk,D]; mask
+    broadcasts to [B,1,Sq,Sk]; rows without a valid key give 0."""
+    rep = q.shape[1] // k.shape[1]
+    kf, vf = (t.double().repeat_interleave(rep, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), kf) / q.shape[-1] ** 0.5
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1).nan_to_num(0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf)
+
+
+def attention_small_checks(torch) -> dict:
+    """K4 and K5 on small odd shapes on the card against their plain
+    versions on the CPU, f32 and bf16."""
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+
+    gen = torch.Generator().manual_seed(SEED)
+    errs = {}
+    k4_cases = [  # b, hq, hkv, sq, skv, d, causal, window
+        (2, 8, 8, 67, 67, 64, True, None),      # group 1, ragged
+        (1, 8, 2, 100, 100, 32, True, None),    # group 4
+        (2, 16, 2, 64, 130, 64, True, None),    # group 8, Sq < Skv
+        (1, 8, 1, 200, 200, 16, True, 50),      # group 8, window
+        (1, 4, 2, 33, 70, 128, False, None),    # d 128, no mask
+        (1, 4, 4, 80, 40, 64, True, None),      # Sq > Skv: rows without keys
+        (1, 8, 2, 96, 96, 64, False, 20),       # window without causality
+    ]
+    k5_cases = [  # b, hq, hkv, s, d, kv_len
+        (4, 8, 8, 300, 64, [0, 1, 300, 157]),           # group 1
+        (3, 16, 4, 1000, 32, [999, 1, 513]),            # group 4
+        (5, 32, 4, 1152, 64, [1088, 0, 1, 1152, 700]),  # group 8
+        (2, 8, 1, 77, 128, [77, 40]),                   # group 8, d 128
+        (2, 4, 2, 64, 16, [64, 3]),                     # d 16
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[str(dtype).split(".")[1]]
+        for b, hq, hkv, sq, skv, d, causal, window in k4_cases:
+            q = torch.randn((b, hq, sq, d), generator=gen).to(dtype)
+            k = torch.randn((b, hkv, skv, d), generator=gen).to(dtype)
+            v = torch.randn((b, hkv, skv, d), generator=gen).to(dtype)
+            got = k4.flash_attention_cuda(q.cuda(), k.cuda(), v.cuda(),
+                                          causal=causal, window=window)
+            want = k4.flash_attention_plain(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            name = f"k4 {dtype} {(b, hq, hkv, sq, skv, d, causal, window)}"
+            errs[name] = check_close(torch, got.cpu(), want, tol, name)
+            require(got.dtype == dtype, f"{name}: output dtype {got.dtype}")
+            if dtype == torch.float32:
+                mask = k4.attention_mask(sq, skv, causal=causal, window=window, device="cpu")
+                exact = attention_f64(torch, q, k, v, mask)
+                check_close(torch, got.cpu().double(), exact, EXACT_TOL, f"{name} vs f64")
+        for b, hq, hkv, s, d, lens in k5_cases:
+            q = torch.randn((b, hq, d), generator=gen).to(dtype)
+            kc = torch.randn((b, hkv, s, d), generator=gen).to(dtype)
+            vc = torch.randn((b, hkv, s, d), generator=gen).to(dtype)
+            kv_len = torch.tensor(lens, dtype=torch.int32)
+            got = k5.decode_attention_cuda(q.cuda(), kc.cuda(), vc.cuda(),
+                                           kv_len.cuda(), return_lse=True)
+            want = k5.decode_attention_plain(q, kc, vc, kv_len, return_lse=True)
+            torch.cuda.synchronize()
+            name = f"k5 {dtype} {(b, hq, hkv, s, d, lens)}"
+            for part, a, w in zip("oml", got, want):
+                t = tol if part == "o" else ATTN_TOL["float32"]
+                errs[f"{name} {part}"] = check_close(torch, a.cpu(), w, t, f"{name} {part}")
+            if dtype == torch.float32:
+                mask = (torch.arange(s)[None, :] < kv_len[:, None])[:, None, None, :]
+                exact = attention_f64(torch, q[:, :, None], kc, vc, mask)[:, :, 0]
+                check_close(torch, got[0].cpu().double(), exact, EXACT_TOL, f"{name} vs f64")
+            empty = kv_len == 0
+            require(bool((got[0].cpu()[empty] == 0).all() and (got[2].cpu()[empty] == 0).all()
+                         and (got[1].cpu()[empty] == -1e30).all()),
+                    f"{name}: kv_len 0 must give o = 0, m = -1e30, l = 0")
+            # positions past kv_len are never read: NaN there changes nothing
+            pos = torch.arange(s)[None, None, :, None]
+            poison = (pos >= kv_len[:, None, None, None]).cuda()
+            again = k5.decode_attention_cuda(
+                q.cuda(), kc.cuda().masked_fill(poison, float("nan")),
+                vc.cuda().masked_fill(poison, float("nan")), kv_len.cuda())
+            require(torch.equal(again, got[0]), f"{name}: reads past kv_len")
+    return {"cases": len(errs), "max_abs_err": max(errs.values())}
+
+
+def reduced_lm_parity(torch) -> dict:
+    """Reduced GQA tinyllama, f32: prefill (ragged prompt) and 8 greedy
+    decode steps on the card (kernels) against the CPU (plain versions)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_cache, init_lm, lm_decode_step, lm_prefill
+
+    cfg = get_config("tinyllama-1.1b").reduced(**GQA)
+    cpu = init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    card = init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu").to("cuda")
+    b, s, steps = 3, 37, 8
+    toks = torch.randint(0, cfg.vocab, (b, s), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    with torch.inference_mode():
+        lc, cc = lm_prefill(cpu, cfg, init_cache(cfg, b, s + steps, "cpu"), {"tokens": toks})
+        lg, cg = lm_prefill(card, cfg, init_cache(cfg, b, s + steps, "cuda"),
+                            {"tokens": toks.cuda()})
+        errs = [check_close(torch, lg.cpu(), lc, LM_TOL, "reduced prefill logits")]
+        for i in range(steps):
+            tc, tg = lc.argmax(-1).int(), lg.argmax(-1).int().cpu()
+            require(torch.equal(tc, tg), f"reduced greedy token differs at step {i}")
+            lc, cc = lm_decode_step(cpu, cfg, cc, tc)
+            lg, cg = lm_decode_step(card, cfg, cg, tg.cuda())
+            errs.append(check_close(torch, lg.cpu(), lc, LM_TOL, f"reduced decode {i} logits"))
+        for i in range(2):
+            errs.append(check_close(torch, cg["main"][i].cpu(), cc["main"][i], LM_TOL,
+                                    "reduced cache"))
+    return {"config": "tinyllama-1.1b reduced(n_heads=8, n_kv=2, d_model=128) f32",
+            "prompt": s, "decode_steps": steps, "max_abs_err": max(errs), "tol": LM_TOL}
+
+
+def full_width_model(torch):
+    """tinyllama-1.1b at full width in bf16, random weights from SEED on
+    the card, and random prompts of SERVE["prompt"] + 1 tokens."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_lm
+
+    cfg = get_config("tinyllama-1.1b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_lm(cfg, gen, "cuda")
+    toks = torch.randint(0, cfg.vocab, (SERVE["batch"], SERVE["prompt"] + 1),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    n_params = sum(p.numel() for p in model.parameters())
+    return cfg, model, toks, n_params
+
+
+def full_width_consistency(torch, cfg, model, toks) -> dict:
+    """prefill(P) + decode(token P+1) logits against prefill(P+1)'s."""
+    from repro_torch.models import init_cache, lm_decode_step, lm_prefill
+
+    p = SERVE["prompt"]
+    with torch.inference_mode():
+        cache = init_cache(cfg, SERVE["batch"], SERVE["s_max"], "cuda")
+        first, cache = lm_prefill(model, cfg, cache, {"tokens": toks[:, :p]})
+        dec, cache = lm_decode_step(model, cfg, cache, toks[:, p])
+        whole, _ = lm_prefill(model, cfg, init_cache(cfg, SERVE["batch"], SERVE["s_max"], "cuda"),
+                              {"tokens": toks})
+    for name, t in (("prefill", first), ("decode", dec), ("prefill+1", whole)):
+        require(bool(torch.isfinite(t).all()), f"full-width {name} logits not finite")
+    rel = float((dec - whole).norm() / whole.norm())
+    agree = float((dec.argmax(-1) == whole.argmax(-1)).float().mean())
+    require(rel < FULL_REL_TOL, f"full-width decode vs prefill: relative error {rel}")
+    return {"rel_l2_err": rel, "max_abs_err": max_err(torch, dec, whole),
+            "logit_abs_max": float(whole.abs().max()), "argmax_agree": agree,
+            "tol_rel_l2": FULL_REL_TOL}
+
+
+def serve_phase(torch, ops, cfg, model, toks) -> tuple[dict, dict]:
+    """The serving main path through `Engine.generate`, timed."""
+    from repro_torch.serve import Engine
+
+    prompts = toks[:, :SERVE["prompt"]].contiguous()
+    eng = Engine(cfg, model, s_max=SERVE["s_max"])
+    eng.generate(prompts, max_new=2)                       # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.generate(prompts, max_new=1)                       # prefill + first token
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res = eng.generate(prompts, max_new=SERVE["new"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = SERVE["new"] - 1
+    want = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * steps}
+    for name, c in counts.items():
+        require(c == want.get(name, 0), f"serve: {name} launched {c} times, "
+                f"expected {want.get(name, 0)}")
+    require(tuple(res.tokens.shape) == (SERVE["batch"], SERVE["new"]), "serve: token shape")
+    require(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab,
+            "serve: tokens out of range")
+    require(bool(torch.isfinite(res.logprobs).all()), "serve: non-finite logprobs")
+    decode_s = wall - ttft
+    b, p = SERVE["batch"], SERVE["prompt"]
+    return {"arch": cfg.name, "batch": b, "prompt": p, "new_tokens": SERVE["new"],
+            "s_max": SERVE["s_max"], "wall_s": wall, "ttft_s": ttft,
+            "prefill_tokens_per_s": b * p / ttft,
+            "decode_tokens_per_s": b * steps / decode_s,
+            "decode_ms_per_step": decode_s / steps * 1e3,
+            "peak_memory_bytes": peak, "allocated_before_bytes": weights,
+            "launches": counts}, counts
+
+
+def serve_profile(torch, cfg, model, toks, steps: int = 4) -> dict:
+    """Device busy share over a few decode steps at the serving shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import init_cache, lm_decode_step, lm_prefill
+
+    with torch.inference_mode():
+        cache = init_cache(cfg, SERVE["batch"], SERVE["s_max"], "cuda")
+        logits, cache = lm_prefill(model, cfg, cache, {"tokens": toks[:, :SERVE["prompt"]]})
+        for _ in range(2):                                 # warm-up
+            logits, cache = lm_decode_step(model, cfg, cache, logits.argmax(-1).int())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = lm_decode_step(model, cfg, cache, logits.argmax(-1).int())
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    return {"decode_steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+            **device_busy(prof, wall_us, steps, "step")}
+
+
+def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_serve_kernels(torch, flush) -> dict:
+    """K4 and K5 at the serving shapes: held against their plain versions
+    on the card, then timed beside the plain version and one PyTorch call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    b, hq, hkv, d = SERVE["batch"], 32, 4, 64
+    bf16, s, s_max, kv = torch.bfloat16, SERVE["prompt"], SERVE["s_max"], SERVE["prompt"] + 64
+    q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(bf16)
+    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(bf16)
+    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(bf16)
+    k4_err = check_close(torch, k4.flash_attention_cuda(q, k, v), k4.flash_attention_plain(q, k, v),
+                         ATTN_TOL["bfloat16"], "K4 at the serving shape")
+    qd = torch.randn((b, hq, d), generator=gen, device="cuda").to(bf16)
+    kc = torch.randn((b, hkv, s_max, d), generator=gen, device="cuda").to(bf16)
+    vc = torch.randn((b, hkv, s_max, d), generator=gen, device="cuda").to(bf16)
+    kv_len = torch.full((b,), kv, dtype=torch.int32, device="cuda")
+    got = k5.decode_attention_cuda(qd, kc, vc, kv_len, return_lse=True)
+    want = k5.decode_attention_plain(qd, kc, vc, kv_len, return_lse=True)
+    k5_err = check_close(torch, got[0], want[0], ATTN_TOL["bfloat16"], "K5 at the serving shape")
+    for a, w, part in zip(got[1:], want[1:], "ml"):
+        check_close(torch, a, w, ATTN_TOL["float32"], f"K5 {part} at the serving shape")
+    mask = (torch.arange(s_max, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+
+    el = 2  # bytes per bf16 element
+    k4_bytes = el * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    k4_flops = 4 * d * b * hq * s * (s + 1) // 2       # q.k and p.v over the causal pairs
+    k5_bytes = el * (2 * b * hkv * kv * d + 2 * b * hq * d) + 4 * b
+    k5_flops = 4 * d * b * hq * kv
+    k4_bound, k4_by = bound(k4_bytes, k4_flops, BF16_FLOPS)
+    k5_bound, k5_by = bound(k5_bytes, k5_flops, BF16_FLOPS)
+    k4_fn = lambda: k4.flash_attention_cuda(q, k, v)  # noqa: E731
+    k5_fn = lambda: k5.decode_attention_cuda(qd, kc, vc, kv_len)  # noqa: E731
+    return {
+        "flash_attention": {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:97",
+            "max_abs_err": k4_err,
+            "ms": graph_ms(torch, k4_fn, flush),
+            "plain_ms": graph_ms(torch, lambda: k4.flash_attention_plain(q, k, v), flush),
+            "bound_ms": k4_bound, "bound_by": k4_by,
+            "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), flush),
+            "eager_ms": time_ms(torch, k4_fn, flush),
+            "shape": f"q [{b},{hq},{s},{d}] kv [{b},{hkv},{s},{d}] bf16 causal",
+            "bytes": k4_bytes, "flops": k4_flops,
+        },
+        "decode_attention": {
+            "name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:78",
+            "max_abs_err": k5_err,
+            "ms": graph_ms(torch, k5_fn, flush),
+            "plain_ms": graph_ms(torch, lambda: k5.decode_attention_plain(qd, kc, vc, kv_len), flush),
+            "bound_ms": k5_bound, "bound_by": k5_by,
+            "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), flush),
+            "eager_ms": time_ms(torch, k5_fn, flush),
+            "shape": f"q [{b},{hq},{d}] caches [{b},{hkv},{s_max},{d}] bf16 kv_len {kv}",
+            "bytes": k5_bytes, "flops": k5_flops,
+        },
     }
 
 
@@ -270,6 +626,10 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
+    # f32 references in full f32 (the defaults, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     from repro_torch.core import run_partitioner
     from repro_torch.core.device_graph import prepare_device_graph
     from repro_torch.graphs import load_dataset
@@ -283,8 +643,8 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # the host graph build is the longest phase (numpy, mostly one core): it
-    # runs in a thread while the kernels build and the small checks run. A
-    # daemon thread, so a failing phase ends the script at once.
+    # runs in a thread while the kernels build and the correctness phases
+    # run. A daemon thread, so a failing phase ends the script at once.
     built = {}
 
     def build_graph():
@@ -312,12 +672,28 @@ def main() -> int:
     ops.reset_launch_counts()
     parity_steps = parity_phase(torch, np)
     parity_counts = ops.launch_counts()
-    require(all(c == 2 * N_BLOCKS * parity_steps for c in parity_counts.values()),
-            f"parity launches {parity_counts}")
+    require(all(parity_counts[n] == 2 * N_BLOCKS * parity_steps
+                for n in PARTITIONER_KERNELS), f"parity launches {parity_counts}")
     emit({"phase": "parity", "supersteps": parity_steps, "weight_modes": 2,
           "launches": parity_counts})
 
-    # 4. graph: full-size WIKI, host build (started above) then device layout
+    # 4. attention kernels on small odd shapes, then reduced-LM parity: the
+    # card (kernels) against the CPU (plain versions)
+    t = time.perf_counter()
+    attn_small = attention_small_checks(torch)
+    lm_small = reduced_lm_parity(torch)
+    emit({"phase": "attn", **attn_small, "reduced_lm": lm_small,
+          "seconds": time.perf_counter() - t})
+
+    # 5. tinyllama-1.1b at full width: prefill + decode against prefill
+    t = time.perf_counter()
+    cfg, model, toks, n_params = full_width_model(torch)
+    emit({"phase": "lm-full", "arch": cfg.name, "params": n_params,
+          **full_width_consistency(torch, cfg, model, toks),
+          "seconds": time.perf_counter() - t})
+    del model, toks      # rebuilt from the seed for phase 10
+
+    # 6. graph: full-size WIKI, host build (started above) then device layout
     t = time.perf_counter()
     graph_thread.join()
     require("g" in built, "host graph build failed (traceback above)")
@@ -333,7 +709,7 @@ def main() -> int:
           "host_generate_s": gen_s, "host_generate_wait_s": wait_s,
           "layout_s": layout_s})
 
-    # 5. kernels against their plain versions at the main path's shapes,
+    # 7. kernels against their plain versions at the main path's shapes,
     # then timed
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
     args, labels, lam, actions, feasible, live = check_k1_block(torch, dg, SEED)
@@ -380,7 +756,7 @@ def main() -> int:
           "k2_rows": bv, "k2_bytes": k2_bytes, "shape_note":
           "K1 at block 0 of full WIKI (nb=1), K2 at [block_v, 8]"})
 
-    # 6. the main path, through the entry point a user calls
+    # 8. the partitioner main path, through the entry point a user calls
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -391,8 +767,9 @@ def main() -> int:
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     for name, c in counts.items():
-        require(c == N_BLOCKS * res.steps, f"{name} launched {c} times in "
-                f"{res.steps} supersteps, expected {N_BLOCKS * res.steps}")
+        want = N_BLOCKS * res.steps if name in PARTITIONER_KERNELS else 0
+        require(c == want, f"{name} launched {c} times in {res.steps} "
+                f"supersteps, expected {want}")
     # the result, checked by the repo's own means: labels in range, metrics
     # recomputed on the host from the returned labels
     labels_h = res.labels
@@ -417,10 +794,28 @@ def main() -> int:
         rec["launches"] = counts[name]
         emit(rec)
 
-    # 7. where a superstep's time goes
+    # 9. where a superstep's time goes
     emit({"phase": "profile", **profile_phase(torch, dg)})
+    del dg, args, labels, lam, actions, feasible, k1_cuda, k1_plain, p, w, r, k2_cuda, k2_plain
 
-    emit({"kernels": [records["fused_edge_phase"], records["la_update"]]})
+    # 10. the serving main path, through the entry point a user calls
+    cfg, model, toks, _ = full_width_model(torch)
+    serve, serve_counts = serve_phase(torch, ops, cfg, model, toks)
+    emit({"phase": "serve", **serve})
+    emit({"phase": "serve-profile", **serve_profile(torch, cfg, model, toks)})
+
+    # 11. the attention kernels at the serving shapes, then timed
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
+    attn_records = attention_serve_kernels(torch, flush)
+    del flush
+    for name, rec in attn_records.items():
+        rec["launches"] = serve_counts[name]
+        records[name] = rec
+        emit(rec)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: records[n][k] for k in keys} for n in ops.LAUNCH_COUNTERS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

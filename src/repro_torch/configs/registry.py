@@ -1,0 +1,51 @@
+"""Architecture registry: the ten archs `repro` knows, and which of them
+the port runs.
+
+The dense decoder family is ported (`repro_torch.models.transformer`);
+`get_config` of an arch whose family or features are not ported yet raises
+`NotImplementedError` naming the ROADMAP item that brings it. `repro`'s
+``input_specs`` (ShapeDtypeStruct stand-ins for the JAX dry-run) has no
+counterpart here.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCHS = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "zamba2-7b": "zamba2_7b",
+    "internvl2-1b": "internvl2_1b",
+    "whisper-base": "whisper_base",
+    "rwkv6-3b": "rwkv6_3b",
+}
+
+# arch -> (what it needs that is not ported, the ROADMAP item that ports it)
+UNPORTED = {
+    "command-r-plus-104b": ("the parallel attention/MLP block", "queue 1 item 13"),
+    "h2o-danube-3-4b": ("sliding-window attention", "queue 1 item 13"),
+    "deepseek-v2-236b": ("MoE and MLA", "queue 1 item 13"),
+    "deepseek-v2-lite-16b": ("MoE and MLA", "queue 1 item 13"),
+    "zamba2-7b": ("the hybrid (Mamba2) family", "queue 1 item 13"),
+    "internvl2-1b": ("the VLM family", "queue 1 item 13"),
+    "whisper-base": ("the encoder-decoder family", "queue 1 item 13"),
+    "rwkv6-3b": ("the SSM family and its RWKV6 kernel (K6)", "queue 1 item 12"),
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+    if name in UNPORTED:
+        what, item = UNPORTED[name]
+        raise NotImplementedError(
+            f"{name} needs {what}, which is not ported yet; it comes with "
+            f"ROADMAP {item}")
+    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
+    return mod.CONFIG

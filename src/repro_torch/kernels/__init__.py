@@ -1,11 +1,15 @@
-"""Hand-written Hopper kernels of the partitioner, with their plain versions.
+"""Hand-written Hopper kernels of the port, with their plain versions.
 
-  edge_phase   K1: fused dual-histogram edge phase (replaces
-               repro.kernels.edge_phase.fused_edge_phase_pallas)
-  la_update    K2: weighted-LA probability update, eqs. (8)/(9) (replaces
-               repro.kernels.la_update.la_update_pallas)
-  ops          device-routed public wrappers and the launch counters
-  _build       nvcc build at first use and the ctypes binding
+  edge_phase        K1: fused dual-histogram edge phase (replaces
+                    repro.kernels.edge_phase.fused_edge_phase_pallas)
+  la_update         K2: weighted-LA probability update, eqs. (8)/(9)
+                    (replaces repro.kernels.la_update.la_update_pallas)
+  flash_attention   K4: causal / sliding-window GQA attention forward
+                    (replaces repro.kernels.flash_attention.flash_attention_pallas)
+  decode_attention  K5: flash-decode against a KV cache (replaces
+                    repro.kernels.decode_attention.decode_attention_pallas)
+  ops               device-routed public wrappers and the launch counters
+  _build            nvcc build at first use and the ctypes binding
 
 CUDA sources live in ``csrc/``; nothing is built at import time.
 """

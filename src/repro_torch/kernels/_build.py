@@ -28,7 +28,8 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-source extra flags: the LA update must not fuse multiply-adds, so its
 # rounding matches the plain version's separate tensor ops
-_EXTRA_FLAGS = {"edge_phase": (), "la_update": ("-fmad=false",)}
+_EXTRA_FLAGS = {"edge_phase": (), "la_update": ("-fmad=false",),
+                "flash_attention": (), "decode_attention": ()}
 _VOID = ctypes.c_void_p
 _ARGTYPES = {
     "edge_phase": ([_VOID] * 9 + [ctypes.c_int, ctypes.c_longlong,
@@ -37,6 +38,13 @@ _ARGTYPES = {
     "la_update": ([_VOID] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_float,
                                  ctypes.c_int, _VOID]),
+    # q, k, v, o; b, hq, hkv, sq, skv, d, causal, window; scale; dtype; stream
+    "flash_attention": ([_VOID] * 4 + [ctypes.c_int] * 8
+                        + [ctypes.c_float, ctypes.c_int, _VOID]),
+    # q, k, v, kv_len, o, m, l, acc, mp, lp; b, hq, hkv, s_max, d, n_split,
+    # chunk; scale; dtype; stream
+    "decode_attention": ([_VOID] * 10 + [ctypes.c_int] * 7
+                         + [ctypes.c_float, ctypes.c_int, _VOID]),
 }
 KERNELS = tuple(_EXTRA_FLAGS)
 

@@ -1,0 +1,123 @@
+"""K5: flash-decode — one query token per sequence against a KV cache.
+
+Replaces `repro.kernels.decode_attention.decode_attention_pallas`. q
+[B, Hq, D] attends to cache positions ``j < kv_len[b]`` of k_cache, v_cache
+[B, Hkv, S, D] (q head h reads kv head h // (Hq / Hkv)). Returns o
+[B, Hq, D] in q's dtype and, with ``return_lse``, the softmax statistics m
+(the max score) and l (the sum of exp(score - m)), both [B, Hq] f32, which
+a sequence-sharded decode combines. A sequence with kv_len 0 gives o = 0,
+m = -1e30, l = 0.
+
+Two implementations of one function:
+
+  * `decode_attention_plain` — the masked softmax over the whole cache in
+    f32; the CPU path and the oracle;
+  * `decode_attention_cuda` — the hand-written kernels in
+    ``csrc/decode_attention.cu`` (the cache split along S across CTAs, the
+    q heads of one KV head together in a CTA, then a deterministic combine
+    of the splits).
+
+They differ only in summation order (the kernel folds the cache in tiles
+and splits).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, NEG, check_inputs
+
+SPLIT_ROWS = 64          # a split covers a multiple of this many positions
+CTAS_PER_SM = 2          # splits are added until the grid has this many CTAs per SM
+
+LAUNCHES = _build.LaunchCounter()
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                           return_lse: bool = False):
+    """o [B, Hq, D] in q's dtype (f32 math); with ``return_lse`` also m, l
+    [B, Hq] f32."""
+    b, hq, d = q.shape
+    hkv, s_max = k_cache.shape[1], k_cache.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    qg = q.float().reshape(b, hkv, hq // hkv, d)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float()) * scale
+    valid = (torch.arange(s_max, device=q.device)[None, :]
+             < kv_len.to(q.device)[:, None])[:, None, None, :]
+    s = torch.where(valid, s, NEG)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    o = (o / torch.where(l > 0, l, 1.0)).reshape(b, hq, d).to(q.dtype)
+    if return_lse:
+        return o, m.reshape(b, hq), l.reshape(b, hq)
+    return o
+
+
+def split_plan(b: int, hkv: int, s_max: int, n_sm: int) -> tuple[int, int]:
+    """(n_split, chunk): the cache positions each CTA covers. Splits are
+    added until the grid has CTAS_PER_SM CTAs per SM, each covering a
+    multiple of SPLIT_ROWS positions."""
+    rows = math.ceil(s_max / SPLIT_ROWS)
+    want = max(1, math.ceil(CTAS_PER_SM * n_sm / (b * hkv)))
+    chunk = math.ceil(rows / min(want, rows)) * SPLIT_ROWS
+    return math.ceil(s_max / chunk), chunk
+
+
+def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                          return_lse: bool = False):
+    """Launch the K5 kernels on the current stream of the tensors' device.
+
+    q [B, Hq, D], caches [B, Hkv, S, D] of q's dtype (f32 or bf16),
+    contiguous, D in {16, 32, 64, 128}, Hq a multiple of Hkv; kv_len [B]
+    int32 on the same device (values are clamped to [0, S]). Returns new
+    tensors; raises on any input the kernels do not take, or if a launch
+    fails.
+    """
+    dev = q.device
+    check_inputs("decode_attention_cuda", dev, q.dtype, q=q, k_cache=k_cache,
+                 v_cache=v_cache)
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"expected q [B,Hq,D] and caches [B,Hkv,S,D], got "
+                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
+    b, hq, d = q.shape
+    hkv, s_max = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != b or k_cache.shape[3] != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match the cache "
+                         f"{tuple(k_cache.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the decode kernel takes D in {HEAD_DIMS}, got {d}")
+    if kv_len.device != dev or kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,):
+        raise ValueError(f"kv_len must be [{b}] int32 on {dev}, got "
+                         f"{tuple(kv_len.shape)} {kv_len.dtype} on {kv_len.device}")
+    kv_len = kv_len.contiguous()
+    out = torch.empty_like(q)
+    m = torch.empty((b, hq), dtype=torch.float32, device=dev)
+    l = torch.empty((b, hq), dtype=torch.float32, device=dev)
+    if b == 0 or hq == 0 or s_max == 0:
+        out.zero_()
+        m.fill_(NEG)
+        l.zero_()
+        return (out, m, l) if return_lse else out
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, chunk = split_plan(b, hkv, s_max, n_sm)
+    acc = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=dev)
+    mp = torch.empty((b, hq, n_split), dtype=torch.float32, device=dev)
+    lp = torch.empty((b, hq, n_split), dtype=torch.float32, device=dev)
+    lib = _build.load("decode_attention")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.decode_attention_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+            acc.data_ptr(), mp.data_ptr(), lp.data_ptr(), b, hq, hkv, s_max, d,
+            n_split, chunk, 1.0 / (d ** 0.5), DTYPES[q.dtype], stream)
+    _build.check(lib, "decode_attention", code)
+    LAUNCHES.add()
+    return (out, m, l) if return_lse else out

@@ -1,4 +1,4 @@
-"""Public wrappers of the partitioner kernels, routed by device.
+"""Public wrappers of the port's kernels, routed by device.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel or raises. There is no other route and no fallback: a
@@ -8,12 +8,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import edge_phase as _edge_phase
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import la_update as _la_update
 
 LAUNCH_COUNTERS = {
     "fused_edge_phase": _edge_phase.LAUNCHES,
     "la_update": _la_update.LAUNCHES,
+    "flash_attention": _flash_attention.LAUNCHES,
+    "decode_attention": _decode_attention.LAUNCHES,
 }
 
 
@@ -61,3 +65,26 @@ def la_update(probs, weights, signals, alpha: float, beta: float, *,
                                           beta, renorm=renorm)
     return _la_update.la_update_cuda(probs, weights, signals, alpha, beta,
                                      renorm=renorm)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
+    """Causal / sliding-window GQA attention, q [B,Hq,Sq,D] against k, v
+    [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in q's dtype — see
+    `repro_torch.kernels.flash_attention`."""
+    if _route(q, "flash_attention") == "cpu":
+        return _flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                      window=window)
+    return _flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                                 window=window)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, return_lse: bool = False):
+    """One query token per sequence, q [B,Hq,D], against the first
+    ``kv_len[b]`` positions of caches [B,Hkv,S,D] -> o [B,Hq,D] (and, with
+    ``return_lse``, m and l [B,Hq] f32) — see
+    `repro_torch.kernels.decode_attention`."""
+    if _route(q, "decode_attention") == "cpu":
+        return _decode_attention.decode_attention_plain(
+            q, k_cache, v_cache, kv_len, return_lse=return_lse)
+    return _decode_attention.decode_attention_cuda(
+        q, k_cache, v_cache, kv_len, return_lse=return_lse)

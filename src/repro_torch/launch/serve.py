@@ -1,0 +1,63 @@
+"""Serving launcher of the port: random-init parameters, batched generation.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      [--reduced] --batch 4 --prompt-len 16 --max-new 32 [--device cpu]
+
+`--device` defaults to cuda and fails without a CUDA device. Parameters and
+prompts are drawn from `--seed`; `--ckpt-dir` (restoring `repro`
+checkpoints) is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.core.device_graph import resolve_device
+from repro_torch.models import init_lm
+from repro_torch.serve import Engine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (cuda or cpu)")
+    args = ap.parse_args(argv)
+
+    if args.ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir: checkpoints are not ported yet; they come with "
+            "ROADMAP queue 1 item 8")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = init_lm(cfg, gen, dev)
+    eng = Engine(cfg, model, s_max=args.prompt_len + args.max_new)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                            generator=gen, device=dev, dtype=torch.int32)
+    t0 = time.monotonic()
+    res = eng.generate(prompts, max_new=args.max_new,
+                       temperature=args.temperature, generator=gen)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.monotonic() - t0
+    toks = args.batch * args.max_new
+    print(f"generated {toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s)")
+    print("first sequence:", res.tokens[0].tolist())
+    return res
+
+
+if __name__ == "__main__":
+    main()

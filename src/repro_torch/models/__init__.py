@@ -1,0 +1,6 @@
+"""LM stack of the port: the dense decoder family, served through the
+hand-written attention kernels (`repro_torch.kernels`)."""
+from repro_torch.models.api import init_cache, init_lm, lm_decode_step, lm_prefill
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["ModelConfig", "init_lm", "init_cache", "lm_prefill", "lm_decode_step"]

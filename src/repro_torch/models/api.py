@@ -1,0 +1,40 @@
+"""Unified model API — dispatch on cfg.family.
+
+  init_lm(cfg, generator, device)            -> model
+  init_cache(cfg, batch, s_max, device)      -> cache dict
+  lm_prefill(model, cfg, cache, batch)       -> (logits, cache)
+  lm_decode_step(model, cfg, cache, token)   -> (logits, cache)
+
+batch = {"tokens": [B,S] int32}. The dense family is ported; making a model
+or a cache for another raises `NotImplementedError` naming the ROADMAP item
+that ports it, and `repro`'s ``lm_loss`` (training) comes with queue 1
+item 14.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.device_graph import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> transformer.Decoder:
+    """Random parameters drawn from ``generator``, which lives on ``device``
+    (default-CUDA entry points pass ``"cuda"``; the CPU path ``"cpu"``)."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator is on {generator.device}, expected {dev}")
+    return transformer.init_decoder(cfg, generator)
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
+    return transformer.decoder_init_cache(cfg, batch, s_max, resolve_device(device))
+
+
+def lm_prefill(model, cfg: ModelConfig, cache: dict, batch: dict):
+    return transformer.decoder_prefill(model, cfg, batch["tokens"], cache)
+
+
+def lm_decode_step(model, cfg: ModelConfig, cache: dict, token):
+    return transformer.decoder_decode_step(model, cfg, cache, token)

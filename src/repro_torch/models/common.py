@@ -1,0 +1,141 @@
+"""Shared model primitives: parameter modules, inits, norms, rotary
+embeddings and the SwiGLU activation.
+
+`repro.models.common` keeps parameters in nested dicts with a stacked
+``[L, ...]`` layer axis; the port keeps them in small `nn.Module`s whose
+attribute names are `repro`'s dict keys (``w``/``b``, ``g``/``b``, ``emb``),
+so that a `repro` parameter tree maps onto `state_dict` names one to one
+(`repro_torch.models.convert`). Dense weights are ``[d_in, d_out]`` and
+applied as ``x @ w``, as in `repro`. Parameters never need gradients here:
+the port has no training path yet.
+
+Rounding points are `repro`'s: norms take f32 statistics and apply them in
+the activation dtype, RoPE rotates in f32 and casts back, SiLU runs in f32.
+`repro`'s ``bf16_silu`` switch (SiLU in the activation dtype, a perf knob of
+its multi-device activation-sharding context) is not carried over.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    """f32 normal draws on the generator's device, scaled, then cast."""
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# parameter modules and initializers
+# --------------------------------------------------------------------------
+class Dense(nn.Module):
+    """``y = x @ w (+ b)`` with ``w`` [d_in, d_out]."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor | None = None):
+        super().__init__()
+        self.w = _param(w)
+        self.b = None if b is None else _param(b)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(self, x)
+
+
+class Norm(nn.Module):
+    """Scale ``g`` (and, for a biased LayerNorm, shift ``b``) of `apply_norm`."""
+
+    def __init__(self, g: torch.Tensor, b: torch.Tensor | None = None):
+        super().__init__()
+        self.g = _param(g)
+        self.b = None if b is None else _param(b)
+
+
+class Embed(nn.Module):
+    """Token table ``emb`` [vocab, d]."""
+
+    def __init__(self, emb: torch.Tensor):
+        super().__init__()
+        self.emb = _param(emb)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
+               scale: float | None = None, bias: bool = False) -> Dense:
+    if scale is None:
+        scale = 1.0 / math.sqrt(d_in)
+    w = _normal(gen, (d_in, d_out), scale, dtype)
+    b = torch.zeros((d_out,), dtype=dtype, device=gen.device) if bias else None
+    return Dense(w, b)
+
+
+def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p.w
+    if p.b is not None:
+        y = y + p.b
+    return y
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> Embed:
+    return Embed(_normal(gen, (vocab, d), 0.02, dtype))
+
+
+def norm_init(d: int, dtype, device, *, kind: str = "rms",
+              bias: bool = False) -> Norm:
+    g = torch.ones((d,), dtype=dtype, device=device)
+    b = torch.zeros((d,), dtype=dtype, device=device) if kind == "layer" and bias else None
+    return Norm(g, b)
+
+
+def apply_norm(p: Norm, x: torch.Tensor, *, kind: str = "rms",
+               eps: float = 1e-5) -> torch.Tensor:
+    """Normalization with f32 statistics applied in the activation dtype."""
+    if kind == "rms":
+        ms = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+        y = x * torch.rsqrt(ms + eps).to(x.dtype)
+    elif kind == "layer":
+        xf = x.float()
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True) - mu * mu
+        y = (x - mu.to(x.dtype)) * torch.rsqrt(var + eps).to(x.dtype)
+    else:
+        raise ValueError(kind)
+    y = y * p.g
+    if p.b is not None:
+        y = y + p.b
+    return y
+
+
+# --------------------------------------------------------------------------
+# rotary position embeddings (full or partial)
+# --------------------------------------------------------------------------
+def rope_freqs(d_rot: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_rot, 2, dtype=torch.float32, device=device) / d_rot
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               d_rot: int | None = None, theta: float = 10000.0) -> torch.Tensor:
+    """x: [..., S, D]; positions: broadcastable to [..., S]. Rotates the
+    first ``d_rot`` channels (pairwise halves convention), passthrough rest."""
+    d = x.shape[-1]
+    if d_rot is None:
+        d_rot = d
+    inv = rope_freqs(d_rot, theta, device=x.device)              # [d_rot/2]
+    ang = positions[..., None].float() * inv                     # [..., S, d_rot/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x_rot, x_pass = x[..., :d_rot], x[..., d_rot:]
+    x1, x2 = torch.chunk(x_rot.float(), 2, dim=-1)
+    r = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([r.to(x.dtype), x_pass], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# activation
+# --------------------------------------------------------------------------
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up

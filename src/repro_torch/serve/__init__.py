@@ -1,0 +1,4 @@
+"""Serving engine of the port (batched prefill + decode)."""
+from repro_torch.serve.engine import Engine, GenerationResult
+
+__all__ = ["Engine", "GenerationResult"]

@@ -1,0 +1,225 @@
+"""The port's attention kernels on the CPU: the plain versions of K4 (flash
+attention) and K5 (flash decode) against `repro`'s Pallas kernels in
+interpret mode and its oracles, the plain counterparts of `repro`'s naive
+and chunked attention, the decode split-and-combine arithmetic, and the
+device routing. The CUDA kernels themselves run only on the card, where
+``chip_smoke.py`` holds each against its plain version.
+
+Tolerances, all f32: 2e-5 where both sides take a softmax over the same
+scores and differ only in summation order (the bound `tests/test_kernels.py`
+holds `repro`'s own kernels to)."""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro.models import attention as jattn
+
+from repro_torch.kernels import decode_attention, flash_attention, ops
+from repro_torch.models import attention as tattn
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _qkv(seed, b, hq, hkv, sq, skv, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, sq, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, skv, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, skv, d)).astype(np.float32))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+# --------------------------------------------------------------------------
+# K4
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", [
+    (2, 4, 2, 64, 64, 32, True, None),       # GQA group 2
+    (1, 8, 1, 128, 128, 16, True, 32),       # group 8, sliding window
+    (2, 4, 4, 64, 128, 32, True, None),      # Sq < Skv, right-aligned
+    (1, 2, 2, 64, 64, 64, False, None),      # no mask
+    (1, 8, 2, 64, 64, 16, False, 16),        # window without causality
+])
+def test_flash_attention_plain_matches_pallas_and_ref(b, hq, hkv, sq, skv, d,
+                                                      causal, window):
+    q, k, v = _qkv(0, b, hq, hkv, sq, skv, d)
+    got = flash_attention.flash_attention_plain(*_t(q, k, v), causal=causal,
+                                                window=window).numpy()
+    pallas = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=causal, window=window,
+                                  block_q=32, block_k=32, interpret=True)
+    want = ref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, window=window)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("sq,skv,window", [(37, 53, None), (53, 53, 7), (1, 29, None)])
+def test_flash_attention_plain_ragged_lengths_match_ref(sq, skv, window):
+    """Lengths no tile divides (the CUDA kernel masks them in-kernel)."""
+    q, k, v = _qkv(1, 2, 8, 2, sq, skv, 16)
+    got = flash_attention.flash_attention_plain(*_t(q, k, v), window=window)
+    want = ref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_flash_attention_plain_row_without_keys_gives_zero():
+    """Sq > Skv: the first Sq - Skv query rows precede every key, so the
+    causal mask leaves them none; they come out 0, as from the Pallas
+    kernel (the -inf oracle gives NaN there)."""
+    q, k, v = _qkv(2, 1, 4, 2, 64, 32, 16)
+    got = flash_attention.flash_attention_plain(*_t(q, k, v)).numpy()
+    pallas = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=32, block_k=32,
+        interpret=True))
+    assert np.all(got[:, :, :32] == 0)
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+def test_flash_attention_plain_keeps_bf16():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(3, 1, 4, 2, 32, 32, 16))
+    got = flash_attention.flash_attention_plain(q, k, v)
+    assert got.dtype == torch.bfloat16
+    want = flash_attention.flash_attention_plain(q.float(), k.float(), v.float())
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (False, None)])
+def test_naive_and_chunked_match_repro(causal, window):
+    """The plain counterparts of `repro`'s impl="naive" and impl="xla"."""
+    q, k, v = _qkv(4, 2, 4, 2, 40, 56, 16)
+    qt, kt, vt = _t(q, k, v)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    np.testing.assert_allclose(
+        tattn.naive_attention(qt, kt, vt, causal=causal, window=window).numpy(),
+        np.asarray(jattn.naive_attention(jq, jk, jv, causal=causal, window=window)),
+        **TOL)
+    np.testing.assert_allclose(
+        tattn.flash_attention_chunked(qt, kt, vt, causal=causal, window=window,
+                                      block_q=16, block_k=16).numpy(),
+        np.asarray(jattn.flash_attention_xla(jq, jk, jv, causal=causal,
+                                             window=window, block_q=16,
+                                             block_k=16)),
+        **TOL)
+
+
+# --------------------------------------------------------------------------
+# K5
+# --------------------------------------------------------------------------
+def _decode_inputs(seed, b, hq, hkv, s, d, kv_len):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, s, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, s, d)).astype(np.float32),
+            np.asarray(kv_len, np.int32))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kv_len", [
+    (4, 8, 2, 128, 32, [0, 1, 128, 77]),     # group 4; empty, one, full, mixed
+    (3, 8, 1, 64, 16, [64, 5, 33]),          # group 8
+    (2, 4, 4, 128, 64, [100, 128]),          # MHA (group 1)
+])
+def test_decode_attention_plain_matches_pallas(b, hq, hkv, s, d, kv_len):
+    q, kc, vc, lens = _decode_inputs(5, b, hq, hkv, s, d, kv_len)
+    o, m, l = decode_attention.decode_attention_plain(*_t(q, kc, vc, lens),
+                                                      return_lse=True)
+    jo, jm, jl = jops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                       jnp.asarray(vc), jnp.asarray(lens),
+                                       block_k=32, interpret=True,
+                                       return_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), **TOL)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl), **TOL)
+    empty = lens == 0
+    assert np.all(o.numpy()[empty] == 0) and np.all(l.numpy()[empty] == 0)
+    assert np.all(m.numpy()[empty] == np.float32(-1e30))
+    live = ~empty
+    want = ref.decode_attention_ref(jnp.asarray(q[live]), jnp.asarray(kc[live]),
+                                    jnp.asarray(vc[live]), jnp.asarray(lens[live]))
+    np.testing.assert_allclose(o.numpy()[live], np.asarray(want), **TOL)
+    assert decode_attention.decode_attention_plain(*_t(q, kc, vc, lens)).shape == (b, hq, d)
+
+
+@pytest.mark.parametrize("b,hkv,s_max,n_sm,plan", [
+    (8, 4, 1152, 132, (9, 128)),     # the tinyllama serving shape on an H100
+    (1, 1, 100, 132, (2, 64)),
+    (64, 8, 4096, 132, (1, 4096)),
+    (2, 2, 30, 132, (1, 64)),
+])
+def test_decode_split_plan(b, hkv, s_max, n_sm, plan):
+    n_split, chunk = decode_attention.split_plan(b, hkv, s_max, n_sm)
+    assert (n_split, chunk) == plan
+    assert chunk % decode_attention.SPLIT_ROWS == 0
+    assert (n_split - 1) * chunk < s_max <= n_split * chunk
+
+
+def test_split_and_combine_give_the_whole_cache_statistics():
+    """The CUDA kernel's arithmetic in PyTorch: per-split partial softmax,
+    then M = max m_i, L = sum l_i e^(m_i - M), o = sum acc_i e^(m_i - M) / L
+    over the splits in order, equals the whole-cache o, m and l."""
+    b, hq, hkv, s, d = 3, 8, 2, 200, 16
+    q, kc, vc, lens = _t(*_decode_inputs(6, b, hq, hkv, s, d, [0, 150, 200]))
+    n_split, chunk = decode_attention.split_plan(b, hkv, s, 132)
+    assert n_split > 1
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d)
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        lo, hi = i * chunk, (i + 1) * chunk
+        sc = torch.einsum("bhgd,bhkd->bhgk", qg, kc[:, :, lo:hi]) / math.sqrt(d)
+        pos = torch.arange(lo, min(hi, s))
+        valid = (pos[None, :] < lens[:, None])[:, None, None, :]
+        sc = torch.where(valid, sc, -1e30)
+        m = sc.amax(-1, keepdim=True)
+        p = torch.where(valid, torch.exp(sc - m), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("bhgk,bhkd->bhgd", p, vc[:, :, lo:hi]))
+    big = torch.stack(ms).amax(0)
+    total = sum(l_i * torch.exp(m_i - big) for m_i, l_i in zip(ms, ls))
+    num = sum(a_i * torch.exp(m_i - big) for m_i, a_i in zip(ms, accs))
+    o = (num / torch.where(total > 0, total, 1.0)).reshape(b, hq, d)
+    want_o, want_m, want_l = decode_attention.decode_attention_plain(
+        q, kc, vc, lens, return_lse=True)
+    np.testing.assert_allclose(o.numpy(), want_o.numpy(), **TOL)
+    np.testing.assert_allclose(big.reshape(b, hq).numpy(), want_m.numpy(), **TOL)
+    np.testing.assert_allclose(total.reshape(b, hq).numpy(), want_l.numpy(), **TOL)
+
+
+# --------------------------------------------------------------------------
+# routing
+# --------------------------------------------------------------------------
+def test_cpu_tensors_take_the_plain_attention_and_count_no_launch():
+    ops.reset_launch_counts()
+    q, k, v = _t(*_qkv(7, 1, 4, 2, 16, 16, 16))
+    torch.testing.assert_close(ops.flash_attention(q, k, v, window=8),
+                               flash_attention.flash_attention_plain(q, k, v, window=8),
+                               rtol=0, atol=0)
+    lens = torch.tensor([9], dtype=torch.int32)
+    o, m, l = ops.decode_attention(q[:, :, 0], k, v, lens, return_lse=True)
+    want = decode_attention.decode_attention_plain(q[:, :, 0], k, v, lens,
+                                                   return_lse=True)
+    for a, w in zip((o, m, l), want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCH_COUNTERS, 0)
+    assert {"flash_attention", "decode_attention"} <= set(ops.LAUNCH_COUNTERS)
+
+
+def test_attention_kernel_wrappers_refuse_non_cuda_tensors():
+    q, k, v = _t(*_qkv(8, 1, 4, 2, 16, 16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention.decode_attention_cuda(q[:, :, 0], k, v,
+                                               torch.tensor([3], dtype=torch.int32))
+    with pytest.raises(ValueError, match="no implementation"):
+        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
