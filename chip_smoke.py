@@ -22,39 +22,64 @@ failure raises and the script exits non-zero without printing a result:
               the same on the CPU (plain versions), from one set of weights
   5. lm-full  tinyllama-1.1b at full width, bf16, random weights from seed 0
               on the card: prefill(1024) + decode(token 1025) against
-              prefill(1025)
-  6. graph    the paper's WIKI graph at full size (1.79M vertices), built on
+              prefill(1025) (greedy argmax held as in phase 7's bf16 run)
+  6. rwkv-small  K6 on small odd shapes (B 1-3, H 1-4, N 8/16/32/80, S 1,
+              7, 64, 129, strong and weak decays, a nonzero state0, the
+              final state written over it) against its plain version on
+              the CPU, f32; then reduced rwkv6-3b in f32 (TF32
+              off): prefill and 8 greedy decode steps on the card against
+              the CPU, from one set of weights
+  7. rwkv-full  rwkv6-3b at full width, random weights from seed 0 on the
+              card: prefill(1024) + decode(token 1025) against prefill(1025)
+              (K6 at a ragged S), in bf16 (relative L2 < 5e-2, greedy
+              argmax equal on every row whose top-two gap exceeds one bf16
+              ulp of its top logit), then with f32 weights and activations
+              (relative L2 < 1e-3, greedy argmax equal on every row)
+  8. graph    the paper's WIKI graph at full size (1.79M vertices), built on
               the host (in a thread started before phase 2, overlapping
-              phases 2-5) and laid out on the card in 8 blocks
-  7. kernels  each partitioner kernel against its plain PyTorch version on
+              phases 2-7) and laid out on the card in 8 blocks
+  9. kernels  each partitioner kernel against its plain PyTorch version on
               the card, at the main path's shapes (K1 bit-exact, K2 at atol
               5e-6 / rtol 5e-5), then timed: median of 30 launches after
               warm-up, CUDA events, L2 flushed before each launch
-  8. main     ``run_partitioner("revolver", WIKI, k=8, seed=0)`` on the card,
+ 10. main     ``run_partitioner("revolver", WIKI, k=8, seed=0)`` on the card,
               with every launch counter set to 0 just before and read just
               after; each partitioner kernel must have launched 8 times per
               superstep
-  9. profile  a few supersteps under torch.profiler: device busy share and
+ 11. profile  a few supersteps under torch.profiler: device busy share and
               device time by kernel
- 10. serve    ``Engine.generate`` on tinyllama-1.1b (batch 8, 1024-token
+ 12. serve    ``Engine.generate`` on tinyllama-1.1b (batch 8, 1024-token
               prompts, 128 new tokens, greedy), with every launch counter set
               to 0 just before and read just after: K4 once per layer, K5
               once per layer and decode step; rates, time to first token,
               peak memory, and the device busy share over decode steps under
               torch.profiler (after the graph thread joined, so the host is
               not shared)
- 11. attn-kernels  K4 and K5 at the serving shapes against their plain
-              versions on the card, then timed as in phase 7 but replayed
+ 13. attn-kernels  K4 and K5 at the serving shapes against their plain
+              versions on the card, then timed as in phase 9 but replayed
               from a CUDA graph (device time without the wrapper's host
               time; the eager time is printed beside), with
               ``scaled_dot_product_attention`` as the yardstick
+ 14. rwkv-serve  ``Engine.generate`` on rwkv6-3b at full width and depth,
+              as phase 12: K6 once per layer in prefill and once per layer
+              and decode step (32 x 128 = 4,096 launches), no other kernel
+ 15. rwkv-kernel  K6 at the rwkv6-3b prefill shape [8,1024,32,80] and decode
+              shape [8,1,32,80] against its plain version on the card, then
+              timed as in phase 13 (no single PyTorch call computes the
+              recurrence, so it has no yardstick)
+
+Each model phase starts after the previous model is deleted and the
+allocator's cache emptied, with the peak memory statistics reset.
 
 The lines before the last are one JSON object per phase result, the
-``{"kernels": [...]}`` summary and the nvidia-smi line; the last line is
+script's wall time, the ``{"kernels": [...]}`` summary and the nvidia-smi
+line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -89,6 +114,15 @@ LM_TOL = dict(atol=1e-4, rtol=1e-4)
 # different kernels and GEMM shapes; each rounds to bf16 (2^-9 relative) at
 # ~10 points per layer over 22 layers, ~3 % relative error in a random walk
 FULL_REL_TOL = 5e-2
+# rwkv6-3b with f32 weights and activations (TF32 off), same comparison:
+# only summation order differs (~1e-5 relative through 32 layers), so the
+# greedy token is decided on every row; in bf16 a near-tie between two of
+# 65,536 random-weight logits flips within the rounding noise
+FULL_F32_REL_TOL = 1e-3
+# K6 against its plain version in f32: the kernel fuses multiply-adds and
+# sums y in four partial sums; the bound the JAX package holds its own
+# kernel to (tests/test_kernels.py), over up to 1024 decayed outer products
+WKV_TOL = dict(atol=2e-4, rtol=2e-4)
 GQA = dict(n_heads=8, n_kv=2, d_model=128)
 SERVE = dict(batch=8, prompt=1024, new=128, s_max=1152)
 # the golden-worker graph of the JAX package's tests
@@ -313,7 +347,10 @@ def device_busy(prof, wall_us: float, steps: int, unit: str) -> dict:
         f"device_busy_ms_per_{unit}": busy / steps / 1e3 if spans else None,
         "device_busy_share": busy / wall_us if spans else None,
         f"device_kernels_per_{unit}": len(spans) / steps,
-        f"top_device_ms_per_{unit}": {n: t / steps / 1e3 for n, t in top},
+        # [name, ms] pairs, names cut to 100 characters: templated kernel
+        # names run to kilobytes and would push earlier lines out of a
+        # tail-truncated log
+        f"top_device_ms_per_{unit}": [[n[:100], t / steps / 1e3] for n, t in top],
     }
 
 
@@ -410,43 +447,55 @@ def attention_small_checks(torch) -> dict:
     return {"cases": len(errs), "max_abs_err": max(errs.values())}
 
 
-def reduced_lm_parity(torch) -> dict:
-    """Reduced GQA tinyllama, f32: prefill (ragged prompt) and 8 greedy
-    decode steps on the card (kernels) against the CPU (plain versions)."""
+def cache_tensors(cache: dict):
+    """(name, tensor) for every tensor of an LM cache, tuples flattened."""
+    for name, val in cache.items():
+        for i, t in enumerate(val if isinstance(val, tuple) else (val,)):
+            yield f"{name}[{i}]" if isinstance(val, tuple) else name, t
+
+
+def reduced_lm_parity(torch, arch: str, overrides: dict, b: int = 3, s: int = 37) -> dict:
+    """A reduced config in f32: prefill (ragged prompt) and 8 greedy decode
+    steps on the card (kernels) against the CPU (plain versions), from one
+    set of weights; every cache tensor compared at the end."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import init_cache, init_lm, lm_decode_step, lm_prefill
 
-    cfg = get_config("tinyllama-1.1b").reduced(**GQA)
+    cfg = get_config(arch).reduced(**overrides)
     cpu = init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
     card = init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu").to("cuda")
-    b, s, steps = 3, 37, 8
+    steps = 8
     toks = torch.randint(0, cfg.vocab, (b, s), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(SEED + 1))
     with torch.inference_mode():
         lc, cc = lm_prefill(cpu, cfg, init_cache(cfg, b, s + steps, "cpu"), {"tokens": toks})
         lg, cg = lm_prefill(card, cfg, init_cache(cfg, b, s + steps, "cuda"),
                             {"tokens": toks.cuda()})
-        errs = [check_close(torch, lg.cpu(), lc, LM_TOL, "reduced prefill logits")]
+        errs = [check_close(torch, lg.cpu(), lc, LM_TOL, f"{arch} reduced prefill logits")]
         for i in range(steps):
             tc, tg = lc.argmax(-1).int(), lg.argmax(-1).int().cpu()
-            require(torch.equal(tc, tg), f"reduced greedy token differs at step {i}")
+            require(torch.equal(tc, tg), f"{arch} reduced greedy token differs at step {i}")
             lc, cc = lm_decode_step(cpu, cfg, cc, tc)
             lg, cg = lm_decode_step(card, cfg, cg, tg.cuda())
-            errs.append(check_close(torch, lg.cpu(), lc, LM_TOL, f"reduced decode {i} logits"))
-        for i in range(2):
-            errs.append(check_close(torch, cg["main"][i].cpu(), cc["main"][i], LM_TOL,
-                                    "reduced cache"))
-    return {"config": "tinyllama-1.1b reduced(n_heads=8, n_kv=2, d_model=128) f32",
-            "prompt": s, "decode_steps": steps, "max_abs_err": max(errs), "tol": LM_TOL}
+            errs.append(check_close(torch, lg.cpu(), lc, LM_TOL,
+                                    f"{arch} reduced decode {i} logits"))
+        for (name, got), (_, want) in zip(cache_tensors(cg), cache_tensors(cc)):
+            errs.append(check_close(torch, got.cpu(), want, LM_TOL, f"{arch} reduced cache {name}"))
+    args = ", ".join(f"{k}={v}" for k, v in overrides.items())
+    return {"config": f"{arch} reduced({args}) f32", "prompt": s, "decode_steps": steps,
+            "max_abs_err": max(errs), "tol": LM_TOL}
 
 
-def full_width_model(torch):
-    """tinyllama-1.1b at full width in bf16, random weights from SEED on
-    the card, and random prompts of SERVE["prompt"] + 1 tokens."""
+def full_width_model(torch, arch: str, dtype: str | None = None):
+    """``arch`` at full width in its own dtype (bf16) or ``dtype``, random
+    weights from SEED on the card, and random prompts of SERVE["prompt"] + 1
+    tokens."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import init_lm
 
-    cfg = get_config("tinyllama-1.1b")
+    cfg = get_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = init_lm(cfg, gen, "cuda")
     toks = torch.randint(0, cfg.vocab, (SERVE["batch"], SERVE["prompt"] + 1),
@@ -455,8 +504,25 @@ def full_width_model(torch):
     return cfg, model, toks, n_params
 
 
-def full_width_consistency(torch, cfg, model, toks) -> dict:
-    """prefill(P) + decode(token P+1) logits against prefill(P+1)'s."""
+def next_model(torch) -> None:
+    """Free what the previous phase's model left in the allocator's cache
+    (its references are dropped by the caller) and reset the peak memory
+    statistics, before the next phase loads its model."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def full_width_consistency(torch, cfg, model, toks, *, rel_tol: float = FULL_REL_TOL,
+                           same_argmax: bool = False) -> dict:
+    """prefill(P) + decode(token P+1) logits against prefill(P+1)'s, within
+    ``rel_tol`` relative L2. The greedy token must agree on every row whose
+    top-two gap in prefill(P+1) is larger than one ulp of its top logit in
+    the compute dtype (``near_ties`` counts the rows within that gap); with
+    ``same_argmax`` it must agree on every row. ``tie_gap`` is the largest
+    amount by which prefill(P+1) prefers its own greedy token to the
+    decode's."""
     from repro_torch.models import init_cache, lm_decode_step, lm_prefill
 
     p = SERVE["prompt"]
@@ -469,15 +535,28 @@ def full_width_consistency(torch, cfg, model, toks) -> dict:
     for name, t in (("prefill", first), ("decode", dec), ("prefill+1", whole)):
         require(bool(torch.isfinite(t).all()), f"full-width {name} logits not finite")
     rel = float((dec - whole).norm() / whole.norm())
-    agree = float((dec.argmax(-1) == whole.argmax(-1)).float().mean())
-    require(rel < FULL_REL_TOL, f"full-width decode vs prefill: relative error {rel}")
-    return {"rel_l2_err": rel, "max_abs_err": max_err(torch, dec, whole),
+    same = dec.argmax(-1) == whole.argmax(-1)
+    agree = float(same.float().mean())
+    gap = whole.amax(-1) - whole.gather(1, dec.argmax(-1, keepdim=True))[:, 0]
+    top2 = whole.float().topk(2, dim=-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top2[:, 0].abs().clamp_min(1e-30)))) \
+        * torch.finfo(cfg.cdt).eps
+    decided = top2[:, 0] - top2[:, 1] > ulp
+    if same_argmax:
+        decided = torch.ones_like(decided)
+    require(rel < rel_tol, f"full-width decode vs prefill: relative error {rel}")
+    require(bool(same[decided].all()),
+            f"full-width decode vs prefill: greedy argmax agrees on {agree} of the rows, "
+            f"and differs on a row that is not a near-tie")
+    return {"dtype": str(cfg.cdt), "rel_l2_err": rel, "max_abs_err": max_err(torch, dec, whole),
             "logit_abs_max": float(whole.abs().max()), "argmax_agree": agree,
-            "tol_rel_l2": FULL_REL_TOL}
+            "near_ties": int((~decided).sum()), "tie_gap": float(gap.max()),
+            "tol_rel_l2": rel_tol}
 
 
-def serve_phase(torch, ops, cfg, model, toks) -> tuple[dict, dict]:
-    """The serving main path through `Engine.generate`, timed."""
+def serve_phase(torch, ops, cfg, model, toks, want: dict) -> tuple[dict, dict]:
+    """The serving main path through `Engine.generate`, timed; ``want`` is
+    each kernel's launch count in the generate call (others must be 0)."""
     from repro_torch.serve import Engine
 
     prompts = toks[:, :SERVE["prompt"]].contiguous()
@@ -498,7 +577,6 @@ def serve_phase(torch, ops, cfg, model, toks) -> tuple[dict, dict]:
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = SERVE["new"] - 1
-    want = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * steps}
     for name, c in counts.items():
         require(c == want.get(name, 0), f"serve: {name} launched {c} times, "
                 f"expected {want.get(name, 0)}")
@@ -518,14 +596,21 @@ def serve_phase(torch, ops, cfg, model, toks) -> tuple[dict, dict]:
 
 
 def serve_profile(torch, cfg, model, toks, steps: int = 4) -> dict:
-    """Device busy share over a few decode steps at the serving shape."""
+    """Device busy share over the prefill and over a few decode steps at the
+    serving shape (after the serve phase's calls warmed both up)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import init_cache, lm_decode_step, lm_prefill
 
     with torch.inference_mode():
         cache = init_cache(cfg, SERVE["batch"], SERVE["s_max"], "cuda")
-        logits, cache = lm_prefill(model, cfg, cache, {"tokens": toks[:, :SERVE["prompt"]]})
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logits, cache = lm_prefill(model, cfg, cache, {"tokens": toks[:, :SERVE["prompt"]]})
+            torch.cuda.synchronize()
+            prefill_us = (time.perf_counter() - t0) * 1e6
+        prefill = {"wall_ms": prefill_us / 1e3, **device_busy(prof, prefill_us, 1, "prefill")}
         for _ in range(2):                                 # warm-up
             logits, cache = lm_decode_step(model, cfg, cache, logits.argmax(-1).int())
         torch.cuda.synchronize()
@@ -536,7 +621,7 @@ def serve_profile(torch, cfg, model, toks, steps: int = 4) -> dict:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     return {"decode_steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
-            **device_busy(prof, wall_us, steps, "step")}
+            **device_busy(prof, wall_us, steps, "step"), "prefill": prefill}
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -612,7 +697,81 @@ def attention_serve_kernels(torch, flush) -> dict:
     }
 
 
+def wkv6_inputs(torch, gen, b: int, s: int, h: int, n: int, device):
+    """f32 r, k, v, logw [B,S,H,N], u [H,N], state0 [B,H,N,N] from ``gen``:
+    decays from strong (w = exp(-e^2)) to weak (exp(-e^-6)), a nonzero
+    starting state."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+    logw = -torch.exp(torch.rand((b, s, h, n), generator=gen, device=device) * 8.0 - 6.0)
+    return (randn(b, s, h, n), randn(b, s, h, n), randn(b, s, h, n), logw,
+            randn(h, n, scale=0.3), randn(b, h, n, n, scale=0.1))
+
+
+def wkv6_small_checks(torch) -> dict:
+    """K6 on small odd shapes on the card against its plain version on the
+    CPU, f32; both write the final state over their state0."""
+    from repro_torch.kernels import wkv6 as k6
+
+    gen = torch.Generator().manual_seed(SEED)
+    cases = [  # b, s, h, n
+        (1, 1, 1, 8), (2, 7, 3, 16), (3, 64, 4, 32), (2, 129, 2, 80),
+        (1, 129, 4, 8), (3, 1, 4, 80), (2, 64, 1, 80), (1, 7, 2, 32),
+    ]
+    errs = {}
+    for b, s, h, n in cases:
+        cpu = wkv6_inputs(torch, gen, b, s, h, n, "cpu")
+        card = [t.cuda() for t in cpu]
+        y, st = k6.wkv6_cuda(*card)
+        wy, wst = k6.wkv6_plain(*cpu)
+        torch.cuda.synchronize()
+        name = f"k6 {(b, s, h, n)}"
+        require(st is card[5] and wst is cpu[5], f"{name}: state not written over state0")
+        errs[f"{name} y"] = check_close(torch, y.cpu(), wy, WKV_TOL, f"{name} y")
+        errs[f"{name} state"] = check_close(torch, st.cpu(), wst, WKV_TOL, f"{name} state")
+    return {"cases": len(cases), "max_abs_err": max(errs.values()), "tol": WKV_TOL}
+
+
+def wkv6_serve_kernel(torch, flush) -> tuple[dict, dict]:
+    """K6 at the rwkv6-3b prefill shape [8,1024,32,80] and decode shape
+    [8,1,32,80]: held against its plain version on the card, then timed as
+    K4 and K5 are. Returns (the prefill-shape record, the decode-shape
+    numbers)."""
+    from repro_torch.kernels import wkv6 as k6
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    b, h, n = SERVE["batch"], 32, 80
+    out = {}
+    for label, s in (("prefill", SERVE["prompt"]), ("decode", 1)):
+        args = wkv6_inputs(torch, gen, b, s, h, n, "cuda")
+        got = k6.wkv6_cuda(*args[:5], args[5].clone())
+        want = k6.wkv6_plain(*args[:5], args[5].clone())
+        err = max(check_close(torch, got[0], want[0], WKV_TOL, f"K6 y at the {label} shape"),
+                  check_close(torch, got[1], want[1], WKV_TOL, f"K6 state at the {label} shape"))
+        nbytes = 4 * (5 * b * s * h * n + h * n + 2 * b * h * n * n)
+        # k v, S w + k v and r S: 5 N^2 a token and head; the u term factors
+        # as v[m] sum_n r[n] u[n] k[n]: 3 N for the sum, 2 N to add it to y
+        flops = (5 * n * n + 5 * n) * b * s * h
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+        fn = lambda: k6.wkv6_cuda(*args)  # noqa: E731
+        out[label] = {
+            "max_abs_err": err, "ms": graph_ms(torch, fn, flush),
+            "plain_ms": graph_ms(torch, lambda: k6.wkv6_plain(*args), flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "eager_ms": time_ms(torch, fn, flush),
+            "shape": f"r/k/v/logw [{b},{s},{h},{n}] f32, state [{b},{h},{n},{n}] f32",
+            "bytes": nbytes, "flops": flops,
+        }
+        del args, got, want
+    record = {"name": "wkv6", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+              "replaces": "src/repro/kernels/wkv6.py:57",
+              "library_ms": None, **out["prefill"]}
+    return record, out["decode"]
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -681,19 +840,46 @@ def main() -> int:
     # card (kernels) against the CPU (plain versions)
     t = time.perf_counter()
     attn_small = attention_small_checks(torch)
-    lm_small = reduced_lm_parity(torch)
+    lm_small = reduced_lm_parity(torch, "tinyllama-1.1b", GQA)
     emit({"phase": "attn", **attn_small, "reduced_lm": lm_small,
           "seconds": time.perf_counter() - t})
 
     # 5. tinyllama-1.1b at full width: prefill + decode against prefill
+    next_model(torch)
     t = time.perf_counter()
-    cfg, model, toks, n_params = full_width_model(torch)
+    cfg, model, toks, n_params = full_width_model(torch, "tinyllama-1.1b")
     emit({"phase": "lm-full", "arch": cfg.name, "params": n_params,
           **full_width_consistency(torch, cfg, model, toks),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "seconds": time.perf_counter() - t})
-    del model, toks      # rebuilt from the seed for phase 10
+    del model, toks      # rebuilt from the seed for phase 12
 
-    # 6. graph: full-size WIKI, host build (started above) then device layout
+    # 6. K6 on small odd shapes, then reduced rwkv6-3b parity: the card
+    # (kernels) against the CPU (plain versions)
+    next_model(torch)
+    t = time.perf_counter()
+    wkv_small = wkv6_small_checks(torch)
+    rwkv_small = reduced_lm_parity(torch, "rwkv6-3b", {})
+    emit({"phase": "rwkv-small", **wkv_small, "reduced_lm": rwkv_small,
+          "seconds": time.perf_counter() - t})
+
+    # 7. rwkv6-3b at full width: prefill + decode against prefill, in bf16
+    # (the greedy token agrees on every row but near-ties), then with f32
+    # weights and activations, where it must agree on every row
+    for dtype, tol, same_argmax in ((None, FULL_REL_TOL, False),
+                                    ("float32", FULL_F32_REL_TOL, True)):
+        next_model(torch)
+        t = time.perf_counter()
+        cfg, model, toks, n_params = full_width_model(torch, "rwkv6-3b", dtype)
+        emit({"phase": "rwkv-full", "arch": cfg.name, "params": n_params,
+              **full_width_consistency(torch, cfg, model, toks, rel_tol=tol,
+                                       same_argmax=same_argmax),
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "seconds": time.perf_counter() - t})
+        del model, toks      # rebuilt from the seed for phase 14
+    next_model(torch)
+
+    # 8. graph: full-size WIKI, host build (started above) then device layout
     t = time.perf_counter()
     graph_thread.join()
     require("g" in built, "host graph build failed (traceback above)")
@@ -709,7 +895,7 @@ def main() -> int:
           "host_generate_s": gen_s, "host_generate_wait_s": wait_s,
           "layout_s": layout_s})
 
-    # 7. kernels against their plain versions at the main path's shapes,
+    # 9. kernels against their plain versions at the main path's shapes,
     # then timed
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
     args, labels, lam, actions, feasible, live = check_k1_block(torch, dg, SEED)
@@ -756,7 +942,7 @@ def main() -> int:
           "k2_rows": bv, "k2_bytes": k2_bytes, "shape_note":
           "K1 at block 0 of full WIKI (nb=1), K2 at [block_v, 8]"})
 
-    # 8. the partitioner main path, through the entry point a user calls
+    # 10. the partitioner main path, through the entry point a user calls
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -794,17 +980,20 @@ def main() -> int:
         rec["launches"] = counts[name]
         emit(rec)
 
-    # 9. where a superstep's time goes
+    # 11. where a superstep's time goes
     emit({"phase": "profile", **profile_phase(torch, dg)})
     del dg, args, labels, lam, actions, feasible, k1_cuda, k1_plain, p, w, r, k2_cuda, k2_plain
 
-    # 10. the serving main path, through the entry point a user calls
-    cfg, model, toks, _ = full_width_model(torch)
-    serve, serve_counts = serve_phase(torch, ops, cfg, model, toks)
+    # 12. the serving main path, through the entry point a user calls
+    next_model(torch)
+    cfg, model, toks, _ = full_width_model(torch, "tinyllama-1.1b")
+    serve, serve_counts = serve_phase(
+        torch, ops, cfg, model, toks,
+        {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * (SERVE["new"] - 1)})
     emit({"phase": "serve", **serve})
     emit({"phase": "serve-profile", **serve_profile(torch, cfg, model, toks)})
 
-    # 11. the attention kernels at the serving shapes, then timed
+    # 13. the attention kernels at the serving shapes, then timed
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
     attn_records = attention_serve_kernels(torch, flush)
     del flush
@@ -812,7 +1001,29 @@ def main() -> int:
         rec["launches"] = serve_counts[name]
         records[name] = rec
         emit(rec)
+    del model, toks
 
+    # 14. rwkv6-3b served through the same entry point: K6 once per layer in
+    # prefill and once per layer and decode step
+    next_model(torch)
+    cfg, model, toks, _ = full_width_model(torch, "rwkv6-3b")
+    serve, serve_counts = serve_phase(torch, ops, cfg, model, toks,
+                                      {"wkv6": cfg.n_layers * SERVE["new"]})
+    emit({"phase": "rwkv-serve", **serve})
+    emit({"phase": "rwkv-serve-profile", **serve_profile(torch, cfg, model, toks)})
+    del model, toks
+
+    # 15. K6 at the rwkv6-3b serving shapes, then timed
+    next_model(torch)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
+    rec, decode = wkv6_serve_kernel(torch, flush)
+    del flush
+    rec["launches"] = serve_counts["wkv6"]
+    records["wkv6"] = rec
+    emit(rec)
+    emit({"phase": "rwkv-kernel", "decode_shape": decode})
+
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: records[n][k] for k in keys} for n in ops.LAUNCH_COUNTERS]})

@@ -1,8 +1,9 @@
 """Architecture registry: the ten archs `repro` knows, and which of them
 the port runs.
 
-The dense decoder family is ported (`repro_torch.models.transformer`);
-`get_config` of an arch whose family or features are not ported yet raises
+The dense decoder family (`repro_torch.models.transformer`) and the RWKV6
+``ssm`` family (`repro_torch.models.rwkv_model`) are ported; `get_config`
+of an arch whose family or features are not ported yet raises
 `NotImplementedError` naming the ROADMAP item that brings it. `repro`'s
 ``input_specs`` (ShapeDtypeStruct stand-ins for the JAX dry-run) has no
 counterpart here.
@@ -35,7 +36,6 @@ UNPORTED = {
     "zamba2-7b": ("the hybrid (Mamba2) family", "queue 1 item 13"),
     "internvl2-1b": ("the VLM family", "queue 1 item 13"),
     "whisper-base": ("the encoder-decoder family", "queue 1 item 13"),
-    "rwkv6-3b": ("the SSM family and its RWKV6 kernel (K6)", "queue 1 item 12"),
 }
 
 

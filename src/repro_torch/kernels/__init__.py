@@ -8,6 +8,8 @@
                     (replaces repro.kernels.flash_attention.flash_attention_pallas)
   decode_attention  K5: flash-decode against a KV cache (replaces
                     repro.kernels.decode_attention.decode_attention_pallas)
+  wkv6              K6: the RWKV6 wkv recurrence (replaces
+                    repro.kernels.wkv6.wkv6_pallas)
   ops               device-routed public wrappers and the launch counters
   _build            nvcc build at first use and the ctypes binding
 

@@ -29,7 +29,7 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-source extra flags: the LA update must not fuse multiply-adds, so its
 # rounding matches the plain version's separate tensor ops
 _EXTRA_FLAGS = {"edge_phase": (), "la_update": ("-fmad=false",),
-                "flash_attention": (), "decode_attention": ()}
+                "flash_attention": (), "decode_attention": (), "wkv6": ()}
 _VOID = ctypes.c_void_p
 _ARGTYPES = {
     "edge_phase": ([_VOID] * 9 + [ctypes.c_int, ctypes.c_longlong,
@@ -45,6 +45,8 @@ _ARGTYPES = {
     # chunk; scale; dtype; stream
     "decode_attention": ([_VOID] * 10 + [ctypes.c_int] * 7
                          + [ctypes.c_float, ctypes.c_int, _VOID]),
+    # r, k, v, logw, u, state0, y, state_out; b, s, h, n; stream
+    "wkv6": [_VOID] * 7 + [ctypes.c_int] * 4 + [_VOID],
 }
 KERNELS = tuple(_EXTRA_FLAGS)
 

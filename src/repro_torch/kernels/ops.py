@@ -12,12 +12,14 @@ from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import edge_phase as _edge_phase
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import la_update as _la_update
+from repro_torch.kernels import wkv6 as _wkv6
 
 LAUNCH_COUNTERS = {
     "fused_edge_phase": _edge_phase.LAUNCHES,
     "la_update": _la_update.LAUNCHES,
     "flash_attention": _flash_attention.LAUNCHES,
     "decode_attention": _decode_attention.LAUNCHES,
+    "wkv6": _wkv6.LAUNCHES,
 }
 
 
@@ -88,3 +90,12 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, return_lse: bool = False):
             q, k_cache, v_cache, kv_len, return_lse=return_lse)
     return _decode_attention.decode_attention_cuda(
         q, k_cache, v_cache, kv_len, return_lse=return_lse)
+
+
+def wkv6(r, k, v, logw, u, state0):
+    """RWKV6 recurrence, r/k/v/logw [B,S,H,N], u [H,N], state0 [B,H,N,N],
+    all f32 -> (y [B,S,H,N] f32, state0), the final state written over
+    ``state0`` — see `repro_torch.kernels.wkv6`."""
+    if _route(r, "wkv6") == "cpu":
+        return _wkv6.wkv6_plain(r, k, v, logw, u, state0)
+    return _wkv6.wkv6_cuda(r, k, v, logw, u, state0)

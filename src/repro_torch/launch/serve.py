@@ -3,7 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       [--reduced] --batch 4 --prompt-len 16 --max-new 32 [--device cpu]
 
-`--device` defaults to cuda and fails without a CUDA device. Parameters and
+`--arch` takes the ported archs: the dense decoders (tinyllama-1.1b,
+stablelm-1.6b) and rwkv6-3b. `--device` defaults to cuda and fails without a CUDA device. Parameters and
 prompts are drawn from `--seed`; `--ckpt-dir` (restoring `repro`
 checkpoints) is not ported yet.
 """

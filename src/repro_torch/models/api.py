@@ -5,36 +5,45 @@
   lm_prefill(model, cfg, cache, batch)       -> (logits, cache)
   lm_decode_step(model, cfg, cache, token)   -> (logits, cache)
 
-batch = {"tokens": [B,S] int32}. The dense family is ported; making a model
-or a cache for another raises `NotImplementedError` naming the ROADMAP item
-that ports it, and `repro`'s ``lm_loss`` (training) comes with queue 1
-item 14.
+batch = {"tokens": [B,S] int32}. The dense family (`transformer`) and the
+RWKV6 ``ssm`` family (`rwkv_model`) are ported; making a model or a cache
+for another raises `NotImplementedError` naming the ROADMAP item that ports
+it, and `repro`'s ``lm_loss`` (training) comes with queue 1 item 14.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.device_graph import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rwkv_model, transformer
 from repro_torch.models.config import ModelConfig
 
 
-def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> transformer.Decoder:
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
     """Random parameters drawn from ``generator``, which lives on ``device``
     (default-CUDA entry points pass ``"cuda"``; the CPU path ``"cpu"``)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, expected {dev}")
+    if cfg.family == "ssm":
+        return rwkv_model.init_rwkv(cfg, generator)
     return transformer.init_decoder(cfg, generator)
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
-    return transformer.decoder_init_cache(cfg, batch, s_max, resolve_device(device))
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return rwkv_model.rwkv_init_cache(cfg, batch, s_max, dev)
+    return transformer.decoder_init_cache(cfg, batch, s_max, dev)
 
 
 def lm_prefill(model, cfg: ModelConfig, cache: dict, batch: dict):
+    if cfg.family == "ssm":
+        return rwkv_model.rwkv_prefill(model, cfg, batch["tokens"], cache)
     return transformer.decoder_prefill(model, cfg, batch["tokens"], cache)
 
 
 def lm_decode_step(model, cfg: ModelConfig, cache: dict, token):
+    if cfg.family == "ssm":
+        return rwkv_model.rwkv_decode_step(model, cfg, cache, token)
     return transformer.decoder_decode_step(model, cfg, cache, token)

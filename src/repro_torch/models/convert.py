@@ -1,10 +1,11 @@
 """Carry `repro`'s LM parameters across into the port.
 
-`repro` keeps a dense decoder's parameters as a nested dict whose block
-leaves carry a stacked ``[L, ...]`` layer axis (built with ``jax.vmap``)
-and whose dense weights are ``[d_in, d_out]``. `lm_params_from_numpy`
-takes that tree with numpy leaves (``jax.device_get(params)``) and returns
-the port's `Decoder`, which computes what `repro` computes from them.
+`repro` keeps an LM's parameters as a nested dict whose block leaves carry
+a stacked ``[L, ...]`` layer axis (built with ``jax.vmap``) and whose dense
+weights are ``[d_in, d_out]``. `lm_params_from_numpy` takes that tree with
+numpy leaves (``jax.device_get(params)``), of a dense decoder or of an
+RWKV6 model, and returns the port's `Decoder` or `RWKV`, which computes
+what `repro` computes from them.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.common import Dense, Embed, Norm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import MLP
+from repro_torch.models.rwkv6 import ChannelMix, TimeMix
+from repro_torch.models.rwkv_model import RWKV, RWKVBlock
 from repro_torch.models.transformer import Block, Decoder, check_ported
 
 
@@ -35,11 +38,12 @@ def _paths(tree: dict, prefix: str = "") -> set:
     return out
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder:
-    """The port's `Decoder` on ``device`` from `repro`'s dense-decoder
-    parameter tree with numpy leaves. Raises if the tree holds leaves the
-    port would not use (or lacks some)."""
-    check_ported(cfg)
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV:
+    """The port's `Decoder` (dense family) or `RWKV` (``ssm`` family) on
+    ``device`` from `repro`'s parameter tree with numpy leaves. Raises if
+    the tree holds leaves the port would not use (or lacks some)."""
+    if cfg.family != "ssm":
+        check_ported(cfg)
     dev = resolve_device(device)
 
     def put(a):
@@ -54,17 +58,30 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder:
     def layer(d, i):
         return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in d.items()}
 
-    blocks = []
-    for i in range(cfg.n_layers):
-        bt = layer(tree["blocks"], i)
-        a = bt["attn"]
-        blocks.append(Block(
-            norm(bt["ln1"]),
-            Attention(lin(a["wq"]), lin(a["wk"]), lin(a["wv"]), lin(a["wo"])),
-            norm(bt["ln2"]),
-            MLP(cfg.mlp_kind, **{k: lin(v) for k, v in bt["mlp"].items()})))
-    unembed = None if cfg.tie_embeddings else Embed(put(tree["unembed"]["emb"]))
-    model = Decoder(Embed(put(tree["embed"]["emb"])), blocks, norm(tree["ln_f"]), unembed)
+    def module(d, cls):
+        """``cls`` from a dict of arrays, dense layers ({w}) and norms ({g, b})."""
+        try:
+            return cls(**{k: (lin(v) if "w" in v else norm(v)) if isinstance(v, dict)
+                          else put(v) for k, v in d.items()})
+        except TypeError as e:      # a key too many or too few
+            raise ValueError(f"parameter tree does not match {cfg.name}: {e}") from e
+
+    embed = Embed(put(tree["embed"]["emb"]))
+    bts = [layer(tree["blocks"], i) for i in range(cfg.n_layers)]
+    if cfg.family == "ssm":
+        blocks = [RWKVBlock(norm(bt["ln1"]), norm(bt["ln2"]), module(bt["time"], TimeMix),
+                            module(bt["chan"], ChannelMix))
+                  for bt in bts]
+        model = RWKV(embed, norm(tree["ln0"]), blocks, norm(tree["ln_f"]),
+                     Embed(put(tree["unembed"]["emb"])))
+    else:
+        blocks = [Block(norm(bt["ln1"]),
+                        Attention(*(lin(bt["attn"][n]) for n in ("wq", "wk", "wv", "wo"))),
+                        norm(bt["ln2"]),
+                        MLP(cfg.mlp_kind, **{k: lin(v) for k, v in bt["mlp"].items()}))
+                  for bt in bts]
+        unembed = None if cfg.tie_embeddings else Embed(put(tree["unembed"]["emb"]))
+        model = Decoder(embed, blocks, norm(tree["ln_f"]), unembed)
 
     # every leaf of the tree is a parameter of the model, and back
     used = {".".join(p for j, p in enumerate(name.split("."))

@@ -28,10 +28,6 @@ from repro_torch.models.mlp import MLP, apply_mlp, init_mlp
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config this module cannot run."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the SSM family (RWKV6, kernel K6) is not ported yet; "
-            "it comes with ROADMAP queue 1 item 12")
     unported = [(cfg.family != "dense", f"family={cfg.family!r}"),
                 (cfg.moe, "moe=True"),
                 (cfg.attn_kind == "mla", "attn_kind='mla'"),

@@ -77,10 +77,10 @@ def test_registry_knows_every_arch_and_refuses_the_unported():
     assert set(registry.ARCHS) == set(jregistry.ARCHS)
     for arch in registry.ARCHS:
         if arch in registry.UNPORTED:
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1[23]"):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
                 registry.get_config(arch)
         else:
-            assert registry.get_config(arch).family == "dense"
+            assert registry.get_config(arch).family in ("dense", "ssm")
     with pytest.raises(KeyError):
         registry.get_config("gpt-5")
 
@@ -300,7 +300,7 @@ def test_serve_entry_points_default_to_cuda(monkeypatch):
     (dict(attn_kind="mla"), "item 13"),
     (dict(family="vlm"), "item 13"),
     (dict(parallel_block=True), "item 13"),
-    (dict(family="ssm"), "item 12"),
+    (dict(family="hybrid"), "item 13"),
 ])
 def test_unported_model_features_raise(overrides, item):
     cfg = dataclasses.replace(registry.get_config("tinyllama-1.1b").reduced(), **overrides)
@@ -314,13 +314,14 @@ def test_serve_cli_refuses_checkpoints_and_unported_archs():
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         serve_cli.main(["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
                         "--ckpt-dir", "ckpt"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        serve_cli.main(["--arch", "rwkv6-3b", "--reduced", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+        serve_cli.main(["--arch", "zamba2-7b", "--reduced", "--device", "cpu"])
 
 
 def test_serving_on_the_cpu_builds_and_loads_nothing():
-    """Import every module of the LM path and serve on the CPU, with the
-    compiler and the library loader made to fail: neither may be reached."""
+    """Import every module of the LM paths and serve the dense and the RWKV
+    family on the CPU, with the compiler and the library loader made to
+    fail: neither may be reached, and no kernel launch is counted."""
     code = textwrap.dedent("""
         import ctypes, subprocess
         import torch
@@ -328,11 +329,13 @@ def test_serving_on_the_cpu_builds_and_loads_nothing():
             raise AssertionError("build or load attempted")
         subprocess.Popen = boom
         ctypes.CDLL = boom
-        from repro_torch.kernels import _build
+        from repro_torch.kernels import _build, ops
         from repro_torch.launch import serve
-        serve.main(["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
-                    "--batch", "1", "--prompt-len", "4", "--max-new", "2"])
+        for arch in ("tinyllama-1.1b", "rwkv6-3b"):
+            serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                        "--batch", "1", "--prompt-len", "4", "--max-new", "2"])
         assert _build._libs == {}
+        assert set(ops.launch_counts().values()) == {0}
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=SRC)
