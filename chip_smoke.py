@@ -10,10 +10,13 @@ failure raises and the script exits non-zero without printing a result:
   2. build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
               (ptxas registers and spills printed)
   3. parity   each partitioner kernel on small odd-k inputs against the
-              plain version on the CPU; then 3 supersteps on the card
+              plain version on the CPU (K3 also on empty rows and random
+              float values); then 3 Revolver supersteps on the card
               (kernels) against 3 on the CPU (plain versions) from one state
-              with the same random draws, both weight modes: labels, lambda
-              and loads equal, probabilities within tolerance
+              with the same random draws, both weight modes: labels, lambda,
+              loads and score equal, probabilities within tolerance; then 3
+              Spinner and 3 restream supersteps the same way: labels, loads,
+              score, restream's spent budgets and ranks equal
   4. attn     K4 and K5 on small odd shapes (GQA groups 1, 4, 8; causal,
               windowed, Sq < Skv and Sq > Skv, ragged lengths, kv_len 0, 1,
               S and mixed, with m and l) against their plain versions on the
@@ -48,6 +51,17 @@ failure raises and the script exits non-zero without printing a result:
               superstep
  11. profile  a few supersteps under torch.profiler: device busy share and
               device time by kernel
+ 11a. rules   ``run_partitioner`` for spinner, restream, hash and range on
+              the same layout, each with every launch counter set to 0 just
+              before and read just after: K3 once per Spinner superstep and
+              8 times per restream superstep, no other kernel, and none for
+              the static baselines, whose labels must equal their closed
+              forms; metrics recomputed on the host; then a few Spinner and
+              restream supersteps profiled as in phase 11
+ 11b. histogram-kernel  K3 at Spinner's shape (all 8 blocks, one launch)
+              and restream's (block 0) against its plain version on the
+              card, then timed as in phase 13, with ``index_put_`` as the
+              yardstick
  12. serve    ``Engine.generate`` on tinyllama-1.1b (batch 8, 1024-token
               prompts, 128 new tokens, greedy), with every launch counter set
               to 0 just before and read just after: K4 once per layer, K5
@@ -98,6 +112,9 @@ F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 K2_TOL = dict(atol=5e-6, rtol=5e-5)
 PARTITIONER_KERNELS = ("fused_edge_phase", "la_update")
+# K3 against its plain version on random float values: both sum a row's
+# entries in f32, in other orders, so up to one rounding per entry
+K3_FLOAT_ATOL = 1e-5
 # attention kernels against their plain versions: in f32 the two differ in
 # summation order and fma contraction only (each is ~1e-6 from the exact
 # result), but one run saw the CPU plain version 7.3e-5 off the card's, so
@@ -293,7 +310,7 @@ def parity_phase(torch, np):
         for step in range(steps):
             st_cpu = revolver_superstep(dg_cpu, cfg, st_cpu, draws=draws)
             st_gpu = revolver_superstep(dg_gpu, cfg, st_gpu, draws=draws)
-            for name in ("labels", "lam", "loads"):
+            for name in ("labels", "lam", "loads", "score"):
                 require(torch.equal(getattr(st_gpu, name).cpu(), getattr(st_cpu, name)),
                         f"parity {mode}: {name} differs after superstep {step}")
             require(torch.allclose(st_gpu.probs.cpu(), st_cpu.probs, **K2_TOL),
@@ -303,20 +320,219 @@ def parity_phase(torch, np):
     return steps
 
 
-def profile_phase(torch, dg, steps: int = 3):
-    """Device busy share and device time by kernel over a few supersteps."""
+def k3_slab(rng, np, nb: int, e_max: int, bv: int, k: int, integer: bool):
+    """Row-sorted slabs with a zero-valued padded tail, every other row
+    empty: slots, rows, values."""
+    slots = np.zeros((nb, e_max), np.int32)
+    rows = np.zeros((nb, e_max), np.int32)
+    vals = np.zeros((nb, e_max), np.float32)
+    for b in range(nb):
+        cnt = int(rng.integers(e_max // 2, e_max))
+        rows[b, :cnt] = np.sort(rng.integers(0, bv // 2, cnt) * 2)
+        slots[b, :cnt] = rng.integers(0, k, cnt)
+        vals[b, :cnt] = rng.integers(1, 3, cnt) if integer else rng.uniform(0.01, 2.0, cnt)
+    return slots, rows, vals
+
+
+def check_k3_small(torch, np, seed: int) -> dict:
+    """K3 on small padded slabs (odd k, nb 1 and 3, empty rows) against the
+    CPU plain version: bit-exact on eq.-(4) weights, within K3_FLOAT_ATOL
+    times the row's length on random float values."""
+    from repro_torch.graphs.blocking import slab_row_ptr
+    from repro_torch.kernels import edge_histogram as k3
+
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+    cases = 0
+    for nb, e_max, bv, k in ((1, 256, 64, 1), (3, 512, 128, 3), (1, 768, 32, 5),
+                             (3, 1024, 64, 8), (1, 2048, 256, 13), (3, 512, 32, 13)):
+        for integer in (True, False):
+            host = k3_slab(rng, np, nb, e_max, bv, k, integer)
+            cpu = [torch.from_numpy(a) for a in host]
+            row_ptr = slab_row_ptr(host[1], host[2], bv)
+            got = k3.edge_histogram_cuda(cpu[0].cuda(), cpu[2].cuda(),
+                                         torch.from_numpy(row_ptr).cuda(),
+                                         block_v=bv, k=k).cpu()
+            want = k3.edge_histogram_plain(*cpu, block_v=bv, k=k)
+            name = f"K3 nb={nb} k={k} {'eq4' if integer else 'float'}"
+            if integer:
+                require(torch.equal(got, want), f"{name} differs from the CPU plain version")
+            else:
+                run = torch.from_numpy(np.diff(row_ptr, axis=1).astype(np.float32))
+                err = (got - want).abs()
+                require(bool((err <= K3_FLOAT_ATOL * run[..., None].clamp_min(1)).all()),
+                        f"{name}: max abs err {float(err.max())}")
+                worst = max(worst, float(err.max()))
+            cases += 1
+    return {"k3_cases": cases, "k3_float_max_abs_err": worst}
+
+
+def rule_parity_phase(torch, np) -> dict:
+    """3 supersteps of Spinner and of restream (ramp 3) with K3 on the card
+    against 3 with its plain version on the CPU, from one state and one set
+    of draws: labels, loads, score, and restream's spent budgets and ranks
+    equal bit for bit."""
+    from repro_torch.core import convert
+    from repro_torch.core.device_graph import prepare_device_graph
+    from repro_torch.core.restream import RestreamConfig, restream_init, restream_superstep
+    from repro_torch.core.revolver import make_generator
+    from repro_torch.core.spinner import SpinnerConfig, spinner_init, spinner_superstep
+    from repro_torch.graphs.generators import dc_sbm
+
+    g = dc_sbm(**PARITY_GRAPH)
+    k, steps = 4, 3
+    dg_cpu = prepare_device_graph(g, n_blocks=N_BLOCKS, device="cpu")
+    dg_gpu = prepare_device_graph(g, n_blocks=N_BLOCKS, device="cuda")
+    rng = np.random.default_rng(11)
+    u_spin = rng.random((steps, dg_cpu.n_pad)).astype(np.float32)
+    u_rest = rng.random((steps, dg_cpu.n_blocks, dg_cpu.block_v)).astype(np.float32)
+    legs = (
+        ("spinner", SpinnerConfig(k=k), spinner_init, spinner_superstep,
+         convert.spinner_state_from_numpy, ("labels", "loads"), lambda s: u_spin[s]),
+        ("restream", RestreamConfig(k=k, priority_ramp=3), restream_init,
+         restream_superstep, convert.restream_state_from_numpy,
+         ("labels", "loads", "used", "rank"), lambda s, b: u_rest[s, b]),
+    )
+    moved = {}
+    for name, cfg, init, step_fn, from_numpy, fields, draws in legs:
+        st_cpu = init(dg_cpu, cfg, make_generator(7, "cpu"))
+        # copies: the CPU state's tensors are updated in place
+        arrays = {f: getattr(st_cpu, f).numpy().copy() for f in fields + ("score",)}
+        st_gpu = from_numpy(dict(arrays, step=0), "cuda", seed=7)
+        for step in range(steps):
+            st_cpu = step_fn(dg_cpu, cfg, st_cpu, draws=draws)
+            st_gpu = step_fn(dg_gpu, cfg, st_gpu, draws=draws)
+            for f in fields + ("score",):
+                require(torch.equal(getattr(st_gpu, f).cpu(), getattr(st_cpu, f)),
+                        f"{name} parity: {f} differs after superstep {step}")
+        moved[name] = int((st_gpu.labels.cpu() != torch.from_numpy(arrays["labels"])).sum())
+        require(moved[name] > 0, f"{name} parity: no vertex migrated")
+    return {"supersteps": steps, "moved": moved}
+
+
+def host_metrics(np, g, res) -> tuple[float, float]:
+    """local_edges and max_norm_load recomputed on the host from the
+    returned labels, held against the run's own; labels in range."""
+    labels_h = res.labels
+    require(labels_h.shape == (g.n,) and labels_h.min() >= 0 and labels_h.max() < K,
+            f"{res.algo}: labels out of range")
+    src = np.repeat(np.arange(g.n), np.diff(g.row_ptr))
+    le_host = float(np.mean(labels_h[src] == labels_h[g.col_idx]))
+    loads = np.bincount(labels_h, weights=g.deg_out, minlength=K)
+    ml_host = float(loads.max() / (loads.sum() / K))
+    require(abs(le_host - res.local_edges) < 1e-5,
+            f"{res.algo}: local_edges {res.local_edges} vs host {le_host}")
+    require(abs(ml_host - res.max_norm_load) < 1e-5,
+            f"{res.algo}: max_norm_load {res.max_norm_load} vs host {ml_host}")
+    require(np.isfinite(res.history["score"]).all(), f"{res.algo}: non-finite score")
+    return le_host, ml_host
+
+
+def rules_phase(torch, np, ops, g, dg) -> dict:
+    """``run_partitioner`` for spinner, restream, hash and range on full
+    WIKI, each with every launch counter set to 0 just before and read just
+    after: K3 once per Spinner superstep and once per block and restream
+    superstep, no other kernel; the static baselines launch none and equal
+    their closed forms. Returns {algo: result row}."""
+    from repro_torch.core import run_partitioner
+
+    v = np.arange(g.n, dtype=np.int64)
+    closed = {"hash": v % K, "range": np.minimum(v * K // g.n, K - 1)}
+    per_step = {"spinner": 1, "restream": N_BLOCKS}
+    rows = {}
+    for algo in ("spinner", "restream", "hash", "range"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        res = run_partitioner(algo, g, K, seed=SEED, n_blocks=N_BLOCKS, dg=dg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = ops.launch_counts()
+        for name, c in counts.items():
+            want = per_step.get(algo, 0) * res.steps if name == "edge_histogram" else 0
+            require(c == want, f"{algo}: {name} launched {c} times in "
+                    f"{res.steps} supersteps, expected {want}")
+        host_metrics(np, g, res)
+        if algo in closed:
+            require(np.array_equal(res.labels, closed[algo]),
+                    f"{algo} labels differ from the closed form")
+        else:
+            require(res.steps > 0, f"{algo} ran no superstep")
+            require(res.local_edges > 0.5, f"{algo}: local_edges {res.local_edges} <= 0.5")
+            require(res.max_norm_load <= 1.30,
+                    f"{algo}: max_norm_load {res.max_norm_load} > 1.30")
+        rows[algo] = {"algo": algo, "steps": res.steps, "converged": res.converged,
+                      "local_edges": res.local_edges, "max_norm_load": res.max_norm_load,
+                      "wall_s": wall,
+                      "supersteps_per_s": res.steps / wall if res.steps else None,
+                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                      "launches": counts}
+    return rows
+
+
+def k3_timed(torch, dg, flush, seed: int) -> dict:
+    """K3 at the main path's two shapes, Spinner's launch over all blocks
+    and restream's block 0: held against its plain version on the card,
+    then timed as K4-K6 are (graph replay), with one ``index_put_`` call
+    as the yardstick. Returns {shape label: numbers}."""
+    from repro_torch.kernels import edge_histogram as k3
+
+    dev = dg.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    labels = torch.randint(0, K, (dg.n_pad,), generator=gen, device=dev, dtype=torch.int32)
+    out = {}
+    for label, nb in (("spinner", dg.n_blocks), ("restream", 1)):
+        slots = labels[dg.blk_dst[:nb]]
+        rows, vals, row_ptr = dg.blk_row[:nb], dg.blk_w[:nb], dg.blk_row_ptr[:nb]
+        bv = dg.block_v
+        got = k3.edge_histogram_cuda(slots, vals, row_ptr, block_v=bv, k=K)
+        want = k3.edge_histogram_plain(slots, rows, vals, block_v=bv, k=K)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"K3 at the {label} shape differs from plain")
+        err = max_err(torch, got, want)
+        del got, want
+        live = int((vals > 0).sum())
+        nbytes = live * 8 + nb * (bv + 1) * 4 + nb * bv * K * 4
+        bound_ms, bound_by = bound(nbytes, live, F32_FLOPS)
+        flat_rows = (rows.long() + torch.arange(nb, device=dev)[:, None] * bv).reshape(-1)
+        index = (flat_rows, slots.long().reshape(-1))
+        flat_vals = vals.reshape(-1)
+        fn = lambda: k3.edge_histogram_cuda(slots, vals, row_ptr, block_v=bv, k=K)  # noqa: E731
+        out[label] = {
+            "max_abs_err": err, "ms": graph_ms(torch, fn, flush),
+            "plain_ms": graph_ms(torch, lambda: k3.edge_histogram_plain(
+                slots, rows, vals, block_v=bv, k=K), flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": graph_ms(torch, lambda: torch.zeros(
+                (nb * bv, K), device=dev).index_put_(index, flat_vals, accumulate=True),
+                flush),
+            "eager_ms": time_ms(torch, fn, flush),
+            "shape": f"slabs [{nb},{dg.e_max}] ({live} live entries), block_v {bv}, k {K}",
+            "bytes": nbytes, "live_entries": live,
+        }
+        del slots, index, flat_rows
+    return out
+
+
+def profile_phase(torch, dg, algo: str = "revolver", steps: int = 3):
+    """Device busy share and device time by kernel over a few supersteps of
+    ``algo``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.revolver import RevolverConfig, make_generator, revolver_init, revolver_superstep
+    from repro_torch.core import engine
+    from repro_torch.core.registry import get_algorithm
+    from repro_torch.core.revolver import make_generator
 
-    cfg = RevolverConfig(k=K)
-    state = revolver_init(dg, cfg, make_generator(SEED + 1, dg.device))
-    state = revolver_superstep(dg, cfg, state)          # warm-up
+    algorithm = get_algorithm(algo)
+    cfg = algorithm.config_cls(k=K)
+    state = algorithm.init(dg, cfg, make_generator(SEED + 1, dg.device))
+    state = engine.superstep(algorithm, dg, cfg, state)          # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state = revolver_superstep(dg, cfg, state)
+            state = engine.superstep(algorithm, dg, cfg, state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     return {"supersteps": steps, "wall_ms_per_superstep": wall_us / steps / 1e3,
@@ -828,13 +1044,22 @@ def main() -> int:
     # the kernels on the card against the plain versions on the CPU
     check_k1_small(torch, np, SEED)
     check_k2(torch, torch.device("cuda"), 4099, 5, SEED + 1)
+    k3_small = check_k3_small(torch, np, SEED + 4)
     ops.reset_launch_counts()
     parity_steps = parity_phase(torch, np)
     parity_counts = ops.launch_counts()
     require(all(parity_counts[n] == 2 * N_BLOCKS * parity_steps
                 for n in PARTITIONER_KERNELS), f"parity launches {parity_counts}")
+    ops.reset_launch_counts()
+    rule_parity = rule_parity_phase(torch, np)
+    rule_counts = ops.launch_counts()
+    # K3 once per Spinner superstep, once per block and restream superstep
+    want = {n: (1 + N_BLOCKS) * rule_parity["supersteps"] if n == "edge_histogram" else 0
+            for n in rule_counts}
+    require(rule_counts == want, f"rule parity launches {rule_counts}, expected {want}")
     emit({"phase": "parity", "supersteps": parity_steps, "weight_modes": 2,
-          "launches": parity_counts})
+          "launches": parity_counts, **k3_small, "rules": rule_parity,
+          "rule_launches": rule_counts})
 
     # 4. attention kernels on small odd shapes, then reduced-LM parity: the
     # card (kernels) against the CPU (plain versions)
@@ -958,16 +1183,7 @@ def main() -> int:
                 f"supersteps, expected {want}")
     # the result, checked by the repo's own means: labels in range, metrics
     # recomputed on the host from the returned labels
-    labels_h = res.labels
-    require(labels_h.shape == (g.n,) and labels_h.min() >= 0 and labels_h.max() < K,
-            "labels out of range")
-    src = np.repeat(np.arange(g.n), np.diff(g.row_ptr))
-    le_host = float(np.mean(labels_h[src] == labels_h[g.col_idx]))
-    loads = np.bincount(labels_h, weights=g.deg_out, minlength=K)
-    ml_host = float(loads.max() / (loads.sum() / K))
-    require(abs(le_host - res.local_edges) < 1e-5, f"local_edges {res.local_edges} vs host {le_host}")
-    require(abs(ml_host - res.max_norm_load) < 1e-5, f"max_norm_load {res.max_norm_load} vs host {ml_host}")
-    require(np.isfinite(res.history["score"]).all(), "non-finite score")
+    host_metrics(np, g, res)
     require(res.local_edges > 0.5, f"local_edges {res.local_edges} <= 0.5")
     require(res.max_norm_load <= 1.30, f"max_norm_load {res.max_norm_load} > 1.30")
     emit({"phase": "main", "dataset": "WIKI", "scale": 1.0, "k": K, "seed": SEED,
@@ -982,7 +1198,32 @@ def main() -> int:
 
     # 11. where a superstep's time goes
     emit({"phase": "profile", **profile_phase(torch, dg)})
-    del dg, args, labels, lam, actions, feasible, k1_cuda, k1_plain, p, w, r, k2_cuda, k2_plain
+    del args, labels, lam, actions, feasible, k1_cuda, k1_plain, p, w, r, k2_cuda, k2_plain
+
+    # 11a. Spinner, restream and the static baselines through the same entry
+    # point, on the same layout
+    t = time.perf_counter()
+    rule_rows = rules_phase(torch, np, ops, g, dg)
+    for row in rule_rows.values():
+        emit({"phase": "rules", "dataset": "WIKI", "scale": 1.0, "k": K, "seed": SEED, **row})
+    for algo in ("spinner", "restream"):
+        emit({"phase": "rules-profile", "algo": algo, **profile_phase(torch, dg, algo)})
+    emit({"phase": "rules-wall", "seconds": time.perf_counter() - t})
+
+    # 11b. K3 at the Spinner and restream shapes, then timed
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
+    k3_shapes = k3_timed(torch, dg, flush, SEED + 5)
+    del flush, dg
+    records["edge_histogram"] = {
+        "name": "edge_histogram", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/edge_histogram.cu",
+        "replaces": "src/repro/kernels/edge_histogram.py:56",
+        # the launches of both rules' main-path runs
+        "launches": sum(rule_rows[a]["launches"]["edge_histogram"]
+                        for a in ("spinner", "restream")),
+        **k3_shapes["spinner"]}
+    emit(records["edge_histogram"])
+    emit({"phase": "histogram-kernel", "restream_shape": k3_shapes["restream"]})
 
     # 12. the serving main path, through the entry point a user calls
     next_model(torch)

@@ -1,12 +1,20 @@
 """Revolver core of the port: the superstep engine and its rules.
 
 Layering as in `repro.core`: `engine` owns the (sequential) superstep
-schedule, `registry` maps algorithm names to rule modules (`revolver`), and
-`runner` drives the convergence loop. `convert` carries `repro`'s layout and
+schedule, `registry` maps algorithm names to rule modules (`revolver`,
+`spinner`, `restream`, `static_partitioners`), and `runner` drives the
+convergence loop. `convert` carries `repro`'s layout and
 state across for the parity tests.
 """
 from repro_torch.core.la import classic_la_update, split_weights_and_signals, weighted_la_update
-from repro_torch.core.lp import edge_histogram, normalized_penalty, revolver_scores, tau_term
+from repro_torch.core.lp import (
+    edge_histogram,
+    normalized_penalty,
+    revolver_scores,
+    spinner_penalty,
+    spinner_scores,
+    tau_term,
+)
 from repro_torch.core.metrics import (
     edge_cuts,
     local_edges,
@@ -20,8 +28,22 @@ from repro_torch.core.device_graph import (
     capacity_device,
     prepare_device_graph,
 )
-from repro_torch.core.engine import Algorithm, ChunkContext, ChunkUpdate, superstep
-from repro_torch.core.registry import available_algorithms, get_algorithm, register
+from repro_torch.core.engine import (
+    Algorithm,
+    ChunkContext,
+    ChunkUpdate,
+    ShardContext,
+    ShardUpdate,
+    superstep,
+)
+from repro_torch.core.registry import (
+    StaticAlgorithm,
+    available_algorithms,
+    get_algorithm,
+    register,
+    superstep_algorithms,
+    warm_startable_algorithms,
+)
 from repro_torch.core.revolver import (
     RevolverConfig,
     RevolverState,
@@ -29,6 +51,21 @@ from repro_torch.core.revolver import (
     revolver_init_from_labels,
     revolver_superstep,
 )
+from repro_torch.core.spinner import (
+    SpinnerConfig,
+    SpinnerState,
+    spinner_init,
+    spinner_init_from_labels,
+    spinner_superstep,
+)
+from repro_torch.core.restream import (
+    RestreamConfig,
+    RestreamState,
+    restream_init,
+    restream_init_from_labels,
+    restream_superstep,
+)
+from repro_torch.core.static_partitioners import hash_partition, range_partition
 from repro_torch.core.runner import PartitionResult, run_convergence_loop, run_partitioner
 
 __all__ = [
@@ -38,6 +75,8 @@ __all__ = [
     "edge_histogram",
     "normalized_penalty",
     "revolver_scores",
+    "spinner_penalty",
+    "spinner_scores",
     "tau_term",
     "edge_cuts",
     "local_edges",
@@ -51,15 +90,32 @@ __all__ = [
     "Algorithm",
     "ChunkContext",
     "ChunkUpdate",
+    "ShardContext",
+    "ShardUpdate",
     "superstep",
+    "StaticAlgorithm",
     "available_algorithms",
     "get_algorithm",
     "register",
+    "superstep_algorithms",
+    "warm_startable_algorithms",
     "RevolverConfig",
     "RevolverState",
     "revolver_init",
     "revolver_init_from_labels",
     "revolver_superstep",
+    "SpinnerConfig",
+    "SpinnerState",
+    "spinner_init",
+    "spinner_init_from_labels",
+    "spinner_superstep",
+    "RestreamConfig",
+    "RestreamState",
+    "restream_init",
+    "restream_init_from_labels",
+    "restream_superstep",
+    "hash_partition",
+    "range_partition",
     "PartitionResult",
     "run_convergence_loop",
     "run_partitioner",

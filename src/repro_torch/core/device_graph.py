@@ -155,15 +155,21 @@ def capacity(m: int, k: int, epsilon: float, mode: str) -> float:
     raise ValueError(f"unknown capacity mode {mode!r}")
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
+def scalar_device(value: float, device: torch.device) -> torch.Tensor:
+    """``value`` as a 0-dim f32 tensor on ``device``, cached so every
+    superstep of a run reuses one buffer.
+
+    The port divides by such a tensor, never by a Python number: CUDA
+    divides by a host scalar as a multiply by its reciprocal, which does not
+    round like an f32 division, so the card's result would drift from the
+    CPU's (and the reference's) by an ulp.
+    """
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
 def capacity_device(m: int, k: int, epsilon: float, mode: str,
                     device: torch.device) -> torch.Tensor:
-    """`capacity(...)` as a 0-dim f32 tensor on ``device``, cached on its
-    inputs so every superstep of a run reuses one buffer.
-
-    A device tensor rather than a Python float: CUDA divides by a host
-    scalar as a multiply by its reciprocal, which would not round like the
-    reference's f32 division in eq. (12).
-    """
-    return torch.tensor(capacity(m, k, epsilon, mode), dtype=torch.float32,
-                        device=device)
+    """`capacity(...)` as a cached 0-dim f32 tensor on ``device`` (see
+    `scalar_device`): the divisor of eqs. (5) and (12)."""
+    return scalar_device(capacity(m, k, epsilon, mode), device)

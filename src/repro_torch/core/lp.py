@@ -1,9 +1,16 @@
-"""Label-propagation scoring: the paper's normalized LP (eqs. 10-12).
+"""Label-propagation scoring: the paper's normalized LP (eqs. 10-12) and
+the Spinner baseline scoring (eqs. 3-5).
 
-`edge_histogram` is the scatter-add primitive both Revolver histograms are
-built from (the plain version of the edge-phase kernel uses it); the CUDA
-kernel in `repro_torch.kernels.edge_phase` computes the same sums from the
-slab's row runs. The Spinner scorer waits for the remaining-rules slice.
+`edge_histogram` is the scatter-add primitive every edge histogram is built
+from: the plain versions of the edge-phase kernel (K1, Revolver's two
+histograms) and of the edge-histogram kernel (K3, Spinner's and restream's
+one) use it; the CUDA kernels in `repro_torch.kernels` compute the same
+sums from the slab's row runs.
+
+Every division by the capacity takes it as a 0-dim tensor on the loads'
+device (`device_graph.capacity_device`): CUDA divides by a host scalar as a
+multiply by its reciprocal, which would not round like the reference's f32
+division.
 """
 from __future__ import annotations
 
@@ -57,3 +64,16 @@ def revolver_scores(hist: torch.Tensor, inv_wsum: torch.Tensor,
     tau = tau_term(hist, inv_wsum)
     pi = normalized_penalty(loads, capacity)
     return 0.5 * (tau + pi[None, :])
+
+
+def spinner_penalty(loads: torch.Tensor, capacity: torch.Tensor) -> torch.Tensor:
+    """Eq. (5): pi_hat(l) = b(l)/C (unnormalized; the term Spinner
+    subtracts). `capacity` is a 0-dim tensor on the loads' device."""
+    return loads / capacity
+
+
+def spinner_scores(hist: torch.Tensor, inv_wsum: torch.Tensor,
+                   loads: torch.Tensor, capacity: torch.Tensor) -> torch.Tensor:
+    """Eq. (3): score_hat(v,l) = tau_hat(v,l) - pi_hat(l)."""
+    tau = tau_term(hist, inv_wsum)
+    return tau - spinner_penalty(loads, capacity)[None, :]

@@ -228,7 +228,7 @@ def _revolver_chunk_rule(cfg: RevolverConfig, ctx: engine.ChunkContext,
     scores = revolver_scores(hist, ctx.inv_wsum, loads, cap)
     lam_chunk = torch.argmax(scores, dim=-1).to(torch.int32)
     best = torch.max(scores, dim=-1).values
-    score = torch.sum(torch.where(ctx.vmask, best, 0.0))
+    score = engine.score_sum(best, ctx.vmask)
 
     # -- 4. gated migration ---------------------------------------------------
     migrate = wants & (u < p_mig[action.long()])

@@ -29,7 +29,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.device_graph import DeviceGraph, prepare_device_graph, resolve_device
 from repro_torch.core.metrics import local_edges, max_normalized_load
-from repro_torch.core.registry import get_algorithm
+from repro_torch.core.registry import StaticAlgorithm, get_algorithm
 from repro_torch.core.revolver import make_generator
 from repro_torch.graphs.csr import Graph
 
@@ -155,6 +155,21 @@ def _make_cfg(cls, k: int, max_steps: Optional[int], cfg_kwargs: dict):
     return cfg
 
 
+def _run_static(algorithm: StaticAlgorithm, graph: Graph, k: int,
+                dg: DeviceGraph, t0: float) -> PartitionResult:
+    """A static baseline: no supersteps; the metrics on the padded labels,
+    as `repro` computes them."""
+    labels = torch.zeros((dg.n_pad,), dtype=torch.int32, device=dg.device)
+    labels[:graph.n] = algorithm.partition(graph.n, k, dg.device)
+    le = float(local_edges(labels, dg.dir_src, dg.dir_dst))
+    ml = float(max_normalized_load(labels[:graph.n], dg.deg_out[:graph.n], k))
+    return PartitionResult(
+        algo=algorithm.name, k=k, labels=labels[:graph.n].cpu().numpy(),
+        steps=0, converged=True, local_edges=le, max_norm_load=ml,
+        history={"local_edges": [le], "max_norm_load": [ml], "score": [0.0]},
+        wall_s=time.time() - t0)
+
+
 def run_partitioner(
     algo: str,
     graph: Graph,
@@ -186,11 +201,22 @@ def run_partitioner(
     score fetches. `init_labels` (and `init_probs` / `init_sharpen`)
     warm-start the state from a previous assignment; `keep_probs=True`
     returns the final LA probability tensor. `draws` replays external random
-    draws into every superstep (tests only; see
-    `repro_torch.core.revolver`). A fixed seed reproduces the labels bit for
+    draws into every superstep (tests only; each rule module states its
+    hook's signature). A fixed seed reproduces the labels bit for
     bit on one device type.
+
+    The static baselines (``"hash"``, ``"range"``) run no supersteps: they
+    take no config kwargs and no warm-start arguments (TypeError).
     """
     t0 = time.time()
+    algorithm = get_algorithm(algo)
+    static = isinstance(algorithm, StaticAlgorithm)
+    # chunk_schedule is a config kwarg in `repro`, the other unported
+    # options are run_partitioner keywords
+    config_keys = set(cfg_kwargs) - (set(_UNPORTED) - {"chunk_schedule"})
+    if static and config_keys:
+        raise TypeError(f"{algo!r} runs no supersteps; it takes no config "
+                        f"kwargs (got {sorted(config_keys)})")
     for name in sorted(set(cfg_kwargs) & set(_UNPORTED)):
         off, item = _UNPORTED[name]
         value = cfg_kwargs.pop(name)
@@ -201,20 +227,30 @@ def run_partitioner(
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
     dev = resolve_device(device)
-    algorithm = get_algorithm(algo)
-    cfg = _make_cfg(algorithm.config_cls, k, max_steps, cfg_kwargs)
+    if not static:
+        cfg = _make_cfg(algorithm.config_cls, k, max_steps, cfg_kwargs)
+    elif init_labels is not None or init_probs is not None or init_sharpen:
+        raise TypeError(f"{algo!r} is stateless; warm-start args are meaningless")
     if dg is None:
         dg = prepare_device_graph(graph, n_blocks=n_blocks, device=dev)
     elif dg.device.type != dev.type:
         raise ValueError(f"dg lives on {dg.device}, but device={device!r}")
+    if static:
+        return _run_static(algorithm, graph, k, dg, t0)
 
+    if not algorithm.supports_probs and (init_probs is not None or init_sharpen):
+        raise TypeError(
+            f"{algo!r} has no LA state; init_probs/init_sharpen are meaningless")
     gen = make_generator(seed, dg.device)
     if init_labels is not None:
         if algorithm.init_from_labels is None:
             raise TypeError(f"{algo!r} does not support warm starts")
-        state = algorithm.init_from_labels(dg, cfg, gen, init_labels,
-                                           probs=init_probs,
-                                           prob_sharpen=init_sharpen)
+        if algorithm.supports_probs:
+            state = algorithm.init_from_labels(dg, cfg, gen, init_labels,
+                                               probs=init_probs,
+                                               prob_sharpen=init_sharpen)
+        else:
+            state = algorithm.init_from_labels(dg, cfg, gen, init_labels)
     else:
         if init_probs is not None:
             raise TypeError("init_probs requires init_labels")

@@ -4,6 +4,9 @@
                     repro.kernels.edge_phase.fused_edge_phase_pallas)
   la_update         K2: weighted-LA probability update, eqs. (8)/(9)
                     (replaces repro.kernels.la_update.la_update_pallas)
+  edge_histogram    K3: edge label histogram of the Spinner and restream
+                    rules (replaces
+                    repro.kernels.edge_histogram.edge_histogram_pallas)
   flash_attention   K4: causal / sliding-window GQA attention forward
                     (replaces repro.kernels.flash_attention.flash_attention_pallas)
   decode_attention  K5: flash-decode against a KV cache (replaces

@@ -29,7 +29,8 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-source extra flags: the LA update must not fuse multiply-adds, so its
 # rounding matches the plain version's separate tensor ops
 _EXTRA_FLAGS = {"edge_phase": (), "la_update": ("-fmad=false",),
-                "flash_attention": (), "decode_attention": (), "wkv6": ()}
+                "edge_histogram": (), "flash_attention": (),
+                "decode_attention": (), "wkv6": ()}
 _VOID = ctypes.c_void_p
 _ARGTYPES = {
     "edge_phase": ([_VOID] * 9 + [ctypes.c_int, ctypes.c_longlong,
@@ -38,6 +39,9 @@ _ARGTYPES = {
     "la_update": ([_VOID] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_float,
                                  ctypes.c_int, _VOID]),
+    # slots, vals, row_ptr, hist; nb, e_max, block_v, k; stream
+    "edge_histogram": ([_VOID] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                      ctypes.c_int, ctypes.c_int, _VOID]),
     # q, k, v, o; b, hq, hkv, sq, skv, d, causal, window; scale; dtype; stream
     "flash_attention": ([_VOID] * 4 + [ctypes.c_int] * 8
                         + [ctypes.c_float, ctypes.c_int, _VOID]),

@@ -88,8 +88,10 @@ def fused_edge_phase_plain(
     return hist.view(nb, block_v, k), w_acc.view(nb, block_v, k)
 
 
-def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-            device: torch.device) -> None:
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    """Raise unless ``t`` has the device, dtype and shape a kernel takes and
+    is contiguous."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -126,13 +128,13 @@ def fused_edge_phase_cuda(
         raise ValueError(f"fused_edge_phase_cuda needs CUDA tensors, got {dev}")
     nb, e_max = edge_dst.shape
     n_pad = labels.shape[0]
-    _expect(edge_dst, "edge_dst", torch.int32, (nb, e_max), dev)
-    _expect(edge_vals, "edge_vals", torch.float32, (nb, e_max), dev)
-    _expect(row_ptr, "row_ptr", torch.int32, (nb, block_v + 1), dev)
-    _expect(labels, "labels", torch.int32, (n_pad,), dev)
-    _expect(lam, "lam", torch.int32, (n_pad,), dev)
-    _expect(actions, "actions", torch.int32, (nb, block_v), dev)
-    _expect(feasible, "feasible", torch.float32, (nb, k), dev)
+    expect(edge_dst, "edge_dst", torch.int32, (nb, e_max), dev)
+    expect(edge_vals, "edge_vals", torch.float32, (nb, e_max), dev)
+    expect(row_ptr, "row_ptr", torch.int32, (nb, block_v + 1), dev)
+    expect(labels, "labels", torch.int32, (n_pad,), dev)
+    expect(lam, "lam", torch.int32, (n_pad,), dev)
+    expect(actions, "actions", torch.int32, (nb, block_v), dev)
+    expect(feasible, "feasible", torch.float32, (nb, k), dev)
     hist = torch.empty((nb, block_v, k), dtype=torch.float32, device=dev)
     w_acc = torch.empty((nb, block_v, k), dtype=torch.float32, device=dev)
     lib = _build.load("edge_phase")

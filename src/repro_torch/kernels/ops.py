@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import decode_attention as _decode_attention
+from repro_torch.kernels import edge_histogram as _edge_histogram
 from repro_torch.kernels import edge_phase as _edge_phase
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import la_update as _la_update
@@ -17,6 +18,7 @@ from repro_torch.kernels import wkv6 as _wkv6
 LAUNCH_COUNTERS = {
     "fused_edge_phase": _edge_phase.LAUNCHES,
     "la_update": _la_update.LAUNCHES,
+    "edge_histogram": _edge_histogram.LAUNCHES,
     "flash_attention": _flash_attention.LAUNCHES,
     "decode_attention": _decode_attention.LAUNCHES,
     "wkv6": _wkv6.LAUNCHES,
@@ -67,6 +69,23 @@ def la_update(probs, weights, signals, alpha: float, beta: float, *,
                                           beta, renorm=renorm)
     return _la_update.la_update_cuda(probs, weights, signals, alpha, beta,
                                      renorm=renorm)
+
+
+def edge_histogram(slots, rows, vals, *, row_ptr, block_v: int, k: int):
+    """hist [nb, block_v, k] f32, hist[b, r, l] = sum of ``vals[b, e]``
+    over slab entries with ``rows[b, e] == r`` and ``slots[b, e] == l`` —
+    see `repro_torch.kernels.edge_histogram`.
+
+    The `repro.kernels.edge_histogram.edge_histogram_pallas` signature
+    (without ``edge_chunk``) plus ``row_ptr`` ([nb, block_v+1] int32, the
+    row runs of the row-sorted slabs), which the CUDA kernel walks instead
+    of scattering by ``rows``.
+    """
+    if _route(slots, "edge_histogram") == "cpu":
+        return _edge_histogram.edge_histogram_plain(slots, rows, vals,
+                                                    block_v=block_v, k=k)
+    return _edge_histogram.edge_histogram_cuda(slots, vals, row_ptr,
+                                               block_v=block_v, k=k)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):

@@ -1,11 +1,14 @@
 """Graph-partitioning launcher of the port — the paper's workload as a CLI.
 
   PYTHONPATH=src python -m repro_torch.launch.partition --dataset WIKI \
-      --scale 0.002 --k 8 [--device cpu]
+      --scale 0.002 --k 8 --algo revolver --algo spinner --algo restream \
+      --algo hash --algo range [--device cpu]
 
-Runs every registered algorithm (Revolver, so far) with the flat sequential
-schedule and prints the rows `repro.launch.partition` prints. `--device`
-defaults to cuda and fails without a CUDA device.
+Runs each `--algo` (repeatable; default: every registered algorithm) with
+the flat sequential schedule and prints the rows `repro.launch.partition`
+prints, one per algorithm. The superstep-only knobs (--epsilon, --sync-every)
+go to the engine-driven algorithms only; the static baselines (hash, range)
+take none. `--device` defaults to cuda and fails without a CUDA device.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import json
 import numpy as np
 
 from repro_torch.core import run_partitioner
-from repro_torch.core.registry import available_algorithms
+from repro_torch.core.registry import StaticAlgorithm, available_algorithms, get_algorithm
 from repro_torch.graphs import DATASETS, load_dataset
 
 
@@ -25,6 +28,9 @@ def main(argv=None):
                     help="Table-I dataset key")
     ap.add_argument("--scale", type=float, default=0.002)
     ap.add_argument("--k", type=int, default=8)
+    ap.add_argument("--algo", action="append", default=None,
+                    choices=list(available_algorithms()),
+                    help="algorithm to run (repeatable; default: all)")
     ap.add_argument("--max-steps", type=int, default=290)
     ap.add_argument("--epsilon", type=float, default=0.05)
     ap.add_argument("--n-blocks", type=int, default=8)
@@ -42,11 +48,14 @@ def main(argv=None):
     g = load_dataset(args.dataset, scale=args.scale, seed=args.seed)
     rows = []
     labels_out = {}
-    for algo in available_algorithms():
+    for algo in args.algo or available_algorithms():
+        kwargs = {}
+        if not isinstance(get_algorithm(algo), StaticAlgorithm):
+            kwargs = dict(epsilon=args.epsilon, sync_every=args.sync_every)
         res = run_partitioner(algo, g, args.k, seed=args.seed,
                               max_steps=args.max_steps,
-                              n_blocks=args.n_blocks, epsilon=args.epsilon,
-                              sync_every=args.sync_every, device=args.device)
+                              n_blocks=args.n_blocks, device=args.device,
+                              **kwargs)
         row = {"dataset": args.dataset, "algo": algo, "k": args.k,
                "local_edges": round(res.local_edges, 4),
                "max_norm_load": round(res.max_norm_load, 4),

@@ -100,13 +100,16 @@ def test_warm_start_matches_reference_init_from_labels():
 
 
 def test_cli_runs_on_cpu(capsys, tmp_path):
+    """Without --algo the CLI runs every registered algorithm, one row each."""
     out = tmp_path / "labels.npz"
     cli.main(["--device", "cpu", "--dataset", "WIKI", "--scale", "0.0005",
               "--k", "4", "--max-steps", "10", "--json", "--labels-out", str(out)])
     rows = json.loads(capsys.readouterr().out)
-    assert [r["algo"] for r in rows] == ["revolver"]
-    assert 0.0 < rows[0]["local_edges"] <= 1.0 and rows[0]["steps"] <= 10
-    assert np.load(out)["revolver"].shape == (load_dataset("WIKI", scale=0.0005).n,)
+    assert [r["algo"] for r in rows] == ["hash", "range", "restream", "revolver", "spinner"]
+    for r in rows:
+        assert 0.0 < r["local_edges"] <= 1.0 and r["steps"] <= 10
+    n = load_dataset("WIKI", scale=0.0005).n
+    assert all(np.load(out)[r["algo"]].shape == (n,) for r in rows)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
