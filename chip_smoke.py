@@ -8,7 +8,8 @@ failure raises and the script exits non-zero without printing a result:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
-              (ptxas registers and spills printed)
+              (ptxas registers and spills printed); K4's library must hold
+              tensor-core instructions (``HGMMA`` in ``cuobjdump -sass``)
   3. parity   each partitioner kernel on small odd-k inputs against the
               plain version on the CPU (K3 also on empty rows and random
               float values); then 3 Revolver supersteps on the card
@@ -20,7 +21,11 @@ failure raises and the script exits non-zero without printing a result:
   4. attn     K4 and K5 on small odd shapes (GQA groups 1, 4, 8; causal,
               windowed, Sq < Skv and Sq > Skv, ragged lengths, kv_len 0, 1,
               S and mixed, with m and l) against their plain versions on the
-              CPU, f32 and bf16; then reduced GQA tinyllama in f32 (TF32 off):
+              CPU, f32 and bf16; K4 also on the tensor-core body's edges
+              (Sq = Skv = 129, 255, 1025; Sq = 1 against 1000 keys; D 128 at
+              group 8 with a window crossing kv tiles; Sq > Skv at D 128),
+              K5 with kv_len on both sides of a split boundary and at S
+              with the most splits; then reduced GQA tinyllama in f32 (TF32 off):
               prefill and 8 greedy decode steps on the card (kernels) against
               the same on the CPU (plain versions), from one set of weights
   5. lm-full  tinyllama-1.1b at full width, bf16, random weights from seed 0
@@ -73,7 +78,10 @@ failure raises and the script exits non-zero without printing a result:
               versions on the card, then timed as in phase 9 but replayed
               from a CUDA graph (device time without the wrapper's host
               time; the eager time is printed beside), with
-              ``scaled_dot_product_attention`` as the yardstick
+              ``scaled_dot_product_attention`` as the yardstick; K4's
+              achieved TFLOP/s; two K4 and two K5 calls bit-equal, and K5
+              replayed 3 times from one CUDA graph equal to K5 eager; the
+              device kernels per K5 call (1) under torch.profiler
  14. rwkv-serve  ``Engine.generate`` on rwkv6-3b at full width and depth,
               as phase 12: K6 once per layer in prefill and once per layer
               and decode step (32 x 128 = 4,096 launches), no other kernel
@@ -607,6 +615,13 @@ def attention_small_checks(torch) -> dict:
         (1, 4, 2, 33, 70, 128, False, None),    # d 128, no mask
         (1, 4, 4, 80, 40, 64, True, None),      # Sq > Skv: rows without keys
         (1, 8, 2, 96, 96, 64, False, 20),       # window without causality
+        # the tensor-core body's edges (bf16 at D 64 and 128)
+        (1, 4, 1, 129, 129, 64, True, None),    # ragged q and kv tiles, diagonal
+        (1, 4, 2, 255, 255, 128, True, None),
+        (1, 4, 1, 1025, 1025, 64, True, None),
+        (2, 8, 2, 1, 1000, 64, True, None),     # one query row against 1000 keys
+        (1, 16, 2, 300, 300, 128, True, 100),   # D 128, group 8, window across kv tiles
+        (1, 8, 2, 300, 100, 128, True, None),   # Sq > Skv at D 128: rows without keys
     ]
     k5_cases = [  # b, hq, hkv, s, d, kv_len
         (4, 8, 8, 300, 64, [0, 1, 300, 157]),           # group 1
@@ -615,6 +630,13 @@ def attention_small_checks(torch) -> dict:
         (2, 8, 1, 77, 128, [77, 40]),                   # group 8, d 128
         (2, 4, 2, 64, 16, [64, 3]),                     # d 16
     ]
+    # kv_len on both sides of a split boundary, and kv_len = S at the most
+    # splits (MAX_SPLITS), from the plan the wrapper takes on this card
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, hq, hkv, s, d in ((4, 16, 2, 1152, 64), (4, 8, 1, 768, 128)):
+        n_split, chunk = k5.split_plan(b, hkv, s, n_sm)
+        require(n_split == k5.MAX_SPLITS, f"split plan {n_split} x {chunk} for S {s}")
+        k5_cases.append((b, hq, hkv, s, d, [chunk, chunk + 1, chunk - 1, s]))
     for dtype in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL[str(dtype).split(".")[1]]
         for b, hq, hkv, sq, skv, d, causal, window in k4_cases:
@@ -840,6 +862,33 @@ def serve_profile(torch, cfg, model, toks, steps: int = 4) -> dict:
             **device_busy(prof, wall_us, steps, "step"), "prefill": prefill}
 
 
+def sass_counts(lib_path) -> dict:
+    """Tensor-core instructions in a built kernel library's SASS."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return {op: len([w for w in sass.split() if w.startswith(op + ".") or w == op])
+            for op in ("HGMMA", "HMMA")}
+
+
+def kernels_per_call(torch, fn, calls: int = 20) -> tuple[float, set]:
+    """Device kernels per ``fn()`` call under torch.profiler, and their
+    names. The profiler can drop a kernel event of a window (seen: 0.9 a
+    call where every call launches one), so callers round the count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return len(names) / calls, set(names)
+
+
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -881,20 +930,38 @@ def attention_serve_kernels(torch, flush) -> dict:
     k5_bound, k5_by = bound(k5_bytes, k5_flops, BF16_FLOPS)
     k4_fn = lambda: k4.flash_attention_cuda(q, k, v)  # noqa: E731
     k5_fn = lambda: k5.decode_attention_cuda(qd, kc, vc, kv_len)  # noqa: E731
+    # deterministic: two calls bit-equal; K5's single-launch combine gives
+    # the eager result from every replay of one CUDA graph
+    require(torch.equal(k4_fn(), k4_fn()), "K4: two calls differ")
+    eager = k5_fn()
+    require(torch.equal(eager, k5_fn()), "K5: two calls differ")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = k5_fn()
+    for i in range(3):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        require(torch.equal(replayed, eager), f"K5: CUDA-graph replay {i} differs from eager")
+    k5_kernels, k5_names = kernels_per_call(torch, k5_fn)
+    require(round(k5_kernels) == 1 and len(k5_names) == 1
+            and "decode_attention" in next(iter(k5_names)),
+            f"K5 runs {k5_kernels} device kernels a call ({k5_names}), expected 1")
+    k4_ms = graph_ms(torch, k4_fn, flush)
     return {
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:97",
             "max_abs_err": k4_err,
-            "ms": graph_ms(torch, k4_fn, flush),
+            "ms": k4_ms, "tflops": k4_flops / k4_ms / 1e9,
             "plain_ms": graph_ms(torch, lambda: k4.flash_attention_plain(q, k, v), flush),
             "bound_ms": k4_bound, "bound_by": k4_by,
             "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), flush),
             "eager_ms": time_ms(torch, k4_fn, flush),
             "shape": f"q [{b},{hq},{s},{d}] kv [{b},{hkv},{s},{d}] bf16 causal",
-            "bytes": k4_bytes, "flops": k4_flops,
+            "bytes": k4_bytes, "flops": k4_flops, "deterministic": True,
         },
         "decode_attention": {
             "name": "decode_attention", "route": "cuda",
@@ -908,7 +975,8 @@ def attention_serve_kernels(torch, flush) -> dict:
                 qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), flush),
             "eager_ms": time_ms(torch, k5_fn, flush),
             "shape": f"q [{b},{hq},{d}] caches [{b},{hkv},{s_max},{d}] bf16 kv_len {kv}",
-            "bytes": k5_bytes, "flops": k5_flops,
+            "bytes": k5_bytes, "flops": k5_flops, "device_kernels_per_call": k5_kernels,
+            "deterministic": True,
         },
     }
 
@@ -1036,9 +1104,13 @@ def main() -> int:
     build_s = time.perf_counter() - t
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if ("registers" in line or "spill" in line or "Compiling entry" in line
+                    or "(C75" in line):   # ptxas's notes on serialized wgmma
                 print(f"ptxas[{name}] {line.strip()}")
-    emit({"phase": "build", "seconds": build_s, "built": sorted(reports)})
+    k4_sass = sass_counts(_build.library_path("flash_attention"))
+    require(k4_sass["HGMMA"] > 0, f"K4's library holds no HGMMA instruction: {k4_sass}")
+    emit({"phase": "build", "seconds": build_s, "built": sorted(reports),
+          "flash_attention_sass": k4_sass})
 
     # 3. small kernel checks and superstep parity, before anything large:
     # the kernels on the card against the plain versions on the CPU

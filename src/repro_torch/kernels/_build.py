@@ -45,9 +45,9 @@ _ARGTYPES = {
     # q, k, v, o; b, hq, hkv, sq, skv, d, causal, window; scale; dtype; stream
     "flash_attention": ([_VOID] * 4 + [ctypes.c_int] * 8
                         + [ctypes.c_float, ctypes.c_int, _VOID]),
-    # q, k, v, kv_len, o, m, l, acc, mp, lp; b, hq, hkv, s_max, d, n_split,
-    # chunk; scale; dtype; stream
-    "decode_attention": ([_VOID] * 10 + [ctypes.c_int] * 7
+    # q, k, v, kv_len, o, m, l; b, hq, hkv, s_max, d, n_split, chunk; scale;
+    # dtype; stream
+    "decode_attention": ([_VOID] * 7 + [ctypes.c_int] * 7
                          + [ctypes.c_float, ctypes.c_int, _VOID]),
     # r, k, v, logw, u, state0, y, state_out; b, s, h, n; stream
     "wkv6": [_VOID] * 7 + [ctypes.c_int] * 4 + [_VOID],

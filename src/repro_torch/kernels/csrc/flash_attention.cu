@@ -16,32 +16,505 @@
 // Bound on the card: operations. At the serving prefill shape (B 8, Hq 32,
 // Hkv 4, S 1024, d 64, bf16, causal) the kernel must move ~75 MB (q, k, v,
 // o once: ~23 us at 3.35 TB/s) and do ~2 B Hq S^2 d = 34 GFLOP of products
-// (~35 us at the 989 TFLOP/s bf16 tensor-core peak). This kernel does its
-// products in f32 on the CUDA cores (67 TFLOP/s peak, so >= 0.5 ms there):
-// the tensor-core (wgmma) version is later work.
+// (~35 us at the 989 TFLOP/s bf16 tensor-core peak).
 //
-// Design: one CTA per (64-row q tile, q head, batch); the loop over kv
-// tiles inside the CTA takes the place of the TPU's sequential minor grid
-// axis. Each thread owns one query row (two threads a row at d = 128, each
-// half the dims): its q slice and its f32 accumulator stay in registers,
-// with the running m and l. K and V tiles are staged in shared memory as
-// f32 (bf16 converted on load, rows past Skv zero-filled) and read back as
-// warp-wide broadcasts. Scores are taken 16 keys at a time, so the running
-// max and the accumulator are rescaled once per 16 keys. Tiles that the
-// causal or window mask kills for every row of the CTA are never loaded:
-// the loop runs from the window's first tile to the diagonal. Ragged Sq and
-// Skv are masked in-kernel (rows past Sq compute and store nothing).
-// Deterministic: no atomics, one write per output element.
+// Two bodies, chosen by the C entry point on dtype and d:
+//
+// * bf16 at d in {64, 128}, the serving dtype: the tensor-core body
+//   (`flash_attention_tc_kernel`), after FlashAttention-3's forward. A CTA
+//   takes one 128-row q tile of one (b, q head): two warpgroups, each
+//   owning 64 rows (wgmma's M); two CTAs share an SM (at most 128 registers
+//   a thread), so one CTA's softmax overlaps the other's products. Thread 0
+//   issues TMA copies (cp.async.bulk.tensor, 128-byte swizzle, 3-d tensor
+//   maps over [B*H, S, d] so rows past S come back as zeros) of Q once and
+//   of 64-key K and V tiles into a ring (4 slots at d 64, 2 at d 128)
+//   guarded by full/empty mbarriers: tile j + slots goes into tile j's slot
+//   as soon as all 8 warps have released it, so the copies of the next
+//   tiles overlap the products on this one. Each warpgroup computes
+//   S = Q K^T with wgmma (both operands in shared memory, K-major, f32
+//   accumulators in registers), takes the online softmax on the
+//   accumulator fragment (each row's max and sum across the 4 lanes of a
+//   quad, by shuffles; the accumulator rescaled by exp2(m_old - m_new)),
+//   rounds all of P to bf16 in registers and then adds P V with wgmma's
+//   register-A form, the products issued back to back (V is [Bk, d] with d
+//   contiguous, so B is MN-major: the transpose bit). Masks are applied
+//   only on tiles that touch the diagonal, the window's edge or the ragged
+//   Skv end; tiles the causal mask or the window kills for the whole CTA
+//   are never loaded, and a warpgroup skips the products on a tile that
+//   is dead for all its rows. The heaviest q tiles (the last ones) are
+//   launched first (the q-tile index is the grid's slowest axis, reversed),
+//   so the causal load does not leave SMs idle at the end. O is written
+//   once per element as bf16: no atomics, deterministic.
+//   Numerics: S is exact products of bf16 values summed in f32; P is
+//   rounded to bf16 before P V, at most 2^-9 relative error per term, the
+//   order of the output's own bf16 rounding and inside the card check's
+//   bf16 tolerance (atol 2e-2, rtol 1e-2); l sums the unrounded f32 P.
+//
+// * f32 (any d) and bf16 at d in {16, 32}: the SIMT body
+//   (`flash_attention_simt_kernel`), unchanged since the first port. The
+//   f32 instantiation serves the f32 parity checks (the reduced-model check
+//   at 1e-4 and the kernel against f64 at 5e-5), which TF32 products
+//   could not meet; bf16 at d <= 32 is served by no config in the repo.
+//   One CTA per (64-row q tile, q head, batch); each thread owns one query
+//   row (two threads a row at d = 128, each half the dims): its q slice and
+//   its f32 accumulator stay in registers, with the running m and l. K and
+//   V tiles are staged in shared memory as f32 and read back as warp-wide
+//   broadcasts; scores are taken 16 keys at a time. Its products run in f32
+//   on the CUDA cores (67 TFLOP/s peak).
 
+#include <cuda.h>  // CUtensorMap and the tensor-map encoder's types only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kRows = 64;  // query rows per CTA
-constexpr int kChunk = 16;  // keys per online-softmax step
+constexpr int kRows = 64;  // query rows per CTA (SIMT body)
+constexpr int kChunk = 16;  // keys per online-softmax step (SIMT body)
 
+// ---------------------------------------------------------------------------
+// tensor-core body (bf16, d in {64, 128})
+// ---------------------------------------------------------------------------
+constexpr int kTcRows = 128;           // q rows per CTA: two warpgroups of 64
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct TcShape {
+  static constexpr int BK = 64;                   // keys per K/V tile
+  static constexpr int MIN_CTAS = 2;              // CTAs an SM holds (register cap 128)
+  static constexpr int STAGES = D == 64 ? 4 : 2;  // K/V ring depth (2 CTAs' shared memory)
+  static constexpr int NH = D / 64;               // 64-column (128-byte) halves
+  static constexpr int Q_BYTES = NH * kTcRows * 128;
+  static constexpr int KV_BYTES = NH * BK * 128;  // one K (or V) tile
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// spin until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// 3-d TMA copy of one box into shared memory, completion on ``bar``
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; byte offsets
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator reads and writes across the
+// asynchronous wgmma boundaries
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers, B in shared memory (MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers, B in shared memory (MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, TcShape<D>::MIN_CTAS)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          __nv_bfloat16* __restrict__ o, int hq, int hkv, int sq,
+                          int skv, int causal, int window, float scale_log2) {
+  using C = TcShape<D>;
+  constexpr int BK = C::BK;
+  static_assert(BK == 64, "S = Q K^T is one m64n64 wgmma per 16 dims");
+  extern __shared__ uint8_t smem_raw[];
+  // TMA's 128-byte swizzle and the wgmma descriptors want 1024-byte alignment
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + C::Q_BYTES;                    // [stage] K tiles
+  const uint32_t v_s = k_s + C::STAGES * C::KV_BYTES;       // [stage] V tiles
+  const uint32_t bars = v_s + C::STAGES * C::KV_BYTES;      // q, full[], empty[]
+  const uint32_t q_bar = bars;
+  auto full_bar = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty_bar = [&](int s) { return bars + 8u * (1 + C::STAGES + s); };
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int r0 = (gridDim.z - 1 - blockIdx.z) * kTcRows;  // heaviest q tiles first
+  const int hk = h / (hq / hkv);
+  const int off = skv - sq;
+
+  // keys any row of this CTA may see: [kv_lo, kv_hi)
+  const int q_lo = r0 + off;
+  const int q_hi = min(r0 + kTcRows, sq) - 1 + off;
+  const int kv_hi = causal ? min(skv, q_hi + 1) : skv;
+  const int kv_lo = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int t_first = kv_lo / BK;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi + BK - 1) / BK - t_first : 0;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full_bar(s), 1);
+      mbar_init(empty_bar(s), kTcWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues the copies: Q once, the first STAGES K/V tiles now,
+  // and tile j + STAGES into tile j's slot once every warp has released it
+  auto issue_kv = [&](int j) {
+    const int s = j % C::STAGES;
+    const int t0 = (t_first + j) * BK;
+    mbar_expect_tx(full_bar(s), 2 * C::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < C::NH; ++c) {
+      tma_load_3d(k_s + s * C::KV_BYTES + c * BK * 128, &kmap, full_bar(s), c * 64, t0,
+                  b * hkv + hk);
+      tma_load_3d(v_s + s * C::KV_BYTES + c * BK * 128, &vmap, full_bar(s), c * 64, t0,
+                  b * hkv + hk);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_bar, C::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < C::NH; ++c)
+      tma_load_3d(q_s + c * kTcRows * 128, &qmap, q_bar, c * 64, r0, b * hq + h);
+    for (int j = 0; j < min(C::STAGES, n_tiles); ++j) issue_kv(j);
+  }
+
+  // ---- warpgroup wg owns q rows [r0 + 64 wg, r0 + 64 wg + 64) ----
+  const int wg = warp / 4;
+  const int quad = lane % 4;
+  const int row_a = r0 + wg * 64 + (warp % 4) * 16 + lane / 4;  // and row_a + 8
+  const int qpos_a = row_a + off;
+  const int qpos_b = qpos_a + 8;
+  const int w_lo = r0 + wg * 64 + off;                 // this warpgroup's qpos range
+  const int w_hi = min(r0 + wg * 64 + 64, sq) - 1 + off;
+  const bool w_rows = r0 + wg * 64 < sq;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
+
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % C::STAGES;
+    const int t0 = (t_first + j) * BK;
+    mbar_wait(full_bar(s), (j / C::STAGES) & 1);
+    const bool dead = !w_rows || (causal && t0 > w_hi) ||
+                      (window > 0 && w_lo - (t0 + BK - 1) >= window);
+    // S = Q K^T: K-major operands, one k-step = 16 dims = 32 bytes of a row
+    if (!dead) {
+      float sc[BK / 2];
+      reg_fence(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qa = q_s + (kk / 4) * kTcRows * 128 + wg * 64 * 128 + (kk % 4) * 32;
+        const uint32_t ka = k_s + s * C::KV_BYTES + (kk / 4) * BK * 128 + (kk % 4) * 32;
+        wgmma_ss_n64(sc, desc128(qa, 16, 1024), desc128(ka, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sc);
+
+      // online softmax on the fragment: sc[4i + e] is row (e < 2 ? a : b),
+      // key t0 + 8 i + 2 quad + (e & 1)
+      const bool need_mask = !(t0 + BK <= skv && (!causal || t0 + BK - 1 <= w_lo) &&
+                               (window <= 0 || w_hi - t0 < window));
+      float mx_a = kNeg, mx_b = kNeg;
+      if (need_mask) {
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = t0 + 8 * i + 2 * quad + (e & 1);
+            const int qp = e < 2 ? qpos_a : qpos_b;
+            const bool ok = kpos < skv && (!causal || qp >= kpos) &&
+                            (window <= 0 || qp - kpos < window);
+            sc[4 * i + e] = ok ? sc[4 * i + e] * scale_log2 : kNeg;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+      }
+      const float mn_a = fmaxf(m_a, mx_a);
+      const float mn_b = fmaxf(m_b, mx_b);
+      const float corr_a = exp2f(m_a - mn_a);
+      const float corr_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mn = e < 2 ? mn_a : mn_b;
+          // a masked score is kNeg exactly; its probability is 0, also in a
+          // row whose every score so far is masked (mn == kNeg)
+          const float p = sc[4 * i + e] == kNeg ? 0.f : exp2f(sc[4 * i + e] - mn);
+          sc[4 * i + e] = p;
+          if (e < 2) ps_a += p; else ps_b += p;
+        }
+      }
+      l_a = l_a * corr_a + ps_a;   // this thread's share; the quad sums at the end
+      l_b = l_b * corr_b + ps_b;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        acc[4 * i] *= corr_a;
+        acc[4 * i + 1] *= corr_a;
+        acc[4 * i + 2] *= corr_b;
+        acc[4 * i + 3] *= corr_b;
+      }
+
+      // O += P V: P as wgmma's A from registers (bf16), V MN-major (one
+      // k-step = 16 keys = two 8-row groups of 1024 bytes). All of P is
+      // converted before the fence, so the products issue back to back.
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+      }
+      reg_fence(pa);
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t va = v_s + s * C::KV_BYTES + kk * 16 * 128;
+        wgmma_rs<D>(acc, pa[kk], desc128(va, BK * 128, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar(s));   // this warp is done with slot s
+    if (threadIdx.x == 0 && j + C::STAGES < n_tiles) {
+      mbar_wait(empty_bar(s), (j / C::STAGES) & 1);
+      issue_kv(j + C::STAGES);
+    }
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
+  }
+  const float inv_a = 1.f / (l_a > 0.f ? l_a : 1.f);
+  const float inv_b = 1.f / (l_b > 0.f ? l_b : 1.f);
+  __nv_bfloat16* ob = o + ((long long)b * hq + h) * sq * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = 8 * i + 2 * quad;
+    if (row_a < sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row_a * D + col) =
+          __floats2bfloat162_rn(acc[4 * i] * inv_a, acc[4 * i + 1] * inv_a);
+    if (row_a + 8 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(row_a + 8) * D + col) =
+          __floats2bfloat162_rn(acc[4 * i + 2] * inv_b, acc[4 * i + 3] * inv_b);
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// tensor map over a contiguous bf16 [outer, rows, d] tensor, boxes of
+// [1, box_rows, 64] with the 128-byte swizzle; rows past ``rows`` read as 0
+bool make_map(CUtensorMap* map, const void* ptr, int outer, int rows, int d, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estrides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int b, int hq,
+                      int hkv, int sq, int skv, int causal, int window, float scale,
+                      cudaStream_t stream) {
+  using C = TcShape<D>;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, q, b * hq, sq, D, kTcRows) ||
+      !make_map(&kmap, k, b * hkv, skv, D, C::BK) ||
+      !make_map(&vmap, v, b * hkv, skv, D, C::BK))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)hq, (unsigned)b, (unsigned)((sq + kTcRows - 1) / kTcRows));
+  flash_attention_tc_kernel<D><<<grid, kTcThreads, C::SMEM, stream>>>(
+      qmap, kmap, vmap, (__nv_bfloat16*)o, hq, hkv, sq, skv, causal, window,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// SIMT body (f32 at any d, bf16 at d <= 32)
+// ---------------------------------------------------------------------------
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -60,7 +533,7 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
 
 template <typename T, int D, int TPR>
 __global__ void __launch_bounds__(kRows * TPR)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int hq,
                        int hkv, int sq, int skv, int causal, int window,
                        float scale) {
@@ -186,14 +659,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
                    float scale, cudaStream_t stream) {
   constexpr int TPR = D > 64 ? 2 : 1;
   const dim3 grid((unsigned)((sq + kRows - 1) / kRows), (unsigned)hq, (unsigned)b);
-  flash_attention_kernel<T, D, TPR><<<grid, kRows * TPR, 0, stream>>>(
+  flash_attention_simt_kernel<T, D, TPR><<<grid, kRows * TPR, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, hq, hkv, sq, skv, causal,
       window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
                          int b, int hq, int hkv, int sq, int skv, int d,
                          int causal, int window, float scale, cudaStream_t s) {
   switch (d) {
@@ -218,9 +691,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (dtype == 0)
-    err = launch_dtype<float>(q, k, v, o, b, hq, hkv, sq, skv, d, causal, window, scale, s);
+    err = launch_simt<float>(q, k, v, o, b, hq, hkv, sq, skv, d, causal, window, scale, s);
+  else if (dtype == 1 && d == 64)
+    err = launch_tc<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
+  else if (dtype == 1 && d == 128)
+    err = launch_tc<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
   else if (dtype == 1)
-    err = launch_dtype<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, skv, d, causal, window, scale, s);
+    err = launch_simt<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, skv, d, causal, window, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -12,13 +12,21 @@ Two implementations of one function:
 
   * `decode_attention_plain` — the masked softmax over the whole cache in
     f32; the CPU path and the oracle;
-  * `decode_attention_cuda` — the hand-written kernels in
-    ``csrc/decode_attention.cu`` (the cache split along S across CTAs, the
-    q heads of one KV head together in a CTA, then a deterministic combine
-    of the splits).
+  * `decode_attention_cuda` — the hand-written kernel in
+    ``csrc/decode_attention.cu``: one launch, bound by bytes in flight. The
+    cache is split along S into at most 8 parts (`split_plan`); the CTAs of
+    one (b, KV head) form a thread-block cluster, one CTA a split, each
+    copying its whole split (bf16 kept bf16) into a shared-memory ring with
+    cp.async at its start, reading each K row once for all the group's q
+    heads (bf16 on the tensor cores with mma.sync, f32 on the CUDA cores),
+    and leaving its partial softmax in shared memory; the split-0 CTA
+    combines the partials in split order over distributed shared memory.
+    No scratch in device memory, no atomics: deterministic.
 
-They differ only in summation order (the kernel folds the cache in tiles
-and splits).
+They differ in summation order (the kernel folds the cache in tiles and
+splits) and, for bf16, in the kernel's rounding of the probabilities to
+bf16 before P.V (at most 2^-9 relative a term; m and l are taken from the
+f32 scores).
 """
 from __future__ import annotations
 
@@ -29,8 +37,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, NEG, check_inputs
 
-SPLIT_ROWS = 64          # a split covers a multiple of this many positions
+SPLIT_ROWS = 32          # a split covers a multiple of this many positions
 CTAS_PER_SM = 2          # splits are added until the grid has this many CTAs per SM
+MAX_SPLITS = 8           # one cluster holds the splits; 8 is the portable cluster size
 
 LAUNCHES = _build.LaunchCounter()
 
@@ -60,23 +69,23 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 def split_plan(b: int, hkv: int, s_max: int, n_sm: int) -> tuple[int, int]:
     """(n_split, chunk): the cache positions each CTA covers. Splits are
-    added until the grid has CTAS_PER_SM CTAs per SM, each covering a
-    multiple of SPLIT_ROWS positions."""
+    added until the grid has CTAS_PER_SM CTAs per SM, or there are
+    MAX_SPLITS of them, each covering a multiple of SPLIT_ROWS positions."""
     rows = math.ceil(s_max / SPLIT_ROWS)
     want = max(1, math.ceil(CTAS_PER_SM * n_sm / (b * hkv)))
-    chunk = math.ceil(rows / min(want, rows)) * SPLIT_ROWS
+    chunk = math.ceil(rows / min(want, rows, MAX_SPLITS)) * SPLIT_ROWS
     return math.ceil(s_max / chunk), chunk
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, kv_len: torch.Tensor, *,
                           return_lse: bool = False):
-    """Launch the K5 kernels on the current stream of the tensors' device.
+    """Launch the K5 kernel on the current stream of the tensors' device.
 
     q [B, Hq, D], caches [B, Hkv, S, D] of q's dtype (f32 or bf16),
     contiguous, D in {16, 32, 64, 128}, Hq a multiple of Hkv; kv_len [B]
     int32 on the same device (values are clamped to [0, S]). Returns new
-    tensors; raises on any input the kernels do not take, or if a launch
+    tensors; raises on any input the kernel does not take, or if the launch
     fails.
     """
     dev = q.device
@@ -107,17 +116,13 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         return (out, m, l) if return_lse else out
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     n_split, chunk = split_plan(b, hkv, s_max, n_sm)
-    acc = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=dev)
-    mp = torch.empty((b, hq, n_split), dtype=torch.float32, device=dev)
-    lp = torch.empty((b, hq, n_split), dtype=torch.float32, device=dev)
     lib = _build.load("decode_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-            acc.data_ptr(), mp.data_ptr(), lp.data_ptr(), b, hq, hkv, s_max, d,
-            n_split, chunk, 1.0 / (d ** 0.5), DTYPES[q.dtype], stream)
+            kv_len.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), b, hq,
+            hkv, s_max, d, n_split, chunk, 1.0 / (d ** 0.5), DTYPES[q.dtype], stream)
     _build.check(lib, "decode_attention", code)
     LAUNCHES.add()
     return (out, m, l) if return_lse else out

@@ -13,12 +13,19 @@ Two implementations of one function:
   * `flash_attention_plain` — the masked softmax over whole rows in f32; the
     CPU path and the oracle;
   * `flash_attention_cuda` — the hand-written kernel in
-    ``csrc/flash_attention.cu`` (one CTA per 64-row q tile, one thread per
-    row with its accumulator in registers, K/V tiles in shared memory, tiles
-    the mask kills never loaded).
+    ``csrc/flash_attention.cu``, bound by operations. Two bodies behind one
+    entry point: bf16 at D 64 or 128 (the serving dtype) runs on the tensor
+    cores (128-row q tiles, two `wgmma` warpgroups fed by TMA copies of
+    64-key K/V tiles into a ring, the online softmax on the accumulator
+    fragment, P rounded to bf16 for P.V, tiles the mask kills never
+    loaded, the heaviest q tiles launched first); f32, and bf16 at D 16 or
+    32, keep the SIMT body (one thread a query row, f32 products on the
+    CUDA cores), which the f32 parity checks need.
 
-They differ only in summation order: the kernel folds keys into an online
-softmax 16 at a time.
+They differ in summation order and, in the tensor-core body, in P's
+rounding to bf16 before P.V (at most 2^-9 relative a term, the order of
+the output's own bf16 rounding; ``tests/test_torch_attention.py`` repeats
+that body's arithmetic in PyTorch and holds it to the plain version).
 """
 from __future__ import annotations
 

@@ -93,6 +93,49 @@ def test_flash_attention_plain_keeps_bf16():
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=1e-2, rtol=1e-2)
 
 
+def _tensor_core_attention(q, k, v, *, causal, window):
+    """K4's tensor-core body in PyTorch: an online softmax over kv tiles of
+    the kernel's Bk (64 keys), scores scaled into the log2 domain, masked
+    scores -1e30 and masked probabilities 0, the row sum l over the f32
+    probabilities, and P rounded to bf16 before P.V (products
+    of bf16 values, summed in f32)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    bk = 64
+    qg = q.float().reshape(b, hkv, hq // hkv, sq, d)
+    mask = flash_attention.attention_mask(sq, skv, causal=causal, window=window, device="cpu")
+    m = torch.full((b, hkv, hq // hkv, sq, 1), flash_attention.NEG)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, hq // hkv, sq, d))
+    for t0 in range(0, skv, bk):
+        kt, vt, ok = k[:, :, t0:t0 + bk].float(), v[:, :, t0:t0 + bk].float(), mask[:, t0:t0 + bk]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kt) * (math.log2(math.e) / math.sqrt(d))
+        s = torch.where(ok, s, flash_attention.NEG)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(ok, torch.exp2(s - m_new), 0.0)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhgqk,bhkd->bhgqd", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    o = acc / torch.where(l > 0, l, 1.0)
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("skv", [64, 1024])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, 37)])
+def test_bf16_probabilities_stay_within_the_card_tolerance(skv, d, causal, window):
+    """Rounding P to bf16 before P.V (K4's tensor-core body) keeps the output
+    within the card check's bf16 tolerance of the plain version (atol 2e-2,
+    rtol 1e-2: ATTN_TOL["bfloat16"] in chip_smoke.py), with bf16 inputs."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(9, 1, 4, 2, skv, skv, d))
+    got = _tensor_core_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
+
+
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (False, None)])
 def test_naive_and_chunked_match_repro(causal, window):
     """The plain counterparts of `repro`'s impl="naive" and impl="xla"."""
@@ -150,26 +193,33 @@ def test_decode_attention_plain_matches_pallas(b, hq, hkv, s, d, kv_len):
 
 
 @pytest.mark.parametrize("b,hkv,s_max,n_sm,plan", [
-    (8, 4, 1152, 132, (9, 128)),     # the tinyllama serving shape on an H100
-    (1, 1, 100, 132, (2, 64)),
+    (8, 4, 1152, 132, (8, 160)),     # the tinyllama serving shape on an H100
+    (1, 1, 100, 132, (4, 32)),
     (64, 8, 4096, 132, (1, 4096)),
-    (2, 2, 30, 132, (1, 64)),
+    (2, 2, 30, 132, (1, 32)),
+    (1, 1, 4096, 132, (8, 512)),     # capped at MAX_SPLITS, one cluster
 ])
 def test_decode_split_plan(b, hkv, s_max, n_sm, plan):
     n_split, chunk = decode_attention.split_plan(b, hkv, s_max, n_sm)
     assert (n_split, chunk) == plan
+    assert n_split <= decode_attention.MAX_SPLITS
     assert chunk % decode_attention.SPLIT_ROWS == 0
     assert (n_split - 1) * chunk < s_max <= n_split * chunk
 
 
-def test_split_and_combine_give_the_whole_cache_statistics():
+@pytest.mark.parametrize("b,hkv,s,kv_len,n_split", [
+    (3, 2, 200, [0, 150, 200], 7),       # a split wholly past kv_len
+    (1, 1, 1000, [1000], 8),             # kv_len = S at the cap
+    (2, 2, 1152, [1088, 161], 8),        # the serving split, kv_len off the boundary
+])
+def test_split_and_combine_give_the_whole_cache_statistics(b, hkv, s, kv_len, n_split):
     """The CUDA kernel's arithmetic in PyTorch: per-split partial softmax,
     then M = max m_i, L = sum l_i e^(m_i - M), o = sum acc_i e^(m_i - M) / L
     over the splits in order, equals the whole-cache o, m and l."""
-    b, hq, hkv, s, d = 3, 8, 2, 200, 16
-    q, kc, vc, lens = _t(*_decode_inputs(6, b, hq, hkv, s, d, [0, 150, 200]))
-    n_split, chunk = decode_attention.split_plan(b, hkv, s, 132)
-    assert n_split > 1
+    hq, d = 4 * hkv, 16
+    q, kc, vc, lens = _t(*_decode_inputs(6, b, hq, hkv, s, d, kv_len))
+    planned, chunk = decode_attention.split_plan(b, hkv, s, 132)
+    assert planned == n_split
     g = hq // hkv
     qg = q.reshape(b, hkv, g, d)
     ms, ls, accs = [], [], []
