@@ -11,8 +11,13 @@ failure raises and the script exits non-zero without printing a result:
               (ptxas registers and spills printed); K4's library must hold
               tensor-core instructions (``HGMMA`` in ``cuobjdump -sass``)
   3. parity   each partitioner kernel on small odd-k inputs against the
-              plain version on the CPU (K3 also on empty rows and random
-              float values); then 3 Revolver supersteps on the card
+              plain version on the CPU (K1 under the layout's span plan and
+              one of 16-entry, 4-row spans, k up to 64, and on a slab with a
+              hub row of 1,048,589 entries, two calls bit-equal; K3 also on
+              empty rows and random float values); the load and demand sums
+              of odd degrees past 2^24, permuted and repeated on the card,
+              equal to the CPU's (the exact sum rounded once); then 3
+              Revolver supersteps on the card
               (kernels) against 3 on the CPU (plain versions) from one state
               with the same random draws, both weight modes: labels, lambda,
               loads and score equal, probabilities within tolerance; then 3
@@ -31,10 +36,11 @@ failure raises and the script exits non-zero without printing a result:
   5. lm-full  tinyllama-1.1b at full width, bf16, random weights from seed 0
               on the card: prefill(1024) + decode(token 1025) against
               prefill(1025) (greedy argmax held as in phase 7's bf16 run)
-  6. rwkv-small  K6 on small odd shapes (B 1-3, H 1-4, N 8/16/32/80, S 1,
-              7, 64, 129, strong and weak decays, a nonzero state0, the
-              final state written over it) against its plain version on
-              the CPU, f32; then reduced rwkv6-3b in f32 (TF32
+  6. rwkv-small  K6 on small odd shapes (B 1-3, H 1-4, N 8/16/32/80, S 1
+              to 1024: below 8 tokens (the token-serial kernel), below one
+              chunk (the spread kernel) and past it with ragged last chunks, strong and weak decays, a nonzero state0,
+              the final state written over it) against its plain version on
+              the CPU, f32, two calls bit-equal; then reduced rwkv6-3b in f32 (TF32
               off): prefill and 8 greedy decode steps on the card against
               the CPU, from one set of weights
   7. rwkv-full  rwkv6-3b at full width, random weights from seed 0 on the
@@ -47,9 +53,12 @@ failure raises and the script exits non-zero without printing a result:
               the host (in a thread started before phase 2, overlapping
               phases 2-7) and laid out on the card in 8 blocks
   9. kernels  each partitioner kernel against its plain PyTorch version on
-              the card, at the main path's shapes (K1 bit-exact, K2 at atol
-              5e-6 / rtol 5e-5), then timed: median of 30 launches after
-              warm-up, CUDA events, L2 flushed before each launch
+              the card, at the main path's shapes (K1 bit-exact in both
+              weight modes, two calls bit-equal; K2 at atol 5e-6 / rtol
+              5e-5), then timed eager, as the main path calls them
+              (median of 30 launches after warm-up, CUDA events, L2
+              flushed before each); K1 also as a CUDA-graph replay
+              (``graph_ms``, as in phase 13)
  10. main     ``run_partitioner("revolver", WIKI, k=8, seed=0)`` on the card,
               with every launch counter set to 0 just before and read just
               after; each partitioner kernel must have launched 8 times per
@@ -85,10 +94,13 @@ failure raises and the script exits non-zero without printing a result:
  14. rwkv-serve  ``Engine.generate`` on rwkv6-3b at full width and depth,
               as phase 12: K6 once per layer in prefill and once per layer
               and decode step (32 x 128 = 4,096 launches), no other kernel
- 15. rwkv-kernel  K6 at the rwkv6-3b prefill shape [8,1024,32,80] and decode
-              shape [8,1,32,80] against its plain version on the card, then
-              timed as in phase 13 (no single PyTorch call computes the
-              recurrence, so it has no yardstick)
+ 15. rwkv-kernel  K6 at full width ([8,S,32,80]) at S = one chunk less one,
+              one chunk and one more, then at the rwkv6-3b prefill shape
+              [8,1024,32,80] and decode shape [8,1,32,80], against its plain
+              version on the card, two calls bit-equal, the device kernels a
+              call counted (2 from one chunk on, 1 below); all five timed as
+              in phase 13 (no single PyTorch call computes the recurrence,
+              so it has no yardstick)
 
 Each model phase starts after the previous model is deleted and the
 allocator's cache emptied, with the peak memory statistics reset.
@@ -102,6 +114,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import pathlib
 import subprocess
@@ -203,14 +216,19 @@ def graph_ms(torch, fn, flush, reps: int = 30) -> float:
     return time_ms(torch, graph.replay, flush, reps)
 
 
-def check_k1_small(torch, np, seed: int) -> None:
+def check_k1_small(torch, np, seed: int) -> int:
     """K1 on small padded slabs with odd k against the CPU plain version,
-    before anything large is built."""
+    before anything large is built: under the default span plan and under
+    one of 16-entry, 4-row spans (hub rows cut into pieces, rows cut by the
+    row cap). Returns the number of cases."""
+    from repro_torch.core.device_graph import SpanPlan
     from repro_torch.graphs.blocking import slab_row_ptr
     from repro_torch.kernels import edge_phase
 
     rng = np.random.default_rng(seed)
-    for nb, e_max, sbv, k in ((3, 512, 128, 5), (1, 256, 64, 3), (2, 1024, 256, 33)):
+    cases = 0
+    for nb, e_max, sbv, k in ((3, 512, 128, 5), (1, 256, 64, 3), (2, 1024, 256, 33),
+                              (2, 4096, 64, 64)):
         dst = np.zeros((nb, e_max), np.int32)
         rows = np.zeros((nb, e_max), np.int32)
         vals = np.zeros((nb, e_max), np.float32)
@@ -226,16 +244,67 @@ def check_k1_small(torch, np, seed: int) -> None:
                 (rng.random((nb, k)) > 0.3).astype(np.float32)]
         cpu = [torch.from_numpy(a) for a in host]
         cuda = [t.cuda() for t in cpu]
-        row_ptr = torch.from_numpy(slab_row_ptr(rows, vals, sbv)).cuda()
-        for mode in ("self_lambda", "neighbor_lambda"):
+        host_ptr = slab_row_ptr(rows, vals, sbv)
+        row_ptr = torch.from_numpy(host_ptr).cuda()
+        plans = (SpanPlan.from_row_ptr(host_ptr, "cuda"),
+                 SpanPlan.from_row_ptr(host_ptr, "cuda", span_edges=16, row_cap=4))
+        for plan, mode in itertools.product(plans, ("self_lambda", "neighbor_lambda")):
             got = edge_phase.fused_edge_phase_cuda(
-                cuda[0], cuda[2], row_ptr, *cuda[3:], block_v=sbv, k=k,
+                cuda[0], cuda[2], row_ptr, plan, *cuda[3:], block_v=sbv, k=k,
                 weight_mode=mode)
             want = edge_phase.fused_edge_phase_plain(*cpu, block_v=sbv, k=k,
                                                      weight_mode=mode)
             for a, b in zip(got, want):
                 require(torch.equal(a.cpu(), b),
-                        f"K1 {mode} k={k} slab differs from the CPU plain version")
+                        f"K1 {mode} k={k} spans of {plan.span_edges} slab differs "
+                        "from the CPU plain version")
+            cases += 1
+    return cases
+
+
+def check_k1_hub(torch, np, seed: int) -> dict:
+    """K1 on a synthetic slab whose row 1000 holds 1,048,589 entries (cut
+    into 513 pieces by the default plan) among rows of 0-40, k = 8, both
+    weight modes: bit-equal to the plain version on the card, two calls
+    bit-equal."""
+    from repro_torch.core.device_graph import SpanPlan
+    from repro_torch.graphs.blocking import slab_row_ptr
+    from repro_torch.kernels import edge_phase
+
+    rng = np.random.default_rng(seed)
+    bv, hub = 4096, 1_048_589
+    deg = rng.integers(0, 41, bv)
+    deg[1000] = hub
+    e_max = -(-(int(deg.sum()) + 100) // 256) * 256
+    rows = np.zeros((1, e_max), np.int32)
+    dst = np.zeros((1, e_max), np.int32)
+    vals = np.zeros((1, e_max), np.float32)
+    cnt = int(deg.sum())
+    rows[0, :cnt] = np.repeat(np.arange(bv), deg)
+    dst[0, :cnt] = rng.integers(0, bv, cnt)
+    vals[0, :cnt] = rng.integers(1, 3, cnt)
+    host_ptr = slab_row_ptr(rows, vals, bv)
+    plan = SpanPlan.from_row_ptr(host_ptr, "cuda")
+    pieces = plan.hubs[0, :, 2].tolist()
+    require(max(pieces) * plan.span_edges >= hub, f"hub row not cut into pieces: {pieces}")
+    t = [torch.from_numpy(a).cuda() for a in (dst, rows, vals)]
+    labels, lam = (torch.from_numpy(rng.integers(0, K, bv).astype(np.int32)).cuda()
+                   for _ in range(2))
+    actions = torch.from_numpy(rng.integers(0, K, (1, bv)).astype(np.int32)).cuda()
+    feasible = torch.from_numpy((rng.random((1, K)) > 0.3).astype(np.float32)).cuda()
+    row_ptr = torch.from_numpy(host_ptr).cuda()
+    for mode in ("self_lambda", "neighbor_lambda"):
+        call = lambda: edge_phase.fused_edge_phase_cuda(  # noqa: E731
+            t[0], t[2], row_ptr, plan, labels, lam, actions, feasible, block_v=bv, k=K,
+            weight_mode=mode)
+        got, again = call(), call()
+        want = edge_phase.fused_edge_phase_plain(t[0], t[1], t[2], labels, lam, actions,
+                                                 feasible, block_v=bv, k=K, weight_mode=mode)
+        torch.cuda.synchronize()
+        for a, b, c, name in zip(got, again, want, ("hist", "w_acc")):
+            require(torch.equal(a, c), f"K1 {mode} {name} differs from plain on the hub slab")
+            require(torch.equal(a, b), f"K1 {mode} {name}: two calls differ on the hub slab")
+    return {"hub_entries": hub, "hub_pieces": max(pieces), "slab_entries": cnt}
 
 
 def check_k1_block(torch, dg, seed: int):
@@ -252,13 +321,15 @@ def check_k1_block(torch, dg, seed: int):
     feasible = (torch.rand((1, K), generator=gen, device=dev) > 0.3).float()
     args = (dg.blk_dst[:1], dg.blk_row[:1], dg.blk_w[:1], labels, lam, actions, feasible)
     for mode in ("self_lambda", "neighbor_lambda"):
-        got = edge_phase.fused_edge_phase_cuda(
-            dg.blk_dst[:1], dg.blk_w[:1], dg.blk_row_ptr[:1], labels, lam,
-            actions, feasible, block_v=bv, k=K, weight_mode=mode)
+        call = lambda: edge_phase.fused_edge_phase_cuda(  # noqa: E731
+            dg.blk_dst[:1], dg.blk_w[:1], dg.blk_row_ptr[:1], dg.blk_spans.block(0),
+            labels, lam, actions, feasible, block_v=bv, k=K, weight_mode=mode)
+        got, again = call(), call()
         want = edge_phase.fused_edge_phase_plain(*args, block_v=bv, k=K, weight_mode=mode)
         torch.cuda.synchronize()
-        for a, b, name in zip(got, want, ("hist", "w_acc")):
+        for a, b, c, name in zip(got, want, again, ("hist", "w_acc")):
             require(torch.equal(a, b), f"K1 {mode} {name} differs from plain at full block")
+            require(torch.equal(a, c), f"K1 {mode} {name}: two calls differ at full block")
     live = int((dg.blk_w[0] > 0).sum())
     return args, labels, lam, actions, feasible, live
 
@@ -998,22 +1069,53 @@ def wkv6_small_checks(torch) -> dict:
     from repro_torch.kernels import wkv6 as k6
 
     gen = torch.Generator().manual_seed(SEED)
-    cases = [  # b, s, h, n
+    cases = [  # b, s, h, n: token-serial, spread, whole and ragged chunks
         (1, 1, 1, 8), (2, 7, 3, 16), (3, 64, 4, 32), (2, 129, 2, 80),
         (1, 129, 4, 8), (3, 1, 4, 80), (2, 64, 1, 80), (1, 7, 2, 32),
+        (2, 63, 2, 80), (2, 65, 3, 80), (1, 1024, 2, 80), (2, 200, 2, 16),
     ]
     errs = {}
     for b, s, h, n in cases:
         cpu = wkv6_inputs(torch, gen, b, s, h, n, "cpu")
         card = [t.cuda() for t in cpu]
+        again = k6.wkv6_cuda(*card[:5], card[5].clone())
         y, st = k6.wkv6_cuda(*card)
         wy, wst = k6.wkv6_plain(*cpu)
         torch.cuda.synchronize()
         name = f"k6 {(b, s, h, n)}"
         require(st is card[5] and wst is cpu[5], f"{name}: state not written over state0")
+        require(torch.equal(y, again[0]) and torch.equal(st, again[1]),
+                f"{name}: two calls differ")
         errs[f"{name} y"] = check_close(torch, y.cpu(), wy, WKV_TOL, f"{name} y")
         errs[f"{name} state"] = check_close(torch, st.cpu(), wst, WKV_TOL, f"{name} state")
     return {"cases": len(cases), "max_abs_err": max(errs.values()), "tol": WKV_TOL}
+
+
+def exact_sums_check(torch, np) -> dict:
+    """Item 19 on the card: bin sums of odd degrees past 2^24 (90 % of the
+    mass in one part) do not change when the vertices are permuted or the
+    sum repeated, and equal the CPU's (the exact sum rounded once)."""
+    from repro_torch.core import metrics
+
+    rng = np.random.default_rng(19)
+    n, k = 4_000_001, 4
+    deg = (rng.integers(0, 1000, n) * 2 + 1).astype(np.float32)
+    labels = np.where(rng.random(n) < 0.9, 0, rng.integers(1, k, n)).astype(np.int32)
+    other = rng.integers(0, k, n).astype(np.int32)
+    mass = np.bincount(labels, weights=deg.astype(np.float64), minlength=k)
+    require(mass.max() > 2 ** 24, "exact sums: no bin past 2^24")
+    want = metrics.bin_sums(torch.from_numpy(labels), torch.from_numpy(deg), k)
+    want_moved = metrics.moved_sums(torch.from_numpy(other), torch.from_numpy(labels),
+                                    torch.from_numpy(deg), k)
+    for order in (np.arange(n), rng.permutation(n), rng.permutation(n)):
+        lab, oth, d = (torch.from_numpy(np.ascontiguousarray(a[order])).cuda()
+                       for a in (labels, other, deg))
+        for _ in range(2):
+            require(torch.equal(metrics.bin_sums(lab, d, k).cpu(), want),
+                    "exact sums: a permuted or repeated card bin sum differs")
+            require(torch.equal(metrics.moved_sums(oth, lab, d, k).cpu(), want_moved),
+                    "exact sums: a permuted or repeated card load delta differs")
+    return {"vertices": n, "max_bin": float(mass.max()), "bin_sums": want.tolist()}
 
 
 def wkv6_serve_kernel(torch, flush) -> tuple[dict, dict]:
@@ -1026,10 +1128,29 @@ def wkv6_serve_kernel(torch, flush) -> tuple[dict, dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     b, h, n = SERVE["batch"], 32, 80
     out = {}
+    # around one chunk at full width: held to the plain version and timed
+    ragged = {}
+    for s in (k6.CHUNK - 1, k6.CHUNK, k6.CHUNK + 1):
+        args = wkv6_inputs(torch, gen, b, s, h, n, "cuda")
+        got = k6.wkv6_cuda(*args[:5], args[5].clone())
+        again = k6.wkv6_cuda(*args[:5], args[5].clone())
+        want = k6.wkv6_plain(*args[:5], args[5].clone())
+        require(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                f"K6 at S {s}: two calls differ")
+        ragged[s] = max(check_close(torch, got[0], want[0], WKV_TOL, f"K6 y at S {s}"),
+                        check_close(torch, got[1], want[1], WKV_TOL, f"K6 state at S {s}"))
+        ragged[f"{s}_device_kernels_per_call"] = kernels_per_call(
+            torch, lambda: k6.wkv6_cuda(*args))[0]
+        # below one chunk the spread kernel runs, from one chunk on the chunked passes
+        ragged[f"{s}_ms"] = graph_ms(torch, lambda: k6.wkv6_cuda(*args), flush)
+        del args, got, again, want
     for label, s in (("prefill", SERVE["prompt"]), ("decode", 1)):
         args = wkv6_inputs(torch, gen, b, s, h, n, "cuda")
         got = k6.wkv6_cuda(*args[:5], args[5].clone())
+        again = k6.wkv6_cuda(*args[:5], args[5].clone())
         want = k6.wkv6_plain(*args[:5], args[5].clone())
+        require(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                f"K6 at the {label} shape: two calls differ")
         err = max(check_close(torch, got[0], want[0], WKV_TOL, f"K6 y at the {label} shape"),
                   check_close(torch, got[1], want[1], WKV_TOL, f"K6 state at the {label} shape"))
         nbytes = 4 * (5 * b * s * h * n + h * n + 2 * b * h * n * n)
@@ -1044,9 +1165,11 @@ def wkv6_serve_kernel(torch, flush) -> tuple[dict, dict]:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "eager_ms": time_ms(torch, fn, flush),
             "shape": f"r/k/v/logw [{b},{s},{h},{n}] f32, state [{b},{h},{n},{n}] f32",
-            "bytes": nbytes, "flops": flops,
+            "bytes": nbytes, "flops": flops, "chunk": k6.CHUNK,
+            "device_kernels_per_call": kernels_per_call(torch, fn)[0],
+            "deterministic": True, "ragged_max_abs_err": ragged,
         }
-        del args, got, want
+        del args, got, again, want
     record = {"name": "wkv6", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/wkv6.cu",
               "replaces": "src/repro/kernels/wkv6.py:57",
@@ -1114,7 +1237,9 @@ def main() -> int:
 
     # 3. small kernel checks and superstep parity, before anything large:
     # the kernels on the card against the plain versions on the CPU
-    check_k1_small(torch, np, SEED)
+    k1_small = check_k1_small(torch, np, SEED)
+    k1_hub = check_k1_hub(torch, np, SEED + 6)
+    exact_sums = exact_sums_check(torch, np)
     check_k2(torch, torch.device("cuda"), 4099, 5, SEED + 1)
     k3_small = check_k3_small(torch, np, SEED + 4)
     ops.reset_launch_counts()
@@ -1130,8 +1255,8 @@ def main() -> int:
             for n in rule_counts}
     require(rule_counts == want, f"rule parity launches {rule_counts}, expected {want}")
     emit({"phase": "parity", "supersteps": parity_steps, "weight_modes": 2,
-          "launches": parity_counts, **k3_small, "rules": rule_parity,
-          "rule_launches": rule_counts})
+          "launches": parity_counts, "k1_cases": k1_small, "k1_hub": k1_hub, **k3_small,
+          "exact_sums": exact_sums, "rules": rule_parity, "rule_launches": rule_counts})
 
     # 4. attention kernels on small odd shapes, then reduced-LM parity: the
     # card (kernels) against the CPU (plain versions)
@@ -1198,8 +1323,8 @@ def main() -> int:
     args, labels, lam, actions, feasible, live = check_k1_block(torch, dg, SEED)
     bv = dg.block_v
     k1_cuda = lambda: edge_phase.fused_edge_phase_cuda(  # noqa: E731
-        dg.blk_dst[:1], dg.blk_w[:1], dg.blk_row_ptr[:1], labels, lam, actions,
-        feasible, block_v=bv, k=K)
+        dg.blk_dst[:1], dg.blk_w[:1], dg.blk_row_ptr[:1], dg.blk_spans.block(0), labels,
+        lam, actions, feasible, block_v=bv, k=K)
     k1_plain = lambda: edge_phase.fused_edge_phase_plain(*args, block_v=bv, k=K)  # noqa: E731
     k1_bytes = (live * 8 + (bv + 1) * 4 + 2 * dg.n_pad * 4 + bv * 4 + K * 4
                 + 2 * bv * K * 4)
@@ -1216,8 +1341,10 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/edge_phase.cu",
             "replaces": "src/repro/kernels/edge_phase.py:108",
             "max_abs_err": 0.0,
+            # eager, as the Revolver rule calls it; the graph replay beside
             "ms": time_ms(torch, k1_cuda, flush),
             "plain_ms": time_ms(torch, k1_plain, flush),
+            "graph_ms": graph_ms(torch, k1_cuda, flush),
             "bound_ms": max(k1_bytes / HBM_BYTES_PER_S, k1_ops / F32_FLOPS) * 1e3,
             "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / F32_FLOPS else "operations",
             "library_ms": None,

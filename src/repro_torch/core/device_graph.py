@@ -6,8 +6,8 @@ Two layouts are kept:
   * **blocked** per-chunk slabs `[n_blocks, e_max]` of the symmetrized
     adjacency — used by Revolver's sequential block scan and by the
     edge-phase kernel. The port adds `blk_row_ptr`, each slab's per-row
-    pointer, so the kernel walks every row's contiguous edge run instead of
-    scattering.
+    pointer, and `blk_spans`, the edge-phase kernel's edge-balanced work
+    split of the slabs (a `SpanPlan`), both built once per layout.
 
 `repro`'s `DeviceGraph` also carries the flat symmetrized adjacency
 (`edge_src` / `edge_dst` / `edge_w`), which no code of either package reads;
@@ -25,8 +25,14 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.graphs.blocking import block_edges, slab_row_ptr
+from repro_torch.graphs.blocking import block_edges, slab_row_ptr, slab_span_plan
 from repro_torch.graphs.csr import Graph
+
+# the edge-phase kernel's span plan: a span holds fewer than 2 x SPAN_EDGES
+# slab entries (a hub row is cut into pieces of SPAN_EDGES) and at most
+# SPAN_ROWS rows, which bounds its shared memory (`kernels.edge_phase`)
+SPAN_EDGES = 2048
+SPAN_ROWS = 128
 
 
 def resolve_device(device) -> torch.device:
@@ -41,6 +47,30 @@ def resolve_device(device) -> torch.device:
             f"device={device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpanPlan:
+    """The edge-phase kernel's work split of row-sorted slabs, built once
+    per layout from the row pointer (`slab_span_plan`): each span is one CTA
+    of the kernel, and each hub row's pieces are added by a second pass."""
+
+    spans: torch.Tensor   # [nb, S, 5] int32 (e0, e1, r0, r1, part)
+    hubs: torch.Tensor    # [nb, H, 3] int32 (row, first piece, pieces)
+    span_edges: int
+    row_cap: int
+
+    @classmethod
+    def from_row_ptr(cls, row_ptr: np.ndarray, device, *, span_edges: int = SPAN_EDGES,
+                     row_cap: int = SPAN_ROWS) -> "SpanPlan":
+        spans, hubs = slab_span_plan(row_ptr, span_edges, row_cap)
+        dev = torch.device(device)
+        return cls(torch.from_numpy(spans).to(dev), torch.from_numpy(hubs).to(dev),
+                   span_edges, row_cap)
+
+    def block(self, b: int) -> "SpanPlan":
+        """The plan of block ``b`` alone (nb = 1), as views."""
+        return dataclasses.replace(self, spans=self.spans[b:b + 1], hubs=self.hubs[b:b + 1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +91,7 @@ class DeviceGraph:
     blk_row: torch.Tensor     # [n_blocks, e_max] int32 local row (0 pad)
     blk_w: torch.Tensor       # [n_blocks, e_max] f32 (0.0 pad)
     blk_row_ptr: torch.Tensor  # [n_blocks, block_v+1] int32 row runs
+    blk_spans: SpanPlan        # the edge-phase kernel's work split
     # per-vertex
     deg_out: torch.Tensor     # [n_pad] f32 outdegree (load contribution)
     inv_wsum: torch.Tensor    # [n_pad] f32 1/sum_u w_hat(u,v) (0 if isolated)
@@ -75,8 +106,9 @@ def device_graph_from_numpy(arrays: dict, device) -> DeviceGraph:
     """Build a `DeviceGraph` on ``device`` from its fields as numpy arrays
     and ints — e.g. the fields of `repro`'s `DeviceGraph` from
     ``jax.device_get(dg._asdict())``; fields the port does not keep are
-    ignored. `blk_row_ptr` is derived from the slabs (`slab_row_ptr` also
-    checks their row-sorted layout). Arrays are copied.
+    ignored. `blk_row_ptr` and `blk_spans` are derived from the slabs
+    (`slab_row_ptr` also checks their row-sorted layout). Arrays are
+    copied.
     """
     dev = resolve_device(device)
     ints = {f: int(arrays[f])
@@ -90,6 +122,7 @@ def device_graph_from_numpy(arrays: dict, device) -> DeviceGraph:
         a = np.array(arrays[f], dtype=dtypes.get(f, np.int32))
         tensors[f] = torch.from_numpy(a).to(dev)
     tensors["blk_row_ptr"] = torch.from_numpy(row_ptr).to(dev)
+    tensors["blk_spans"] = SpanPlan.from_row_ptr(row_ptr, dev)
     return DeviceGraph(**ints, **tensors)
 
 
@@ -108,8 +141,10 @@ def prepare_device_graph(g: Graph, n_blocks: int = 8, block_multiple: int = 8,
 
     src_flat = np.repeat(np.arange(g.n, dtype=np.int32),
                          np.diff(g.adj_ptr).astype(np.int64))
-    # sums of eq.-(4) weights in {1, 2}: exact in any order, so bincount
-    # equals the reference's sequential np.add.at bit for bit
+    # sums of eq.-(4) weights in {1, 2}: bincount sums in f64 (exact for
+    # integers below 2^53) and rounds to f32 once, so it equals the
+    # reference's sequential f32 np.add.at bit for bit while a vertex's sum
+    # stays below 2^24 (its degree is at most 2n)
     wsum = np.zeros(n_pad, dtype=np.float32)
     wsum[: g.n] = np.bincount(src_flat, weights=g.adj_w, minlength=g.n)
     inv_wsum = np.where(wsum > 0, 1.0 / np.maximum(wsum, 1e-30), 0.0).astype(np.float32)

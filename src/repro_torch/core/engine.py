@@ -35,7 +35,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.device_graph import DeviceGraph, capacity_device, scalar_device
+from repro_torch.core.device_graph import DeviceGraph, SpanPlan, capacity_device, scalar_device
+from repro_torch.core.metrics import bin_sums
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -118,6 +119,7 @@ class ChunkContext(NamedTuple):
     e_row: torch.Tensor     # [e_max] int32 local row in the block (0 pad)
     e_w: torch.Tensor       # [e_max] f32 eq.(4) weights (0.0 pad)
     row_ptr: torch.Tensor   # [block_v+1] int32 row runs of the slab
+    spans: SpanPlan         # the slab's edge-phase work split (nb = 1)
     deg: torch.Tensor       # [block_v] f32 outdegrees
     inv_wsum: torch.Tensor  # [block_v] f32 1/sum w_hat
     vmask: torch.Tensor     # [block_v] bool real-vertex mask
@@ -218,7 +220,7 @@ def _chunk_superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, cap, draws):
         v0 = b * bv
         ctx = ChunkContext(
             blk_idx=b, v0=v0, gv0=v0, e_dst=dg.blk_dst[b], e_row=dg.blk_row[b],
-            e_w=dg.blk_w[b], row_ptr=dg.blk_row_ptr[b],
+            e_w=dg.blk_w[b], row_ptr=dg.blk_row_ptr[b], spans=dg.blk_spans.block(b),
             deg=dg.deg_out[v0:v0 + bv], inv_wsum=dg.inv_wsum[v0:v0 + bv],
             vmask=dg.vmask[v0:v0 + bv], step=state.step, n_shards=1,
             loads0=state.loads, repl=repl, draws=draws)
@@ -287,7 +289,6 @@ def warm_labels(dg: DeviceGraph, k: int, gen: torch.Generator, labels) -> torch.
 
 def loads_from_labels(dg: DeviceGraph, k: int, labels: torch.Tensor) -> torch.Tensor:
     """Recompute b(l) from the degree vector so the invariant
-    b(l) == sum deg over labels==l holds from step 0. Integer-valued f32
-    sums, exact in any order (also with CUDA's atomic `index_add_`)."""
-    loads = torch.zeros((k,), dtype=torch.float32, device=labels.device)
-    return loads.index_add_(0, labels.long(), dg.deg_out)
+    b(l) == sum deg over labels==l holds from step 0 (summed in int64, see
+    `bin_sums`)."""
+    return bin_sums(labels, dg.deg_out, k)

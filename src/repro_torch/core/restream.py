@@ -31,6 +31,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.device_graph import CAPACITY_MODES, DeviceGraph, scalar_device
 from repro_torch.core.lp import spinner_penalty, tau_term
+from repro_torch.core.metrics import bin_sums, moved_sums
 from repro_torch.core.registry import register
 from repro_torch.core.spinner import check_schedule
 
@@ -164,11 +165,10 @@ def _restream_chunk_rule(cfg: RestreamConfig, ctx: engine.ChunkContext,
     cand = torch.argmax(scores + bump, dim=-1).to(torch.int32)
     best = torch.max(scores, dim=-1).values
 
-    # capacity-gated migration; m(l) and the load update are integer-valued
-    # f32 sums, exact in any order
+    # capacity-gated migration; m(l) and the load update are integer degree
+    # sums, taken in int64 (order-independent)
     wants = (cand != cur) & active
-    demand = torch.zeros((k,), dtype=torch.float32, device=loads.device)
-    demand.index_add_(0, cand.long(), ctx.deg * wants)
+    demand = bin_sums(cand, ctx.deg * wants, k)
     remaining = ctx.shared_headroom(cap, loads)
     p_mig = torch.where(
         demand > 0,
@@ -178,7 +178,7 @@ def _restream_chunk_rule(cfg: RestreamConfig, ctx: engine.ChunkContext,
     new_lbl = torch.where(migrate, cand, cur)
 
     dmig = ctx.deg * migrate
-    loads = loads.index_add(0, cur.long(), -dmig).index_add_(0, cand.long(), dmig)
+    loads = loads + moved_sums(cur, cand, dmig, k)
     return engine.ChunkUpdate(
         vert={"labels": new_lbl},
         block={"used": used},

@@ -39,6 +39,7 @@ from repro_torch.core import engine
 from repro_torch.core.device_graph import CAPACITY_MODES, DeviceGraph
 from repro_torch.core.la import split_weights_and_signals
 from repro_torch.core.lp import revolver_scores
+from repro_torch.core.metrics import bin_sums, moved_sums
 from repro_torch.core.registry import register
 
 # valid values per config knob
@@ -204,10 +205,8 @@ def _revolver_chunk_rule(cfg: RevolverConfig, ctx: engine.ChunkContext,
 
     # -- 2. migration probability per partition ------------------------------
     wants = (action != cur) & ctx.vmask
-    # m(l): integer-valued f32 sums, exact in any order (also with CUDA's
-    # atomic index_add_)
-    demand = torch.zeros((k,), dtype=torch.float32, device=probs.device)
-    demand.index_add_(0, action.long(), ctx.deg * wants)
+    # m(l): integer degree sums, taken in int64 (order-independent)
+    demand = bin_sums(action, ctx.deg * wants, k)
     remaining = cap - loads                                                # r(l)
     p_mig = torch.where(
         demand > 0,
@@ -222,7 +221,7 @@ def _revolver_chunk_rule(cfg: RevolverConfig, ctx: engine.ChunkContext,
     hist, w_acc = ops.fused_edge_phase(
         ctx.e_dst[None], ctx.e_row[None], ctx.e_w[None], labels, lam,
         action[None], feasible[None], row_ptr=ctx.row_ptr[None],
-        block_v=bv, k=k, weight_mode=cfg.weight_mode)
+        spans=ctx.spans, block_v=bv, k=k, weight_mode=cfg.weight_mode)
     hist, w_acc = hist[0], w_acc[0]
 
     scores = revolver_scores(hist, ctx.inv_wsum, loads, cap)
@@ -236,7 +235,7 @@ def _revolver_chunk_rule(cfg: RevolverConfig, ctx: engine.ChunkContext,
 
     # -- 8. exact load update (visible to the next chunk) --------------------
     dmig = ctx.deg * migrate
-    loads = loads.index_add(0, cur.long(), -dmig).index_add_(0, action.long(), dmig)
+    loads = loads + moved_sums(cur, action, dmig, k)
 
     # -- 5. finish the eq. (13) weight accumulation ----------------------------
     if cfg.weight_mode == "self_lambda":

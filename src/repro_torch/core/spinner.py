@@ -26,6 +26,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.device_graph import CAPACITY_MODES, DeviceGraph
 from repro_torch.core.lp import spinner_scores
+from repro_torch.core.metrics import bin_sums, moved_sums
 from repro_torch.core.registry import register
 
 # `repro`'s schedules; only the sequential one is ported
@@ -117,10 +118,9 @@ def _spinner_shard_rule(cfg: SpinnerConfig, ctx: engine.ShardContext,
     best = torch.max(scores, dim=-1).values
 
     wants = (cand != labels) & ctx.vmask
-    # m(l) and the delta: integer-valued f32 sums, exact in any order (also
-    # with CUDA's atomic index_add_)
-    demand = ctx.psum(torch.zeros((k,), dtype=torch.float32, device=loads.device)
-                      .index_add_(0, cand.long(), ctx.deg * wants))
+    # m(l) and the delta: integer degree sums, taken in int64
+    # (order-independent)
+    demand = ctx.psum(bin_sums(cand, ctx.deg * wants, k))
     remaining = cap - loads                                               # r(l)
     p_mig = torch.where(
         demand > 0,
@@ -131,8 +131,7 @@ def _spinner_shard_rule(cfg: SpinnerConfig, ctx: engine.ShardContext,
     new_labels = torch.where(migrate, cand, labels)
 
     dmig = ctx.deg * migrate
-    delta = (torch.zeros((k,), dtype=torch.float32, device=loads.device)
-             .index_add_(0, labels.long(), -dmig).index_add_(0, cand.long(), dmig))
+    delta = moved_sums(labels, cand, dmig, k)
     return engine.ShardUpdate(
         vert={"labels": new_labels},
         loads_delta=delta,

@@ -9,6 +9,7 @@ from repro_torch.graphs.blocking import (
     block_slab_sizes,
     fill_block_slab,
     slab_row_ptr,
+    slab_span_plan,
 )
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "block_slab_sizes",
     "fill_block_slab",
     "slab_row_ptr",
+    "slab_span_plan",
 ]

@@ -137,3 +137,63 @@ def slab_row_ptr(edge_row: np.ndarray, edge_w: np.ndarray, block_v: int) -> np.n
                              f"[0, {block_v})")
         ptr[b] = np.searchsorted(rows, queries, side="left")
     return ptr
+
+
+def slab_span_plan(row_ptr: np.ndarray, span_edges: int, row_cap: int):
+    """Edge-balanced work split of row-sorted slabs for the edge-phase kernel.
+
+    ``row_ptr`` is `slab_row_ptr`'s ``[nb, block_v+1]``. Returns two int32
+    arrays, padded over blocks to the longest list:
+
+      * ``spans [nb, S, 5]``: ``(e0, e1, r0, r1, part)``. A row span
+        (``part = -1``) owns rows ``[r0, r1)`` whole, their slab entries
+        ``[e0, e1)`` being ``[row_ptr[r0], row_ptr[r1])``; it holds at most
+        ``row_cap`` rows, and its rows all start inside one window of
+        ``span_edges`` entries, so it holds fewer than ``2 * span_edges``
+        entries. A hub row (more than ``span_edges`` entries) is cut into
+        pieces of ``span_edges`` entries, one span each (``r1 = r0 + 1``,
+        ``part`` = the span's own index, where it leaves its partial sums).
+        Padding spans are all zero and own no row.
+      * ``hubs [nb, H, 3]``: ``(row, first piece, pieces)`` per hub row, its
+        pieces consecutive spans; padding entries have 0 pieces.
+
+    Every row of every block is owned by one row span or is one hub row,
+    and every live entry lies in exactly one span.
+    """
+    row_ptr = np.asarray(row_ptr, dtype=np.int64)
+    nb, block_v = row_ptr.shape[0], row_ptr.shape[1] - 1
+    if span_edges < 1 or row_cap < 1:
+        raise ValueError(f"span_edges {span_edges} and row_cap {row_cap} must be >= 1")
+    per_block_spans, per_block_hubs = [], []
+    r = np.arange(1, block_v)
+    for b in range(nb):
+        ptr = row_ptr[b]
+        hub = np.diff(ptr) > span_edges
+        window = ptr[:-1] // span_edges
+        cut = ((r % row_cap == 0) | (window[r] != window[r - 1])
+               | hub[r] | hub[r - 1])
+        starts = np.concatenate([[0], r[cut]]) if block_v else np.zeros(0, np.int64)
+        ends = np.concatenate([starts[1:], [block_v]]) if block_v else starts
+        is_hub = hub[starts] if block_v else np.zeros(0, bool)
+        rs, re = starts[~is_hub], ends[~is_hub]
+        spans = [np.stack([ptr[rs], ptr[re], rs, re, np.full_like(rs, -1)], 1)]
+        hubs = []
+        n = len(rs)
+        for h in starts[is_hub]:
+            lo, hi = int(ptr[h]), int(ptr[h + 1])
+            e0 = np.arange(lo, hi, span_edges)
+            e1 = np.minimum(e0 + span_edges, hi)
+            idx = np.arange(n, n + len(e0))
+            spans.append(np.stack([e0, e1, np.full_like(e0, h), np.full_like(e0, h + 1), idx], 1))
+            hubs.append((h, n, len(e0)))
+            n += len(e0)
+        per_block_spans.append(np.concatenate(spans).reshape(-1, 5))
+        per_block_hubs.append(np.array(hubs, dtype=np.int64).reshape(-1, 3))
+    s_max = max([len(s) for s in per_block_spans] + [1])
+    h_max = max(len(h) for h in per_block_hubs) if nb else 0
+    spans = np.zeros((nb, s_max, 5), np.int32)
+    hubs = np.zeros((nb, h_max, 3), np.int32)
+    for b in range(nb):
+        spans[b, :len(per_block_spans[b])] = per_block_spans[b]
+        hubs[b, :len(per_block_hubs[b])] = per_block_hubs[b]
+    return spans, hubs

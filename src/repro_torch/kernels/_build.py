@@ -33,9 +33,11 @@ _EXTRA_FLAGS = {"edge_phase": (), "la_update": ("-fmad=false",),
                 "decode_attention": (), "wkv6": ()}
 _VOID = ctypes.c_void_p
 _ARGTYPES = {
-    "edge_phase": ([_VOID] * 9 + [ctypes.c_int, ctypes.c_longlong,
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  _VOID]),
+    # dst, w, row_ptr, spans, hubs, labels, lam, actions, feasible, hist,
+    # wacc, partial; nb, e_max, block_v, k, neighbor, n_span, n_hub,
+    # row_cap, vec, smem; stream
+    "edge_phase": ([_VOID] * 12 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 8 + [_VOID]),
     "la_update": ([_VOID] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_float,
                                  ctypes.c_int, _VOID]),
@@ -49,8 +51,8 @@ _ARGTYPES = {
     # dtype; stream
     "decode_attention": ([_VOID] * 7 + [ctypes.c_int] * 7
                          + [ctypes.c_float, ctypes.c_int, _VOID]),
-    # r, k, v, logw, u, state0, y, state_out; b, s, h, n; stream
-    "wkv6": [_VOID] * 7 + [ctypes.c_int] * 4 + [_VOID],
+    # r, k, v, logw, u, state, y, s_loc, r_eff, w_tot; b, s, h, n; stream
+    "wkv6": [_VOID] * 10 + [ctypes.c_int] * 4 + [_VOID],
 }
 KERNELS = tuple(_EXTRA_FLAGS)
 

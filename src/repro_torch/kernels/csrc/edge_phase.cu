@@ -16,145 +16,237 @@
 // Bound on the card: bytes. Per block the kernel reads each live edge's
 // dst id and weight once (8 B), the label and lambda vectors (n_pad * 8 B,
 // 14 MB at full WIKI: they fit the 50 MB L2) and the row pointer, and
-// writes 2 * block_v * k floats. At full WIKI (~7.7M live slab entries per
-// block) that is ~92 MB, ~27 us at 3.35 TB/s; the arithmetic is a few
-// integer compares and float adds per edge, far below the compute roof.
+// writes 2 * block_v * k floats. At full WIKI (7.69M live slab entries in
+// block 0) that is ~92 MB, ~27.5 us at 3.35 TB/s; the arithmetic is a few
+// integer compares and adds per edge, far below the compute roof. The
+// per-edge label and lambda gathers are random reads served by the L2.
 //
-// Design: the slabs are row-sorted with the padding at the tail, so each
-// row owns one contiguous run [row_ptr[r], row_ptr[r+1]) of its slab. One
-// thread owns one row, walks its run in slab order and keeps its k-wide
-// sums in registers (every histogram update is a predicated add over the
-// compile-time width KMAX, so no dynamically indexed local array spills to
-// memory). No atomics, no shared memory, one write per output element.
-// The weights are eq.-(4) values in {1, 2} and the feasibility flags are
-// {0, 1}, so every sum is an integer-valued f32 below 2^24 and the result
-// equals the plain scatter-add version bit for bit, whatever the order.
-// Known cost: a thread walking a hub row is slower than its warp's
-// neighbours (power-law imbalance); a warp-per-hub split is later work.
+// Design: the work is split by edges, not by rows. The slabs are
+// row-sorted with the padding at the tail; a span plan built once per
+// layout (`slab_span_plan`, cached on the DeviceGraph) cuts each slab into
+// spans of fewer than 2 * SPAN_EDGES entries and at most SPAN_ROWS rows,
+// and cuts a hub row (more than SPAN_EDGES entries) into pieces of its own.
+// One CTA takes one span:
+//   * its warps read consecutive slab entries, 16 bytes of dst ids and 16
+//     of weights a lane where the slab is 16-byte aligned (4 entries a
+//     lane), so a warp's loads are whole sectors, and every lane has 4
+//     independent label/lambda gathers in flight;
+//   * each entry finds its row by a binary search in the span's row
+//     pointer, staged in shared memory with the rows' actions;
+//   * the sums are integers (weights in {1, 2}, counts and feasibility
+//     flags in {0, 1}), so they are accumulated per (row, label) in int32
+//     in shared memory, one shared atomicAdd an entry. Integer sums do not
+//     depend on the order of the adds: the result is deterministic and
+//     equals the plain scatter-add version bit for bit. No float atomics.
+//     (Adding a warp's lanes that share a key first, __match_any_sync +
+//     __reduce_add_sync, was 2.6-3x slower at full WIKI, whose rows are
+//     short: PERF.md, tools/port_kernel_variants.py);
+//   * a row span writes its rows' sums once, as f32, coalesced; a hub
+//     piece writes its int32 partial sums to scratch, and a second small
+//     kernel adds each hub row's pieces in piece order and writes the row.
+// Every output element is written exactly once.
 //
-// Preconditions: k <= 64 and row_ptr describes the slab's row runs (the
-// Python wrapper checks shapes, dtypes and k; `slab_row_ptr` checks the
-// runs when the layout is built). labels and lam are in [0, k) by the
-// rule's invariant; they are not checked here, which would cost a host sync
-// (an out-of-range label matches no slot and adds nothing).
+// Preconditions: 1 <= k <= 64; row_ptr describes the slab's row runs and
+// the span plan was built from it (`slab_span_plan`, row_cap rows at most a
+// span); weights and feasibility flags are small non-negative integers
+// (eq.-(4) weights in {1, 2}, flags in {0, 1}); labels and lam are in
+// [0, k) by the rule's invariant. The Python wrapper checks shapes, dtypes
+// and k; the values are not checked here, which would cost a host sync.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-template <int KMAX, bool NEIGHBOR>
-__global__ void __launch_bounds__(128)
-edge_phase_kernel(const int* __restrict__ dst, const float* __restrict__ w,
-                  const int* __restrict__ row_ptr,
-                  const int* __restrict__ labels, const int* __restrict__ lam,
-                  const int* __restrict__ actions,
-                  const float* __restrict__ feasible,
-                  float* __restrict__ hist, float* __restrict__ wacc,
-                  int nb, long long e_max, int block_v, int k) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)nb * block_v) return;
-  const int b = (int)(gid / block_v);
-  const int r = (int)(gid - (long long)b * block_v);
-  const int* rp = row_ptr + (long long)b * (block_v + 1);
-  const int beg = rp[r];
-  const int end = rp[r + 1];
+constexpr int kThreads = 256;   // threads of a CTA (one span)
+
+__device__ __forceinline__ void add_shared(int* s, int key, int v, bool valid) {
+  if (valid) atomicAdd(s + key, v);
+}
+
+// the row (index into the span's staged row pointer) whose run holds
+// entry e: ptr[lo] <= e < ptr[lo + 1]
+__device__ __forceinline__ int find_row(const int* ptr, int rows, int e) {
+  int lo = 0, hi = rows;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (ptr[mid] <= e) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+template <bool NEIGHBOR, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+edge_phase_span_kernel(const int* __restrict__ dst, const float* __restrict__ w,
+                       const int* __restrict__ row_ptr, const int* __restrict__ spans,
+                       const int* __restrict__ labels, const int* __restrict__ lam,
+                       const int* __restrict__ actions, const float* __restrict__ feasible,
+                       float* __restrict__ hist, float* __restrict__ wacc,
+                       int* __restrict__ partial, long long e_max, int block_v, int k,
+                       int n_span, int row_cap) {
+  extern __shared__ int smem[];
+  const int b = blockIdx.y;
+  const int* sp = spans + ((long long)b * n_span + blockIdx.x) * 5;
+  const int e0 = sp[0], e1 = sp[1], r0 = sp[2], part = sp[4];
+  const int rows = sp[3] - r0;
+  if (rows <= 0) return;  // a padding span (uniform over the CTA)
+  const int acols = NEIGHBOR ? k : 2;
+  // shared layout; `shared_bytes` in edge_phase.py sizes it the same way
+  int* hs = smem;                        // [row_cap][k] hist sums
+  int* as = hs + row_cap * k;            // [row_cap][acols] w_acc sums
+  int* ptr_s = as + row_cap * acols;     // [row_cap + 1] row starts
+  int* act_s = ptr_s + row_cap + 1;      // [row_cap] the rows' actions
+  int* feas_s = act_s + row_cap;         // [k] feasibility flags
+
+  const int* rp = row_ptr + (long long)b * (block_v + 1) + r0;
+  for (int i = threadIdx.x; i < rows * k; i += kThreads) hs[i] = 0;
+  for (int i = threadIdx.x; i < rows * acols; i += kThreads) as[i] = 0;
+  for (int i = threadIdx.x; i <= rows; i += kThreads) ptr_s[i] = rp[i];
+  for (int i = threadIdx.x; i < rows; i += kThreads)
+    act_s[i] = actions[(long long)b * block_v + r0 + i];
+  if (NEIGHBOR)
+    for (int i = threadIdx.x; i < k; i += kThreads)
+      feas_s[i] = __float2int_rn(feasible[(long long)b * k + i]);
+  __syncthreads();
+
   const int* d_b = dst + (long long)b * e_max;
   const float* w_b = w + (long long)b * e_max;
-  const float* feas = feasible + (long long)b * k;
-  const int act = actions[gid];
-
-  float h[KMAX];
-  float a[KMAX];
-#pragma unroll
-  for (int l = 0; l < KMAX; ++l) {
-    h[l] = 0.f;
-    a[l] = 0.f;
-  }
-  float agree_w = 0.f;     // self_lambda column 0 (A)
-  float disagree_n = 0.f;  // self_lambda column 1 (N)
-
-  for (int e = beg; e < end; ++e) {
-    const float we = w_b[e];
-    if (!(we > 0.f)) continue;  // padding kill, as edge_phase.py:79
-    const int u = d_b[e];
-    const int lb = __ldg(labels + u);
-    const int lm = __ldg(lam + u);
-#pragma unroll
-    for (int l = 0; l < KMAX; ++l) h[l] += (lb == l) ? we : 0.f;
-    const bool agree = act == lm;
-    if (NEIGHBOR) {
-      const float val = agree ? we : __ldg(feas + lm);
-#pragma unroll
-      for (int l = 0; l < KMAX; ++l) a[l] += (lm == l) ? val : 0.f;
-    } else if (agree) {
-      agree_w += we;
+  const int lane = threadIdx.x & 31;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int V = VEC ? 4 : 1;
+  const int first = VEC ? (e0 & ~3) : e0;
+  for (int base = first + (threadIdx.x >> 5) * 32 * V; base < e1; base += kWarps * 32 * V) {
+    const int ef = base + lane * V;
+    int u[V];
+    float we[V];
+    if (ef < e1) {
+      if constexpr (VEC) {  // in bounds: ef is 4-aligned, ef < e1 <= e_max, e_max % 4 == 0
+        const int4 d4 = *reinterpret_cast<const int4*>(d_b + ef);
+        const float4 w4 = *reinterpret_cast<const float4*>(w_b + ef);
+        u[0] = d4.x; u[1] = d4.y; u[2] = d4.z; u[3] = d4.w;
+        we[0] = w4.x; we[1] = w4.y; we[2] = w4.z; we[3] = w4.w;
+      } else {
+        u[0] = d_b[ef];
+        we[0] = w_b[ef];
+      }
     } else {
-      disagree_n += 1.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) { u[j] = 0; we[j] = 0.f; }
+    }
+    bool ok[V];
+    int lb[V], lm[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int e = ef + j;
+      ok[j] = e >= e0 && e < e1 && we[j] > 0.f;
+      lb[j] = ok[j] ? __ldg(labels + u[j]) : 0;
+      lm[j] = ok[j] ? __ldg(lam + u[j]) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int row = ok[j] ? find_row(ptr_s, rows, ef + j) : 0;
+      const int wi = __float2int_rn(we[j]);
+      add_shared(hs, row * k + lb[j], wi, ok[j]);
+      const bool agree = act_s[row] == lm[j];
+      if (NEIGHBOR) {
+        const int val = agree ? wi : feas_s[lm[j]];
+        add_shared(as, row * k + lm[j], val, ok[j] && val != 0);
+      } else {
+        add_shared(as, row * 2 + (agree ? 0 : 1), agree ? wi : 1, ok[j]);
+      }
     }
   }
+  __syncthreads();
 
-  float* ho = hist + gid * k;
-  float* wo = wacc + gid * k;
-#pragma unroll
-  for (int l = 0; l < KMAX; ++l) {
-    if (l < k) {
-      ho[l] = h[l];
-      wo[l] = NEIGHBOR ? a[l] : (l == 0 ? agree_w : (l == 1 ? disagree_n : 0.f));
+  if (part < 0) {  // whole rows: each output element written once, as f32
+    float* ho = hist + ((long long)b * block_v + r0) * k;
+    float* wo = wacc + ((long long)b * block_v + r0) * k;
+    for (int i = threadIdx.x; i < rows * k; i += kThreads) {
+      ho[i] = (float)hs[i];
+      if (NEIGHBOR) {
+        wo[i] = (float)as[i];
+      } else {
+        const int r = i / k, l = i - r * k;
+        wo[i] = l < 2 ? (float)as[r * 2 + l] : 0.f;
+      }
+    }
+  } else {  // a hub row's piece: its int32 partial sums, added by hub_kernel
+    int* po = partial + ((long long)b * n_span + part) * 2 * k;
+    for (int i = threadIdx.x; i < k; i += kThreads) {
+      po[i] = hs[i];
+      po[k + i] = (NEIGHBOR || i < 2) ? as[i] : 0;
     }
   }
 }
 
-template <int KMAX>
-cudaError_t launch(const void* dst, const void* w, const void* row_ptr,
-                   const void* labels, const void* lam, const void* actions,
-                   const void* feasible, void* hist, void* wacc, int nb,
-                   long long e_max, int block_v, int k, int neighbor,
-                   cudaStream_t stream) {
-  const int threads = 128;
-  const long long rows = (long long)nb * block_v;
-  const unsigned blocks = (unsigned)((rows + threads - 1) / threads);
-  if (neighbor) {
-    edge_phase_kernel<KMAX, true><<<blocks, threads, 0, stream>>>(
-        (const int*)dst, (const float*)w, (const int*)row_ptr,
-        (const int*)labels, (const int*)lam, (const int*)actions,
-        (const float*)feasible, (float*)hist, (float*)wacc, nb, e_max,
-        block_v, k);
-  } else {
-    edge_phase_kernel<KMAX, false><<<blocks, threads, 0, stream>>>(
-        (const int*)dst, (const float*)w, (const int*)row_ptr,
-        (const int*)labels, (const int*)lam, (const int*)actions,
-        (const float*)feasible, (float*)hist, (float*)wacc, nb, e_max,
-        block_v, k);
+// one CTA per hub row: its pieces' partial sums added in piece order
+__global__ void __launch_bounds__(128)
+edge_phase_hub_kernel(const int* __restrict__ hubs, const int* __restrict__ partial,
+                      float* __restrict__ hist, float* __restrict__ wacc, int block_v,
+                      int k, int n_span, int n_hub) {
+  const int b = blockIdx.y;
+  const int* hp = hubs + ((long long)b * n_hub + blockIdx.x) * 3;
+  const int row = hp[0], p0 = hp[1], np = hp[2];
+  if (np <= 0) return;
+  const int* pb = partial + ((long long)b * n_span + p0) * 2 * k;
+  for (int i = threadIdx.x; i < 2 * k; i += blockDim.x) {
+    int s = 0;
+    for (int p = 0; p < np; ++p) s += pb[(long long)p * 2 * k + i];
+    float* out = i < k ? hist : wacc;
+    out[((long long)b * block_v + row) * k + (i < k ? i : i - k)] = (float)s;
   }
+}
+
+template <bool NEIGHBOR, bool VEC>
+cudaError_t launch_spans(const void* dst, const void* w, const void* row_ptr,
+                         const void* spans, const void* labels, const void* lam,
+                         const void* actions, const void* feasible, void* hist, void* wacc,
+                         void* partial, int nb, long long e_max, int block_v, int k,
+                         int n_span, int row_cap, int smem, cudaStream_t stream) {
+  auto kernel = edge_phase_span_kernel<NEIGHBOR, VEC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3((unsigned)n_span, (unsigned)nb), kThreads, smem, stream>>>(
+      (const int*)dst, (const float*)w, (const int*)row_ptr, (const int*)spans,
+      (const int*)labels, (const int*)lam, (const int*)actions, (const float*)feasible,
+      (float*)hist, (float*)wacc, (int*)partial, e_max, block_v, k, n_span, row_cap);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int edge_phase_launch(const void* dst, const void* w,
-                                 const void* row_ptr, const void* labels,
-                                 const void* lam, const void* actions,
-                                 const void* feasible, void* hist, void* wacc,
-                                 int nb, long long e_max, int block_v, int k,
-                                 int neighbor, void* stream) {
-  if (nb <= 0 || block_v <= 0) return (int)cudaSuccess;
+extern "C" int edge_phase_launch(const void* dst, const void* w, const void* row_ptr,
+                                 const void* spans, const void* hubs, const void* labels,
+                                 const void* lam, const void* actions, const void* feasible,
+                                 void* hist, void* wacc, void* partial, int nb,
+                                 long long e_max, int block_v, int k, int neighbor,
+                                 int n_span, int n_hub, int row_cap, int vec, int smem,
+                                 void* stream) {
+  if (nb <= 0 || block_v <= 0 || n_span <= 0) return (int)cudaSuccess;
+  if (k < 1 || k > 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
-  if (k <= 8)
-    err = launch<8>(dst, w, row_ptr, labels, lam, actions, feasible, hist,
-                    wacc, nb, e_max, block_v, k, neighbor, s);
-  else if (k <= 16)
-    err = launch<16>(dst, w, row_ptr, labels, lam, actions, feasible, hist,
-                     wacc, nb, e_max, block_v, k, neighbor, s);
-  else if (k <= 32)
-    err = launch<32>(dst, w, row_ptr, labels, lam, actions, feasible, hist,
-                     wacc, nb, e_max, block_v, k, neighbor, s);
-  else if (k <= 64)
-    err = launch<64>(dst, w, row_ptr, labels, lam, actions, feasible, hist,
-                     wacc, nb, e_max, block_v, k, neighbor, s);
+  if (neighbor)
+    err = vec ? launch_spans<true, true>(dst, w, row_ptr, spans, labels, lam, actions,
+                                         feasible, hist, wacc, partial, nb, e_max, block_v,
+                                         k, n_span, row_cap, smem, s)
+              : launch_spans<true, false>(dst, w, row_ptr, spans, labels, lam, actions,
+                                          feasible, hist, wacc, partial, nb, e_max, block_v,
+                                          k, n_span, row_cap, smem, s);
   else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+    err = vec ? launch_spans<false, true>(dst, w, row_ptr, spans, labels, lam, actions,
+                                          feasible, hist, wacc, partial, nb, e_max, block_v,
+                                          k, n_span, row_cap, smem, s)
+              : launch_spans<false, false>(dst, w, row_ptr, spans, labels, lam, actions,
+                                           feasible, hist, wacc, partial, nb, e_max,
+                                           block_v, k, n_span, row_cap, smem, s);
+  if (err != cudaSuccess || n_hub <= 0) return (int)err;
+  edge_phase_hub_kernel<<<dim3((unsigned)n_hub, (unsigned)nb), 128, 0, s>>>(
+      (const int*)hubs, (const int*)partial, (float*)hist, (float*)wacc, block_v, k, n_span,
+      n_hub);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* repro_error_string(int code) {

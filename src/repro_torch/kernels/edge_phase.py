@@ -21,11 +21,13 @@ Two implementations of one function:
   * `fused_edge_phase_plain` — two `index_put_(accumulate=True)`
     histograms; the CPU path and the oracle;
   * `fused_edge_phase_cuda` — the hand-written kernel in
-    ``csrc/edge_phase.cu`` (one thread per row walking the row's run of the
-    row-sorted slab, sums in registers, no atomics).
+    ``csrc/edge_phase.cu``: one CTA per span of the layout's `SpanPlan`
+    (edge-balanced, a hub row cut into pieces), int32 sums per (row, label)
+    in shared memory, a second small pass adding each hub row's pieces.
 
-Both are exact: eq.-(4) weights are integers in {1, 2}, so every sum is an
-integer-valued f32 and the two agree bit for bit.
+Both are exact: eq.-(4) weights are integers in {1, 2} and feasibility
+flags in {0, 1}, so every sum is an integer; the kernel sums in int32 and
+writes f32 once, and the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.kernels import _build
 
 WEIGHT_MODES = ("self_lambda", "neighbor_lambda")
 MAX_K = 64
+SHARED_LIMIT = 232_448   # bytes of shared memory an H100 CTA can use
 
 LAUNCHES = _build.LaunchCounter()
 
@@ -102,10 +105,20 @@ def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def shared_bytes(row_cap: int, k: int, weight_mode: str) -> int:
+    """Shared memory of one CTA of the kernel, laid out as in
+    ``edge_phase.cu``: int32 hist sums [row_cap, k], w_acc sums [row_cap,
+    k] (neighbor_lambda) or [row_cap, 2] (self_lambda), the span's row
+    starts [row_cap + 1] and actions [row_cap], and k feasibility flags."""
+    acols = k if weight_mode == "neighbor_lambda" else 2
+    return 4 * (row_cap * k + row_cap * acols + 2 * row_cap + 1 + k)
+
+
 def fused_edge_phase_cuda(
     edge_dst: torch.Tensor,    # [nb, e_max] int32
     edge_vals: torch.Tensor,   # [nb, e_max] f32
     row_ptr: torch.Tensor,     # [nb, block_v+1] int32 row runs of the slab
+    spans,                     # SpanPlan built from row_ptr (nb blocks)
     labels: torch.Tensor,      # [n_pad] int32
     lam: torch.Tensor,         # [n_pad] int32
     actions: torch.Tensor,     # [nb, block_v] int32
@@ -115,7 +128,10 @@ def fused_edge_phase_cuda(
     k: int,
     weight_mode: str = "self_lambda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the K1 kernel on the current stream of the tensors' device.
+    """Launch the K1 kernel on the current stream of the tensors' device:
+    one CTA per span of ``spans`` (a `SpanPlan` of these
+    slabs, e.g. `DeviceGraph.blk_spans`), then, where the plan has hub
+    rows, the pass that adds their pieces.
 
     Returns (hist_score, w_acc), both [nb, block_v, k] f32, allocated here.
     Raises on any input the kernel does not take, or if the launch fails.
@@ -135,17 +151,31 @@ def fused_edge_phase_cuda(
     expect(lam, "lam", torch.int32, (n_pad,), dev)
     expect(actions, "actions", torch.int32, (nb, block_v), dev)
     expect(feasible, "feasible", torch.float32, (nb, k), dev)
+    n_span, n_hub = spans.spans.shape[1], spans.hubs.shape[1]
+    expect(spans.spans, "spans.spans", torch.int32, (nb, n_span, 5), dev)
+    expect(spans.hubs, "spans.hubs", torch.int32, (nb, n_hub, 3), dev)
+    smem = shared_bytes(spans.row_cap, k, weight_mode)
+    if smem > SHARED_LIMIT:
+        raise ValueError(f"a span of {spans.row_cap} rows at k={k} needs {smem} bytes "
+                         f"of shared memory, over {SHARED_LIMIT}")
+    # 16-byte slab loads where every block's slab starts 16-byte aligned
+    vec = int(e_max % 4 == 0 and edge_dst.data_ptr() % 16 == 0
+              and edge_vals.data_ptr() % 16 == 0)
     hist = torch.empty((nb, block_v, k), dtype=torch.float32, device=dev)
     w_acc = torch.empty((nb, block_v, k), dtype=torch.float32, device=dev)
+    # the hub pieces' int32 partial sums, indexed by span
+    partial = torch.empty((nb, n_span if n_hub else 0, 2, k), dtype=torch.int32, device=dev)
     lib = _build.load("edge_phase")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.edge_phase_launch(
             edge_dst.data_ptr(), edge_vals.data_ptr(), row_ptr.data_ptr(),
+            spans.spans.data_ptr(), spans.hubs.data_ptr(),
             labels.data_ptr(), lam.data_ptr(), actions.data_ptr(),
             feasible.data_ptr(), hist.data_ptr(), w_acc.data_ptr(),
-            nb, e_max, block_v, k, int(weight_mode == "neighbor_lambda"),
-            stream)
+            partial.data_ptr(), nb, e_max, block_v, k,
+            int(weight_mode == "neighbor_lambda"), n_span, n_hub, spans.row_cap,
+            vec, smem, stream)
     _build.check(lib, "edge_phase", code)
     LAUNCHES.add()
     return hist, w_acc

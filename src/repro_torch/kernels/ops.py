@@ -42,21 +42,25 @@ def _route(t: torch.Tensor, what: str) -> str:
 
 
 def fused_edge_phase(edge_dst, edge_rows, edge_vals, labels, lam, actions,
-                     feasible, *, row_ptr, block_v: int, k: int,
+                     feasible, *, row_ptr, spans=None, block_v: int, k: int,
                      weight_mode: str = "self_lambda"):
     """(hist_score, w_acc), both [nb, block_v, k] f32 — see
     `repro_torch.kernels.edge_phase`.
 
     The `repro.kernels.ops.fused_edge_phase` signature plus ``row_ptr``
-    ([nb, block_v+1] int32, the row runs of the row-sorted slabs), which the
-    CUDA kernel walks instead of scattering by ``edge_rows``.
+    ([nb, block_v+1] int32, the row runs of the row-sorted slabs) and
+    ``spans`` (their `SpanPlan`, e.g. `DeviceGraph.blk_spans`), by which the
+    CUDA kernel splits the slabs instead of scattering by ``edge_rows``;
+    the CPU path reads neither.
     """
     if _route(edge_dst, "fused_edge_phase") == "cpu":
         return _edge_phase.fused_edge_phase_plain(
             edge_dst, edge_rows, edge_vals, labels, lam, actions, feasible,
             block_v=block_v, k=k, weight_mode=weight_mode)
+    if spans is None:
+        raise ValueError("fused_edge_phase on CUDA needs the slabs' span plan (spans=)")
     return _edge_phase.fused_edge_phase_cuda(
-        edge_dst, edge_vals, row_ptr, labels, lam, actions, feasible,
+        edge_dst, edge_vals, row_ptr, spans, labels, lam, actions, feasible,
         block_v=block_v, k=k, weight_mode=weight_mode)
 
 

@@ -15,12 +15,18 @@ Two implementations of one function:
 
   * `wkv6_plain` — the token-by-token recurrence, `repro`'s ``_wkv_scan``;
     the CPU path and the oracle;
-  * `wkv6_cuda` — the hand-written kernel in ``csrc/wkv6.cu`` (one CTA per
-    (b, h), one thread per value column, the column of the state in
-    registers for the whole sequence; any S >= 1).
+  * `wkv6_cuda` — the hand-written kernels in ``csrc/wkv6.cu``: from
+    ``CHUNK`` tokens on, the chunk-parallel form (a local pass over every
+    chunk of ``CHUNK`` tokens from a zero state, then a stitch pass that
+    carries the state across the chunks in order and adds its term to y);
+    below that, one kernel: for short prompts one that spreads each
+    (b, h)'s state over 4 N threads, for the fewest tokens (decode, S = 1)
+    the token-serial one (a thread a value column). Any S >= 1, a ragged
+    last chunk included.
 
-They differ in rounding only: the kernel fuses multiply-adds and sums y in
-four partial sums.
+They differ in rounding only: the kernels fuse multiply-adds, sum y in
+partial sums, and (prefill) add the state carried into a chunk as a
+separate term.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_SIZES = (8, 16, 32, 80)     # N the kernel is instantiated for
+CHUNK = 256                      # prefill chunk length L (tokens): kChunk in wkv6.cu
+SUB = 16                         # tokens a kernel stages at a time (kSub); L is a multiple
 
 LAUNCHES = _build.LaunchCounter()
 
@@ -51,12 +59,14 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               logw: torch.Tensor, u: torch.Tensor, state0: torch.Tensor):
-    """Launch the K6 kernel on the current stream of the tensors' device.
+    """Launch the K6 kernels on the current stream of the tensors' device:
+    for S >= `CHUNK` the local and stitch passes over chunks of `CHUNK`
+    tokens (two kernels), below it the decode kernel (one).
 
     All inputs contiguous f32 on one CUDA device: r, k, v, logw
     [B, S, H, N], u [H, N], state0 [B, H, N, N], N in `HEAD_SIZES`. Returns
     (y, state0), the final state written over state0; raises on any input
-    the kernel does not take, or if the launch fails.
+    the kernels do not take, or if a launch fails.
     """
     if r.dim() != 4:
         raise ValueError(f"expected r [B,S,H,N], got {tuple(r.shape)}")
@@ -78,14 +88,22 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (the kernels copy 16 bytes a lane)")
     y = torch.empty((b, s, h, n), dtype=torch.float32, device=dev)
+    # the chunked passes' scratch: each chunk's zero-init final state, its
+    # decay and r scaled by the decay within the chunk
+    nc = -(-s // CHUNK) if s >= CHUNK else 0
+    s_loc = torch.empty((b, h, nc, n, n), dtype=torch.float32, device=dev)
+    w_tot = torch.empty((b, h, nc, n), dtype=torch.float32, device=dev)
+    r_eff = torch.empty((b, s, h, n) if nc else (0,), dtype=torch.float32, device=dev)
     lib = _build.load("wkv6")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.wkv6_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u.data_ptr(), state0.data_ptr(), y.data_ptr(),
-            b, s, h, n, stream)
+            u.data_ptr(), state0.data_ptr(), y.data_ptr(), s_loc.data_ptr(),
+            r_eff.data_ptr(), w_tot.data_ptr(), b, s, h, n, stream)
     _build.check(lib, "wkv6", code)
     LAUNCHES.add()
     return y, state0

@@ -245,6 +245,92 @@ def test_split_and_combine_give_the_whole_cache_statistics(b, hkv, s, kv_len, n_
     np.testing.assert_allclose(total.reshape(b, hq).numpy(), want_l.numpy(), **TOL)
 
 
+def _mma_decode_attention(q, k_cache, v_cache, kv_len, *, n_sm=132, warps=4):
+    """K5's tensor-core body (bf16, group <= 16) in PyTorch: the cache split
+    by `split_plan`; in a split, warp w takes every 4th 16-key chunk (w, w +
+    4, ...) with its own online softmax (scores and probabilities in f32, P
+    rounded to bf16 before P V, products of bf16 values summed in f32); the
+    warps' partials combined in warp order, then the splits' in split order;
+    o rounded to bf16. Returns (o, m, l)."""
+    b, hq, d = q.shape
+    hkv, s_max = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    n_split, chunk = decode_attention.split_plan(b, hkv, s_max, n_sm)
+    qg = q.float().reshape(b, hkv, g, d)
+    kf, vf = k_cache.float(), v_cache.float()
+    neg = torch.tensor(-1e30)
+    scale = 1.0 / math.sqrt(d)
+
+    def combine(parts):
+        big = torch.stack([m for m, _, _ in parts]).amax(0)
+        total = sum(l * torch.exp(m - big) for m, l, _ in parts)
+        num = sum(a * torch.exp(m - big) for m, _, a in parts)
+        return big, total, num
+
+    o = torch.zeros((b, hkv, g, d))
+    m_out = torch.zeros((b, hkv, g, 1))
+    l_out = torch.zeros((b, hkv, g, 1))
+    for bi in range(b):
+        length = int(kv_len[bi])
+        splits = []
+        for si in range(n_split):
+            s0, s1 = si * chunk, min(si * chunk + chunk, length)
+            n_chunks = max(0, -(-(s1 - s0) // 16))
+            warp_parts = []
+            for w in range(warps):
+                m = torch.full((hkv, g, 1), -1e30)
+                l = torch.zeros((hkv, g, 1))
+                acc = torch.zeros((hkv, g, d))
+                for c in range(w, n_chunks, warps):
+                    t0 = s0 + 16 * c
+                    keys = torch.arange(t0, t0 + 16)
+                    valid = keys < s1
+                    kt = kf[bi, :, t0:t0 + 16]
+                    vt = vf[bi, :, t0:t0 + 16]
+                    pad = 16 - kt.shape[1]
+                    kt = torch.nn.functional.pad(kt, (0, 0, 0, pad))
+                    vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+                    sc = torch.einsum("hgd,hkd->hgk", qg[bi], kt) * scale
+                    sc = torch.where(valid, sc, neg)
+                    m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                    corr = torch.exp(m - m_new)
+                    pr = torch.where(sc == neg, 0.0, torch.exp(sc - m_new))
+                    l = l * corr + pr.sum(-1, keepdim=True)
+                    acc = acc * corr + torch.einsum(
+                        "hgk,hkd->hgd", pr.to(torch.bfloat16).float(), vt)
+                    m = m_new
+                warp_parts.append((m, l, acc))
+            splits.append(combine(warp_parts))
+        big, total, num = combine(splits)
+        o[bi] = num / torch.where(total > 0, total, 1.0)
+        m_out[bi], l_out[bi] = big, total
+    return (o.reshape(b, hq, d).to(torch.bfloat16), m_out.reshape(b, hq),
+            l_out.reshape(b, hq))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kv_len", [
+    (2, 32, 4, 1152, 64, [1088, 161]),       # the tinyllama decode shape's split plan
+    (3, 16, 2, 300, 128, [300, 17, 0]),      # d 128, a ragged chunk, an empty row
+    (2, 8, 8, 64, 64, [64, 1]),              # group 1
+])
+def test_bf16_decode_probabilities_stay_within_the_card_tolerance(b, hq, hkv, s, d, kv_len):
+    """K5's tensor-core body (per-warp 16-key chunks, P rounded to bf16,
+    warp-order then split-order combine) keeps o within the card check's
+    bf16 tolerance of the plain version (atol 2e-2, rtol 1e-2:
+    ATTN_TOL["bfloat16"] in chip_smoke.py), and m, l within its f32 one
+    (1e-4), with bf16 inputs."""
+    q, kc, vc = (torch.from_numpy(a).to(torch.bfloat16)
+                 for a in _decode_inputs(12, b, hq, hkv, s, d, kv_len)[:3])
+    lens = torch.tensor(kv_len, dtype=torch.int32)
+    o, m, l = _mma_decode_attention(q, kc, vc, lens)
+    want_o, want_m, want_l = decode_attention.decode_attention_plain(q, kc, vc, lens,
+                                                                     return_lse=True)
+    assert o.dtype == want_o.dtype == torch.bfloat16
+    torch.testing.assert_close(o.float(), want_o.float(), atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(m, want_m, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, want_l, atol=1e-4, rtol=1e-4)
+
+
 # --------------------------------------------------------------------------
 # routing
 # --------------------------------------------------------------------------

@@ -20,7 +20,7 @@ from repro_torch.core import la as tla
 from repro_torch.core import lp as tlp
 from repro_torch.core import metrics as tmetrics
 from repro_torch.core.convert import device_graph_from_numpy
-from repro_torch.graphs.blocking import slab_row_ptr
+from repro_torch.graphs.blocking import slab_row_ptr, slab_span_plan
 
 # LA updates: k sequential passes in f32 whose final renormalization sum may
 # be reduced in another order — the tolerance tests/test_kernels.py:134
@@ -144,7 +144,7 @@ def test_prepare_device_graph_matches_reference(n_blocks):
     ours = {f.name for f in dataclasses.fields(got)}
     # the flat symmetrized adjacency has no reader in either package
     assert set(want) - ours == {"edge_src", "edge_dst", "edge_w"}
-    for name in ours - {"blk_row_ptr"}:
+    for name in ours - {"blk_row_ptr", "blk_spans"}:
         mine, value = getattr(got, name), want[name]
         if isinstance(mine, torch.Tensor):
             np.testing.assert_array_equal(mine.numpy(), value, err_msg=name)
@@ -154,11 +154,18 @@ def test_prepare_device_graph_matches_reference(n_blocks):
     np.testing.assert_array_equal(
         got.blk_row_ptr.numpy(),
         slab_row_ptr(want["blk_row"], want["blk_w"], want["block_v"]))
+    spans, hubs = slab_span_plan(got.blk_row_ptr.numpy(), got.blk_spans.span_edges,
+                                 got.blk_spans.row_cap)
+    np.testing.assert_array_equal(got.blk_spans.spans.numpy(), spans)
+    np.testing.assert_array_equal(got.blk_spans.hubs.numpy(), hubs)
     # the carry-across path builds the same layout from repro's arrays
     carried = device_graph_from_numpy(want, "cpu")
     for f in dataclasses.fields(got):
         a, b = getattr(got, f.name), getattr(carried, f.name)
-        if isinstance(a, torch.Tensor):
+        if isinstance(a, tdg.SpanPlan):
+            assert torch.equal(a.spans, b.spans) and torch.equal(a.hubs, b.hubs)
+            assert (a.span_edges, a.row_cap) == (b.span_edges, b.row_cap)
+        elif isinstance(a, torch.Tensor):
             assert torch.equal(a, b), f.name
         else:
             assert a == b, f.name

@@ -1,0 +1,347 @@
+"""The arithmetic of the port's redesigned CUDA kernels, emulated in PyTorch
+on the CPU (the kernels themselves run only on the card, where
+``chip_smoke.py`` holds each against its plain version):
+
+  * K1 (edge phase): the layout-time span plan (`slab_span_plan`) and the
+    kernel's work split over it: int32 sums per (row, label) within a span,
+    rows written by their span, hub rows cut into pieces whose partial sums
+    a second pass adds in piece order. Bit-equal to
+    `fused_edge_phase_plain` in both weight modes.
+  * K6 (RWKV6 recurrence): the chunk-parallel prefill, chunks of L tokens
+    with a ragged last chunk, zero-initialised local passes taken a block
+    of tokens a step (decay prefix/suffix products and the intra-block
+    matrix A), the stitch of the chunk states and the inter-chunk term,
+    held to ``WKV_TOL`` (atol = rtol = 2e-4, the card check's tolerance in
+    chip_smoke.py) against `wkv6_plain` and `repro`'s Pallas kernel in
+    interpret mode; and the decode kernel's row-group split and butterfly.
+"""
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+
+from repro_torch.core.device_graph import SPAN_EDGES, SPAN_ROWS, SpanPlan, prepare_device_graph
+from repro_torch.graphs import load_dataset
+from repro_torch.graphs.blocking import slab_row_ptr, slab_span_plan
+from repro_torch.kernels import edge_phase, wkv6
+
+WKV_TOL = dict(atol=2e-4, rtol=2e-4)
+
+
+# --------------------------------------------------------------------------
+# K1: span plan
+# --------------------------------------------------------------------------
+def hub_slab(rng, nb, block_v, k, long_rows, max_deg=9):
+    """Row-sorted slabs (the `block_edges` layout: live prefix of eq.-(4)
+    weights in {1, 2}, zero-weight padding) whose rows have 0..max_deg
+    entries, except ``long_rows`` ({row: entries}); e_max a multiple of 4
+    with some padding."""
+    deg = rng.integers(0, max_deg + 1, (nb, block_v))
+    for r, n in long_rows.items():
+        deg[:, r] = n
+    e_max = -(-(int(deg.sum(1).max()) + 5) // 4) * 4
+    n_pad = nb * block_v
+    dst = np.zeros((nb, e_max), np.int32)
+    rows = np.zeros((nb, e_max), np.int32)
+    vals = np.zeros((nb, e_max), np.float32)
+    for b in range(nb):
+        cnt = int(deg[b].sum())
+        rows[b, :cnt] = np.repeat(np.arange(block_v), deg[b])
+        dst[b, :cnt] = rng.integers(0, n_pad, cnt)
+        vals[b, :cnt] = rng.integers(1, 3, cnt)
+    labels = rng.integers(0, k, n_pad).astype(np.int32)
+    lam = rng.integers(0, k, n_pad).astype(np.int32)
+    actions = rng.integers(0, k, (nb, block_v)).astype(np.int32)
+    feasible = (rng.random((nb, k)) > 0.3).astype(np.float32)
+    return dst, rows, vals, labels, lam, actions, feasible
+
+
+def check_plan(row_ptr, spans, hubs, span_edges, row_cap):
+    """Every live entry in exactly one span, every row owned exactly once
+    (by a row span or as a hub row), the caps held."""
+    nb, block_v = row_ptr.shape[0], row_ptr.shape[1] - 1
+    for b in range(nb):
+        entry = np.zeros(row_ptr[b, -1], int)
+        owned = np.zeros(block_v, int)
+        for e0, e1, r0, r1, part in spans[b]:
+            if r1 <= r0:
+                assert (e0, e1, r0, r1, part) == (0, 0, 0, 0, 0)   # padding
+                continue
+            entry[e0:e1] += 1
+            if part < 0:
+                owned[r0:r1] += 1
+                assert (e0, e1) == (row_ptr[b, r0], row_ptr[b, r1])
+                assert r1 - r0 <= row_cap and e1 - e0 < 2 * span_edges
+            else:
+                assert r1 == r0 + 1 and 0 < e1 - e0 <= span_edges
+                assert row_ptr[b, r0] <= e0 < e1 <= row_ptr[b, r1]
+        for row, p0, n in hubs[b]:
+            if n == 0:
+                continue
+            owned[row] += 1
+            pieces = spans[b, p0:p0 + n]
+            assert (pieces[:, 2] == row).all() and (pieces[:, 4] == np.arange(p0, p0 + n)).all()
+            assert pieces[0, 0] == row_ptr[b, row] and pieces[-1, 1] == row_ptr[b, row + 1]
+            assert (pieces[1:, 0] == pieces[:-1, 1]).all()
+        assert (entry == 1).all() and (owned == 1).all()
+
+
+@pytest.mark.parametrize("span_edges,row_cap", [(16, 8), (64, 5), (7, 1), (4096, 128)])
+def test_span_plan_covers_every_entry_and_row_once(span_edges, row_cap):
+    rng = np.random.default_rng(span_edges)
+    long_rows = dict.fromkeys((0, 57, 58, 199), 300)
+    dst, rows, vals, *_ = hub_slab(rng, 3, 200, 4, long_rows)
+    row_ptr = slab_row_ptr(rows, vals, 200)
+    spans, hubs = slab_span_plan(row_ptr, span_edges, row_cap)
+    assert spans.dtype == hubs.dtype == np.int32
+    check_plan(row_ptr, spans, hubs, span_edges, row_cap)
+    for b in range(3):
+        cut = {int(r) for r, _, n in hubs[b] if n > 1}
+        assert cut >= set(long_rows) if span_edges < 300 else not cut
+
+
+def test_span_plan_of_a_layout_is_cached_on_the_device_graph():
+    g = load_dataset("WIKI", scale=0.002)
+    dg = prepare_device_graph(g, n_blocks=8, device="cpu")
+    plan = dg.blk_spans
+    assert (plan.span_edges, plan.row_cap) == (SPAN_EDGES, SPAN_ROWS)
+    check_plan(dg.blk_row_ptr.numpy(), plan.spans.numpy(), plan.hubs.numpy(),
+               SPAN_EDGES, SPAN_ROWS)
+    one = plan.block(3)
+    assert torch.equal(one.spans[0], plan.spans[3]) and torch.equal(one.hubs[0], plan.hubs[3])
+
+
+@pytest.mark.parametrize("weight_mode", edge_phase.WEIGHT_MODES)
+def test_the_row_cap_bounds_shared_memory_at_k_64(weight_mode):
+    """A span holds at most SPAN_ROWS rows, so a CTA's shared memory at the
+    largest k fits an H100 CTA with room for more than one CTA an SM."""
+    smem = edge_phase.shared_bytes(SPAN_ROWS, edge_phase.MAX_K, weight_mode)
+    assert smem <= edge_phase.SHARED_LIMIT // 3
+    assert smem == 4 * (SPAN_ROWS * 64 + SPAN_ROWS * (64 if weight_mode == "neighbor_lambda"
+                                                       else 2) + 2 * SPAN_ROWS + 1 + 64)
+
+
+# --------------------------------------------------------------------------
+# K1: the kernel's work split, emulated
+# --------------------------------------------------------------------------
+def span_edge_phase(dst, vals, row_ptr, spans, hubs, labels, lam, actions, feasible, *,
+                    block_v, k, weight_mode):
+    """K1's CUDA arithmetic in PyTorch: per span, int32 sums per (row,
+    label) over its entries (each entry's row by a binary search in the
+    span's row pointer); a row span writes its rows once as f32, a hub piece
+    leaves int32 partial sums that the hub pass adds in piece order."""
+    neighbor = weight_mode == "neighbor_lambda"
+    nb = dst.shape[0]
+    hist = torch.full((nb, block_v, k), float("nan"))
+    wacc = torch.full((nb, block_v, k), float("nan"))
+    written = torch.zeros((nb, block_v), dtype=torch.int64)
+    partial = {}
+    for b in range(nb):
+        feas = torch.round(feasible[b]).to(torch.int32)
+        for e0, e1, r0, r1, part in spans[b].tolist():
+            rows = r1 - r0
+            if rows <= 0:
+                continue
+            e = torch.arange(e0, e1)
+            e = e[vals[b, e] > 0]
+            ptr = row_ptr[b, r0:r1 + 1].contiguous()
+            row = torch.searchsorted(ptr, e.to(ptr.dtype), right=True) - 1
+            wi = torch.round(vals[b, e]).to(torch.int32)
+            u = dst[b, e].long()
+            lb, lm = labels[u].long(), lam[u].long()
+            hs = torch.zeros(rows * k, dtype=torch.int32).index_add_(0, row * k + lb, wi)
+            agree = actions[b, r0 + row] == lm
+            if neighbor:
+                val = torch.where(agree, wi, feas[lm])
+                acc = torch.zeros(rows * k, dtype=torch.int32).index_add_(0, row * k + lm, val)
+                acc = acc.view(rows, k)
+            else:
+                acc = torch.zeros(rows * 2, dtype=torch.int32).index_add_(
+                    0, row * 2 + (~agree).long(), torch.where(agree, wi, 1).to(torch.int32))
+                acc = torch.cat([acc.view(rows, 2), torch.zeros((rows, k - 2), dtype=torch.int32)], 1)
+            if part < 0:
+                hist[b, r0:r1] = hs.view(rows, k).float()
+                wacc[b, r0:r1] = acc.float()
+                written[b, r0:r1] += 1
+            else:
+                partial[b, part] = (hs, acc[0])
+        for row, p0, n in hubs[b].tolist():
+            if n == 0:
+                continue
+            hs = torch.zeros(k, dtype=torch.int32)
+            acc = torch.zeros(k, dtype=torch.int32)
+            for p in range(p0, p0 + n):
+                hs, acc = hs + partial[b, p][0], acc + partial[b, p][1]
+            hist[b, row], wacc[b, row] = hs.float(), acc.float()
+            written[b, row] += 1
+    assert bool((written == 1).all()), "a row was written other than once"
+    return hist, wacc
+
+
+@pytest.mark.parametrize("k", [3, 8, 33, 64])
+@pytest.mark.parametrize("weight_mode", edge_phase.WEIGHT_MODES)
+def test_span_edge_phase_is_bit_equal_to_the_plain_version(k, weight_mode):
+    """Small spans (16 entries, 4 rows), so rows 3 and 40 (hub rows of 150
+    entries) each span ten pieces, row 41 (17 entries) is cut by one
+    boundary, and several spans meet their row cap."""
+    rng = np.random.default_rng(k)
+    block_v = 96
+    host = hub_slab(rng, 2, block_v, k, {3: 150, 40: 150, 41: 17})
+    row_ptr = slab_row_ptr(host[1], host[2], block_v)
+    plan = SpanPlan.from_row_ptr(row_ptr, "cpu", span_edges=16, row_cap=4)
+    pieces = {int(r): int(n) for r, _, n in plan.hubs[0].tolist()}
+    assert pieces == {3: 10, 40: 10, 41: 2}
+    assert (plan.spans[..., 3] - plan.spans[..., 2] == 4).any()
+    dst, rows, vals, labels, lam, actions, feasible = (torch.from_numpy(a) for a in host)
+    got = span_edge_phase(dst, vals, torch.from_numpy(row_ptr), plan.spans, plan.hubs,
+                          labels, lam, actions, feasible, block_v=block_v, k=k,
+                          weight_mode=weight_mode)
+    want = edge_phase.fused_edge_phase_plain(dst, rows, vals, labels, lam, actions, feasible,
+                                             block_v=block_v, k=k, weight_mode=weight_mode)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+# --------------------------------------------------------------------------
+# K6: the chunk-parallel prefill and the spread decode, emulated
+# --------------------------------------------------------------------------
+def wkv_inputs(seed, b, s, h, n):
+    """f32 inputs, decays from strong (w = exp(-e^2)) to weak (exp(-e^-6)),
+    a nonzero starting state (as tests/test_torch_rwkv.py makes them)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, s, h, n)).astype(np.float32) for _ in range(3))
+    logw = -np.exp(rng.uniform(-6.0, 2.0, (b, s, h, n))).astype(np.float32)
+    u = (rng.standard_normal((h, n)) * 0.3).astype(np.float32)
+    s0 = (rng.standard_normal((b, h, n, n)) * 0.1).astype(np.float32)
+    return r, k, v, logw, u, s0
+
+
+def blocked_local_pass(r, k, v, logw, u, block):
+    """K6's local pass over one chunk, from a zero state, ``block`` tokens a
+    step (a ragged last block padded with identity tokens: r = k = v = 0,
+    w = 1). With P_j = prod_{l<j} w_l and Q_i = prod_{i<l<B} w_l over the
+    block, for j, i < B:
+      y_j = (r_j P_j) . S + sum_{i<=j} A[j, i] v_i,
+      A[j, i] = sum_n r_j k_i prod_{i<l<j} w_l (i < j), A[j, j] = r_j . (u k_j),
+      S <- P_B S + sum_i (k_i Q_i) v_i^T,
+    so each state element takes 2B + 1 products a block, not 3B. Returns
+    (y_loc [b, L, h, n], s_loc [b, h, n, n])."""
+    b, length, h, n = r.shape
+    w = torch.exp(logw)
+    pad = (-length) % block
+    if pad:
+        z = torch.zeros((b, pad, h, n))
+        r, k, v, w = (torch.cat([x, z], 1) for x in (r, k, v, w))
+        w[:, length:] = 1.0
+    st = torch.zeros((b, h, n, n))
+    ys = []
+    for t0 in range(0, length + pad, block):
+        rb, kb, vb, wb = (x[:, t0:t0 + block] for x in (r, k, v, w))
+        prefix = torch.cumprod(torch.cat([torch.ones((b, 1, h, n)), wb], 1), 1)  # P_0..P_B
+        r_dec = rb * prefix[:, :block]
+        suffix = torch.flip(torch.cumprod(torch.flip(
+            torch.cat([wb[:, 1:], torch.ones((b, 1, h, n))], 1), [1]), 1), [1])  # Q_0..Q_{B-1}
+        k_dec = kb * suffix
+        for j in range(block):
+            y = torch.einsum("bhn,bhnm->bhm", r_dec[:, j], st)
+            for i in range(j):
+                between = torch.prod(wb[:, i + 1:j], 1) if j > i + 1 else 1.0
+                a = (rb[:, j] * kb[:, i] * between).sum(-1)
+                y = y + a[..., None] * vb[:, i]
+            y = y + (rb[:, j] * u[None] * kb[:, j]).sum(-1)[..., None] * vb[:, j]
+            ys.append(y)
+        st = st * prefix[:, block][..., None] + torch.einsum("bthn,bthm->bhnm", k_dec, vb)
+    return torch.stack(ys[:length], 1), st
+
+
+def chunked_wkv6(r, k, v, logw, u, state0, chunk, block=4):
+    """K6's prefill in PyTorch: per chunk of ``chunk`` tokens (the last one
+    ragged) the local pass from a zero state (`blocked_local_pass`); the
+    chunk's state s_loc, decay exp(sum logw) and r_eff = r exp(exclusive
+    cumulative logw); then the stitch in chunk order, y += r_eff .
+    state_in and state_in <- state_in w_tot + s_loc."""
+    b, s, h, n = r.shape
+    y = torch.zeros((b, s, h, n))
+    parts = []
+    for t0 in range(0, s, chunk):
+        t1 = min(s, t0 + chunk)
+        lw = logw[:, t0:t1]
+        y[:, t0:t1], s_loc = blocked_local_pass(r[:, t0:t1], k[:, t0:t1], v[:, t0:t1], lw,
+                                                u, block)
+        cum = torch.cumsum(lw, 1)
+        r_eff = r[:, t0:t1] * torch.exp(cum - lw)
+        parts.append((t0, t1, s_loc, torch.exp(cum[:, -1]), r_eff))
+    state = state0.clone()
+    for t0, t1, s_loc, w_tot, r_eff in parts:
+        y[:, t0:t1] += torch.einsum("bthn,bhnm->bthm", r_eff, state)
+        state = state * w_tot[..., None] + s_loc
+    state0.copy_(state)
+    return y, state0
+
+
+def spread_decode_wkv6(r, k, v, logw, u, state0):
+    """K6's decode kernel in PyTorch: the state's rows split into 16 row
+    groups (min(16, N); group g holds rows g, g + 16, ...), each group's
+    partial y summed by the butterfly of the warp shuffles (offsets 1, 2,
+    4, 8). The kernel's staging of the per-row terms and any split of the
+    value columns over CTAs leave each column's arithmetic as it is."""
+    b, s, h, n = r.shape
+    groups = min(16, n)
+    state = state0.clone()
+    y = torch.zeros((b, s, h, n))
+    for t in range(s):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], torch.exp(logw[:, t])
+        att = state + (u[None] * kt)[..., None] * vt[..., None, :]
+        part = torch.einsum("bhig,bhigm->bhgm", rt.view(b, h, -1, groups),
+                            att.view(b, h, n // groups, groups, n))
+        x = 1
+        while x < groups:
+            part = part + part[:, :, torch.arange(groups) ^ x]
+            x <<= 1
+        y[:, t] = part[:, :, 0]
+        state = state * wt[..., None] + kt[..., None] * vt[..., None, :]
+    state0.copy_(state)
+    return y, state0
+
+
+@pytest.mark.parametrize("s,chunk,block", [(1, 16, 4), (7, 16, 4), (64, 64, 4), (64, 16, 2),
+                                           (130, 64, 4), (130, 32, 4), (130, 32, 1)])
+def test_chunked_prefill_matches_the_plain_version_and_repro(s, chunk, block):
+    """Ragged last chunks (130 = 2 x 64 + 2 = 4 x 32 + 2), chunks shorter
+    than a block step (7 tokens: a padded block) and whole ones, at WKV_TOL
+    against `wkv6_plain` and `repro`'s Pallas kernel run in interpret mode
+    (as `tests/test_kernels.py` runs it on the CPU)."""
+    args = wkv_inputs(s, 2, s, 2, 16)
+    y, st = chunked_wkv6(*(torch.from_numpy(a.copy()) for a in args), chunk, block)
+    wy, wst = wkv6.wkv6_plain(*(torch.from_numpy(a.copy()) for a in args))
+    torch.testing.assert_close(y, wy, **WKV_TOL)
+    torch.testing.assert_close(st, wst, **WKV_TOL)
+    py, pst = jops.wkv6(*map(jnp.asarray, args), block_s=s, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(py), **WKV_TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(pst), **WKV_TOL)
+
+
+@pytest.mark.parametrize("s,n", [(1, 80), (7, 16), (1, 8), (3, 32)])
+def test_spread_decode_matches_the_plain_version(s, n):
+    args = wkv_inputs(100 + s, 2, s, 3, n)
+    y, st = spread_decode_wkv6(*(torch.from_numpy(a.copy()) for a in args))
+    wy, wst = wkv6.wkv6_plain(*(torch.from_numpy(a.copy()) for a in args))
+    torch.testing.assert_close(y, wy, **WKV_TOL)
+    torch.testing.assert_close(st, wst, **WKV_TOL)
+
+
+def test_the_chunk_is_whole_staging_sub_blocks():
+    """The kernels stage SUB tokens at a time (their shared memory does not
+    grow with the chunk), so a chunk is a whole number of sub-blocks; the
+    wrapper sizes the chunked passes' scratch by CHUNK, so it is the
+    kernels' own compile-time chunk length."""
+    assert wkv6.CHUNK % wkv6.SUB == 0 and wkv6.CHUNK >= wkv6.SUB
+    src = (pathlib.Path(wkv6.__file__).parent / "csrc" / "wkv6.cu").read_text()
+    assert f"constexpr int kChunk = {wkv6.CHUNK};" in src
+    assert f"constexpr int kSub = {wkv6.SUB};" in src

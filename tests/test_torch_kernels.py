@@ -18,6 +18,7 @@ from repro.kernels import ref
 from repro.kernels.edge_phase import fused_edge_phase_pallas
 from repro.kernels.la_update import la_update_pallas
 
+from repro_torch.core.device_graph import SpanPlan
 from repro_torch.graphs.blocking import slab_row_ptr
 from repro_torch.kernels import edge_phase, la_update, ops
 
@@ -45,8 +46,9 @@ def row_sorted_slab(rng, nb, e_max, block_v, k):
 
 def walk_rows(dst, vals, row_ptr, labels, lam, actions, feasible, *, block_v,
               k, weight_mode):
-    """The CUDA kernel's algorithm in numpy: each row walks its run
-    ``[row_ptr[r], row_ptr[r+1])`` of the slab in order."""
+    """A row walk in numpy: each row sums its run ``[row_ptr[r],
+    row_ptr[r+1])`` of the slab in order (the span design of the CUDA kernel
+    is emulated in tests/test_torch_kernel_designs.py)."""
     nb = dst.shape[0]
     hist = np.zeros((nb, block_v, k), np.float32)
     wacc = np.zeros((nb, block_v, k), np.float32)
@@ -166,6 +168,7 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         edge_phase.fused_edge_phase_cuda(
             z, z.float(), torch.zeros((1, 65), dtype=torch.int32),
+            SpanPlan.from_row_ptr(np.zeros((1, 65), np.int32), "cpu"),
             torch.zeros(64, dtype=torch.int32), torch.zeros(64, dtype=torch.int32),
             torch.zeros((1, 64), dtype=torch.int32), torch.zeros((1, 4)),
             block_v=64, k=4)
