@@ -11,10 +11,12 @@ failure raises and the script exits non-zero without printing a result:
               (ptxas registers and spills printed); K4's library must hold
               tensor-core instructions (``HGMMA`` in ``cuobjdump -sass``)
   3. parity   each partitioner kernel on small odd-k inputs against the
-              plain version on the CPU (K1 under the layout's span plan and
-              one of 16-entry, 4-row spans, k up to 64, and on a slab with a
-              hub row of 1,048,589 entries, two calls bit-equal; K3 also on
-              empty rows and random float values); the load and demand sums
+              plain version on the CPU (K1 and K3's span kernel under the
+              layout's span plan and one of 16-entry, 4-row spans, k up to
+              64, nb 1 and 3, and on a slab with a hub row of 1,048,589
+              entries, two calls bit-equal; K3 in its slots and gather forms
+              and on empty rows, its float route on random float values);
+              the load and demand sums
               of odd degrees past 2^24, permuted and repeated on the card,
               equal to the CPU's (the exact sum rounded once); then 3
               Revolver supersteps on the card
@@ -55,10 +57,12 @@ failure raises and the script exits non-zero without printing a result:
   9. kernels  each partitioner kernel against its plain PyTorch version on
               the card, at the main path's shapes (K1 bit-exact in both
               weight modes, two calls bit-equal; K2 at atol 5e-6 / rtol
-              5e-5), then timed eager, as the main path calls them
-              (median of 30 launches after warm-up, CUDA events, L2
-              flushed before each); K1 also as a CUDA-graph replay
-              (``graph_ms``, as in phase 13)
+              5e-5 on random weights and on the input a self_lambda
+              superstep gives it, two calls bit-equal), then timed eager,
+              as the main path calls them (median of 30 launches after
+              warm-up, CUDA events, L2 flushed before each), and as a
+              CUDA-graph replay (``graph_ms``, as in phase 13); K2 also by
+              its device time under torch.profiler, on both inputs
  10. main     ``run_partitioner("revolver", WIKI, k=8, seed=0)`` on the card,
               with every launch counter set to 0 just before and read just
               after; each partitioner kernel must have launched 8 times per
@@ -67,15 +71,18 @@ failure raises and the script exits non-zero without printing a result:
               device time by kernel
  11a. rules   ``run_partitioner`` for spinner, restream, hash and range on
               the same layout, each with every launch counter set to 0 just
-              before and read just after: K3 once per Spinner superstep and
-              8 times per restream superstep, no other kernel, and none for
+              before and read just after: K3's span kernel once per Spinner
+              superstep and 8 times per restream superstep, its float route
+              and every other kernel never, and none for
               the static baselines, whose labels must equal their closed
               forms; metrics recomputed on the host; then a few Spinner and
               restream supersteps profiled as in phase 11
  11b. histogram-kernel  K3 at Spinner's shape (all 8 blocks, one launch)
-              and restream's (block 0) against its plain version on the
-              card, then timed as in phase 13, with ``index_put_`` as the
-              yardstick
+              and restream's (block 0), the span kernel in its slots and
+              gather forms and the row walk, against the plain version on
+              the card, two calls bit-equal, then timed as in phase 13 beside
+              the ``labels[dst]`` gather the slots form needs first, with
+              ``index_put_`` as the yardstick
  12. serve    ``Engine.generate`` on tinyllama-1.1b (batch 8, 1024-token
               prompts, 128 new tokens, greedy), with every launch counter set
               to 0 just before and read just after: K4 once per layer, K5
@@ -334,26 +341,85 @@ def check_k1_block(torch, dg, seed: int):
     return args, labels, lam, actions, feasible, live
 
 
-def check_k2(torch, dev, v: int, k: int, seed: int):
-    """K2 against its plain version on [v, k]; returns the inputs."""
-    from repro_torch.core.la import split_weights_and_signals
+def k2_agrees(torch, p, w, r, what: str) -> float:
+    """K2 on the card against its plain version on the card and on the CPU,
+    at K2_TOL; returns the max abs error against the card's plain version."""
     from repro_torch.kernels import la_update
+
+    got = la_update.la_update_cuda(p, w, r, 1.0, 0.1)
+    again = la_update.la_update_cuda(p, w, r, 1.0, 0.1)
+    want = la_update.la_update_plain(p, w, r, 1.0, 0.1)
+    want_cpu = la_update.la_update_plain(p.cpu(), w.cpu(), r.cpu(), 1.0, 0.1)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    require(torch.equal(got, again), f"K2 {what}: two calls differ")
+    require(torch.allclose(got, want, **K2_TOL),
+            f"K2 {what} differs from plain on the card: max abs err {err}")
+    require(torch.allclose(got.cpu(), want_cpu, **K2_TOL),
+            f"K2 {what} differs from plain on the CPU")
+    return err
+
+
+def check_k2(torch, dev, v: int, k: int, seed: int):
+    """K2 against its plain version on dense random [v, k] inputs; returns
+    the inputs and the error."""
+    from repro_torch.core.la import split_weights_and_signals
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     p = torch.rand((v, k), generator=gen, device=dev) + 0.01
     p = p / p.sum(-1, keepdim=True)
     w_raw = torch.randint(0, 6, (v, k), generator=gen, device=dev).float()
     w, r = split_weights_and_signals(w_raw)
-    got = la_update.la_update_cuda(p, w, r, 1.0, 0.1)
-    want = la_update.la_update_plain(p, w, r, 1.0, 0.1)
-    want_cpu = la_update.la_update_plain(p.cpu(), w.cpu(), r.cpu(), 1.0, 0.1)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    require(torch.allclose(got, want, **K2_TOL),
-            f"K2 [{v},{k}] differs from plain on the card: max abs err {err}")
-    require(torch.allclose(got.cpu(), want_cpu, **K2_TOL),
-            f"K2 [{v},{k}] differs from plain on the CPU")
-    return (p, w, r), err
+    return (p, w, r), k2_agrees(torch, p, w, r, f"[{v},{k}] random")
+
+
+def capture_k2_inputs(torch, dg, steps: int = 2):
+    """The probs, w_norm and r the Revolver rule (self_lambda, k = K) gives
+    K2 for block 0 in superstep ``steps`` of a run from seed SEED on ``dg``
+    (`ops.la_update` wrapped for the run, that call's inputs copied)."""
+    from repro_torch.core import revolver
+    from repro_torch.kernels import ops
+
+    cfg = revolver.RevolverConfig(k=K)
+    state = revolver.revolver_init(dg, cfg, revolver.make_generator(SEED, dg.device))
+    real, seen = ops.la_update, []
+
+    def spy(probs, weights, signals, *args, **kwargs):
+        if len(seen) == (steps - 1) * dg.n_blocks:
+            seen.append((probs.clone(), weights.clone(), signals.clone()))
+        else:
+            seen.append(None)
+        return real(probs, weights, signals, *args, **kwargs)
+
+    ops.la_update = spy
+    try:
+        for _ in range(steps):
+            state = revolver.revolver_superstep(dg, cfg, state)
+    finally:
+        ops.la_update = real
+    require(cfg.weight_mode == "self_lambda" and len(seen) == steps * dg.n_blocks,
+            f"captured {len(seen)} K2 calls in {steps} self_lambda supersteps")
+    return seen[(steps - 1) * dg.n_blocks]
+
+
+def k2_timed(torch, p, w, r, flush) -> dict:
+    """K2 on one input: eager (CUDA events around the wrapper call, as the
+    Revolver rule calls it), replayed from a CUDA graph, and its device time
+    under torch.profiler, beside its bound and the plain version."""
+    from repro_torch.kernels import la_update
+
+    v, k = p.shape
+    fn = lambda: la_update.la_update_cuda(p, w, r, 1.0, 0.1)  # noqa: E731
+    active = int((w > 0).sum())
+    nbytes = 4 * v * k * 4
+    # a pass on a row is k updates of ~4 operations, then the renorm
+    bound_ms, bound_by = bound(nbytes, active * k * 4 + v * k * 2, F32_FLOPS)
+    return {"ms": time_ms(torch, fn, flush), "graph_ms": graph_ms(torch, fn, flush),
+            "device_ms": sum(device_ms_by_kernel(torch, fn).values()),
+            "plain_ms": time_ms(torch, lambda: la_update.la_update_plain(p, w, r, 1.0, 0.1),
+                                flush),
+            "bound_ms": bound_ms, "bound_by": bound_by, "active_slots": active,
+            "rows_with_a_pass": int((w > 0).any(-1).sum())}
 
 
 def parity_phase(torch, np):
@@ -413,37 +479,102 @@ def k3_slab(rng, np, nb: int, e_max: int, bv: int, k: int, integer: bool):
     return slots, rows, vals
 
 
-def check_k3_small(torch, np, seed: int) -> dict:
-    """K3 on small padded slabs (odd k, nb 1 and 3, empty rows) against the
-    CPU plain version: bit-exact on eq.-(4) weights, within K3_FLOAT_ATOL
-    times the row's length on random float values."""
+def host_row_ptr(host, block_v: int):
+    """`slab_row_ptr` of a (slots, rows, vals) slab triple."""
     from repro_torch.graphs.blocking import slab_row_ptr
+
+    return slab_row_ptr(host[1], host[2], block_v)
+
+
+def k3_span_forms(torch, k3, host, dst, labels, plan, *, block_v: int, k: int, what: str):
+    """The K3 span kernel on the card in the slots form and the gather form
+    (slots = labels[dst]) against the plain version on the CPU, bit for bit,
+    each called twice (bit-equal)."""
+    slots, rows, vals = (torch.from_numpy(a) for a in host)
+    dst_t, labels_t = torch.from_numpy(dst), torch.from_numpy(labels)
+    row_ptr = torch.from_numpy(host_row_ptr(host, block_v)).cuda()
+    forms = {"slots": (slots.cuda(), None), "gather": (dst_t.cuda(), labels_t.cuda())}
+    wants = {"slots": k3.edge_histogram_plain(slots, rows, vals, block_v=block_v, k=k),
+             "gather": k3.edge_histogram_plain(labels_t[dst_t.long()], rows, vals,
+                                               block_v=block_v, k=k)}
+    for form, (idx, lab) in forms.items():
+        call = lambda: k3.edge_histogram_spans_cuda(  # noqa: E731
+            idx, vals.cuda(), row_ptr, plan, block_v=block_v, k=k, labels=lab)
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        require(torch.equal(got.cpu(), wants[form]),
+                f"K3 {form} form {what} differs from the CPU plain version")
+        require(torch.equal(got, again), f"K3 {form} form {what}: two calls differ")
+
+
+def check_k3_small(torch, np, seed: int) -> dict:
+    """K3 on small padded slabs (odd k up to 64, nb 1 and 3, every other row
+    empty) against the CPU plain version: the span kernel in both forms
+    under the layout's span plan and one of 16-entry, 4-row spans (rows
+    past 16 entries cut into pieces), bit-exact on eq.-(4) weights, two
+    calls bit-equal; the float route (the row walk) within K3_FLOAT_ATOL
+    times the row's length on random float values."""
+    from repro_torch.core.device_graph import SpanPlan
     from repro_torch.kernels import edge_histogram as k3
 
     rng = np.random.default_rng(seed)
     worst = 0.0
     cases = 0
     for nb, e_max, bv, k in ((1, 256, 64, 1), (3, 512, 128, 3), (1, 768, 32, 5),
-                             (3, 1024, 64, 8), (1, 2048, 256, 13), (3, 512, 32, 13)):
-        for integer in (True, False):
-            host = k3_slab(rng, np, nb, e_max, bv, k, integer)
-            cpu = [torch.from_numpy(a) for a in host]
-            row_ptr = slab_row_ptr(host[1], host[2], bv)
-            got = k3.edge_histogram_cuda(cpu[0].cuda(), cpu[2].cuda(),
-                                         torch.from_numpy(row_ptr).cuda(),
-                                         block_v=bv, k=k).cpu()
-            want = k3.edge_histogram_plain(*cpu, block_v=bv, k=k)
-            name = f"K3 nb={nb} k={k} {'eq4' if integer else 'float'}"
-            if integer:
-                require(torch.equal(got, want), f"{name} differs from the CPU plain version")
-            else:
-                run = torch.from_numpy(np.diff(row_ptr, axis=1).astype(np.float32))
-                err = (got - want).abs()
-                require(bool((err <= K3_FLOAT_ATOL * run[..., None].clamp_min(1)).all()),
-                        f"{name}: max abs err {float(err.max())}")
-                worst = max(worst, float(err.max()))
-            cases += 1
+                             (3, 1024, 64, 8), (1, 2048, 256, 13), (3, 512, 32, 13),
+                             (3, 2048, 64, 33), (1, 4096, 128, 64)):
+        host = k3_slab(rng, np, nb, e_max, bv, k, True)
+        n_lab = 1000
+        labels = rng.integers(0, k, n_lab).astype(np.int32)
+        dst = np.where(host[2] > 0, rng.integers(0, n_lab, (nb, e_max)), 0).astype(np.int32)
+        ptr = host_row_ptr(host, bv)
+        for plan in (SpanPlan.from_row_ptr(ptr, "cuda"),
+                     SpanPlan.from_row_ptr(ptr, "cuda", span_edges=16, row_cap=4)):
+            k3_span_forms(torch, k3, host, dst, labels, plan, block_v=bv, k=k,
+                          what=f"nb={nb} k={k} spans of {plan.span_edges}")
+            cases += 2
+        fl = k3_slab(rng, np, nb, e_max, bv, k, False)
+        cpu = [torch.from_numpy(a) for a in fl]
+        fl_ptr = host_row_ptr(fl, bv)
+        got = k3.edge_histogram_cuda(cpu[0].cuda(), cpu[2].cuda(),
+                                     torch.from_numpy(fl_ptr).cuda(), block_v=bv, k=k).cpu()
+        want = k3.edge_histogram_plain(*cpu, block_v=bv, k=k)
+        run = torch.from_numpy(np.diff(fl_ptr, axis=1).astype(np.float32))
+        err = (got - want).abs()
+        require(bool((err <= K3_FLOAT_ATOL * run[..., None].clamp_min(1)).all()),
+                f"K3 float route nb={nb} k={k}: max abs err {float(err.max())}")
+        worst = max(worst, float(err.max()))
+        cases += 1
     return {"k3_cases": cases, "k3_float_max_abs_err": worst}
+
+
+def check_k3_hub(torch, np, seed: int) -> dict:
+    """The K3 span kernel, both forms, on a synthetic slab whose row 1000
+    holds 1,048,589 entries (cut into 513 pieces by the default plan) among
+    rows of 0-40, k = 8: bit-equal to the plain version, two calls
+    bit-equal."""
+    from repro_torch.core.device_graph import SpanPlan
+    from repro_torch.kernels import edge_histogram as k3
+
+    rng = np.random.default_rng(seed)
+    bv, hub = 4096, 1_048_589
+    deg = rng.integers(0, 41, bv)
+    deg[1000] = hub
+    cnt = int(deg.sum())
+    e_max = -(-(cnt + 100) // 256) * 256
+    slots, rows, dst = (np.zeros((1, e_max), np.int32) for _ in range(3))
+    vals = np.zeros((1, e_max), np.float32)
+    rows[0, :cnt] = np.repeat(np.arange(bv), deg)
+    slots[0, :cnt] = rng.integers(0, K, cnt)
+    dst[0, :cnt] = rng.integers(0, bv, cnt)
+    vals[0, :cnt] = rng.integers(1, 3, cnt)
+    labels = rng.integers(0, K, bv).astype(np.int32)
+    host = (slots, rows, vals)
+    plan = SpanPlan.from_row_ptr(host_row_ptr(host, bv), "cuda")
+    pieces = plan.hubs[0, :, 2].tolist()
+    require(max(pieces) * plan.span_edges >= hub, f"hub row not cut into pieces: {pieces}")
+    k3_span_forms(torch, k3, host, dst, labels, plan, block_v=bv, k=K, what="hub slab")
+    return {"hub_entries": hub, "hub_pieces": max(pieces), "slab_entries": cnt}
 
 
 def rule_parity_phase(torch, np) -> dict:
@@ -552,45 +683,70 @@ def rules_phase(torch, np, ops, g, dg) -> dict:
 
 def k3_timed(torch, dg, flush, seed: int) -> dict:
     """K3 at the main path's two shapes, Spinner's launch over all blocks
-    and restream's block 0: held against its plain version on the card,
-    then timed as K4-K6 are (graph replay), with one ``index_put_`` call
-    as the yardstick. Returns {shape label: numbers}."""
+    and restream's block 0, on random labels: the span kernel in the slots
+    form (the TPU kernel's signature; its ``ms`` is the kernel table's) and
+    the gather form (labels[dst] read in-kernel, as the rules call it),
+    each held bit-equal to the plain version on the card and two calls
+    bit-equal, then timed as K4-K6 are (graph replay) beside the gather
+    ``labels[dst]`` that the slots form needs first (a separate kernel in
+    the rules before the gather form), the row walk (the float route, the
+    parent's design) on the same slots, and one ``index_put_`` call as the
+    yardstick. Returns {shape label: numbers}."""
     from repro_torch.kernels import edge_histogram as k3
 
     dev = dg.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     labels = torch.randint(0, K, (dg.n_pad,), generator=gen, device=dev, dtype=torch.int32)
+    bv = dg.block_v
     out = {}
     for label, nb in (("spinner", dg.n_blocks), ("restream", 1)):
-        slots = labels[dg.blk_dst[:nb]]
-        rows, vals, row_ptr = dg.blk_row[:nb], dg.blk_w[:nb], dg.blk_row_ptr[:nb]
-        bv = dg.block_v
-        got = k3.edge_histogram_cuda(slots, vals, row_ptr, block_v=bv, k=K)
+        spans = dg.blk_spans if nb == dg.n_blocks else dg.blk_spans.block(0)
+        dst, rows, vals, row_ptr = (dg.blk_dst[:nb], dg.blk_row[:nb], dg.blk_w[:nb],
+                                    dg.blk_row_ptr[:nb])
+        slots = labels[dst]
+        calls = {
+            "slots": lambda: k3.edge_histogram_spans_cuda(  # noqa: E731
+                slots, vals, row_ptr, spans, block_v=bv, k=K),
+            "gather": lambda: k3.edge_histogram_spans_cuda(  # noqa: E731
+                dst, vals, row_ptr, spans, block_v=bv, k=K, labels=labels),
+            "row walk": lambda: k3.edge_histogram_cuda(  # noqa: E731
+                slots, vals, row_ptr, block_v=bv, k=K),
+        }
         want = k3.edge_histogram_plain(slots, rows, vals, block_v=bv, k=K)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"K3 at the {label} shape differs from plain")
+        for form, fn in calls.items():
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"K3 {form} at the {label} shape differs from plain")
+            require(torch.equal(got, again), f"K3 {form} at the {label} shape: two calls differ")
         err = max_err(torch, got, want)
-        del got, want
+        del got, again, want
         live = int((vals > 0).sum())
         nbytes = live * 8 + nb * (bv + 1) * 4 + nb * bv * K * 4
         bound_ms, bound_by = bound(nbytes, live, F32_FLOPS)
+        gather_bytes = nbytes + dg.n_pad * 4          # the labels, read once
+        gather_bound_ms, _ = bound(gather_bytes, live, F32_FLOPS)
         flat_rows = (rows.long() + torch.arange(nb, device=dev)[:, None] * bv).reshape(-1)
         index = (flat_rows, slots.long().reshape(-1))
         flat_vals = vals.reshape(-1)
-        fn = lambda: k3.edge_histogram_cuda(slots, vals, row_ptr, block_v=bv, k=K)  # noqa: E731
         out[label] = {
-            "max_abs_err": err, "ms": graph_ms(torch, fn, flush),
+            "max_abs_err": err, "ms": graph_ms(torch, calls["slots"], flush),
             "plain_ms": graph_ms(torch, lambda: k3.edge_histogram_plain(
                 slots, rows, vals, block_v=bv, k=K), flush),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": graph_ms(torch, lambda: torch.zeros(
                 (nb * bv, K), device=dev).index_put_(index, flat_vals, accumulate=True),
                 flush),
-            "eager_ms": time_ms(torch, fn, flush),
+            "eager_ms": time_ms(torch, calls["slots"], flush),
+            "gather_ms": graph_ms(torch, calls["gather"], flush),
+            "gather_eager_ms": time_ms(torch, calls["gather"], flush),
+            "gather_bound_ms": gather_bound_ms,
+            "slot_gather_alone_ms": graph_ms(torch, lambda: labels[dst], flush),
+            "row_walk_ms": graph_ms(torch, calls["row walk"], flush),
             "shape": f"slabs [{nb},{dg.e_max}] ({live} live entries), block_v {bv}, k {K}",
-            "bytes": nbytes, "live_entries": live,
+            "bytes": nbytes, "gather_bytes": gather_bytes, "live_entries": live,
+            "spans": int(spans.spans.shape[1]), "hub_rows": int(spans.hubs.shape[1]),
         }
-        del slots, index, flat_rows
+        del slots, index, flat_rows, calls
     return out
 
 
@@ -960,6 +1116,28 @@ def kernels_per_call(torch, fn, calls: int = 20) -> tuple[float, set]:
     return len(names) / calls, set(names)
 
 
+def device_ms_by_kernel(torch, fn, calls: int = 10) -> dict:
+    """Device time per ``fn()`` call of each kernel it launches, under
+    torch.profiler, by name (templated names cut to the kernel's)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            found = re.search(r"\w+_kernel\w*(<[^>]*>)?", e.name)
+            name = found.group(0) if found else e.name[:60]
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return out
+
+
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -1199,7 +1377,7 @@ def main() -> int:
     from repro_torch.core import run_partitioner
     from repro_torch.core.device_graph import prepare_device_graph
     from repro_torch.graphs import load_dataset
-    from repro_torch.kernels import _build, edge_phase, la_update, ops
+    from repro_torch.kernels import _build, edge_phase, ops
 
     # 1. device
     smi = nvidia_smi_line()
@@ -1242,6 +1420,7 @@ def main() -> int:
     exact_sums = exact_sums_check(torch, np)
     check_k2(torch, torch.device("cuda"), 4099, 5, SEED + 1)
     k3_small = check_k3_small(torch, np, SEED + 4)
+    k3_hub = check_k3_hub(torch, np, SEED + 7)
     ops.reset_launch_counts()
     parity_steps = parity_phase(torch, np)
     parity_counts = ops.launch_counts()
@@ -1256,6 +1435,7 @@ def main() -> int:
     require(rule_counts == want, f"rule parity launches {rule_counts}, expected {want}")
     emit({"phase": "parity", "supersteps": parity_steps, "weight_modes": 2,
           "launches": parity_counts, "k1_cases": k1_small, "k1_hub": k1_hub, **k3_small,
+          "k3_hub": k3_hub,
           "exact_sums": exact_sums, "rules": rule_parity, "rule_launches": rule_counts})
 
     # 4. attention kernels on small odd shapes, then reduced-LM parity: the
@@ -1329,12 +1509,12 @@ def main() -> int:
     k1_bytes = (live * 8 + (bv + 1) * 4 + 2 * dg.n_pad * 4 + bv * 4 + K * 4
                 + 2 * bv * K * 4)
     k1_ops = live * (K + 2)
-    (p, w, r), k2_err = check_k2(torch, dg.device, bv, K, SEED)
-    k2_cuda = lambda: la_update.la_update_cuda(p, w, r, 1.0, 0.1)  # noqa: E731
-    k2_plain = lambda: la_update.la_update_plain(p, w, r, 1.0, 0.1)  # noqa: E731
-    active = int((w > 0).sum())
-    k2_bytes = 4 * bv * K * 4
-    k2_ops = active * K * 4 + bv * K * 2
+    # K2 on (a) dense random weights and (b) what a self_lambda superstep
+    # gives it (one weighted slot a row)
+    k2_a, k2_err = check_k2(torch, dg.device, bv, K, SEED)
+    k2_b = capture_k2_inputs(torch, dg)
+    k2_err_b = k2_agrees(torch, *k2_b, "at a self_lambda superstep's input")
+    k2_a_times, k2_b_times = k2_timed(torch, *k2_a, flush), k2_timed(torch, *k2_b, flush)
     records = {
         "fused_edge_phase": {
             "name": "fused_edge_phase", "route": "cuda",
@@ -1354,17 +1534,16 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/la_update.cu",
             "replaces": "src/repro/kernels/la_update.py:56",
             "max_abs_err": k2_err,
-            "ms": time_ms(torch, k2_cuda, flush),
-            "plain_ms": time_ms(torch, k2_plain, flush),
-            "bound_ms": max(k2_bytes / HBM_BYTES_PER_S, k2_ops / F32_FLOPS) * 1e3,
-            "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_FLOPS else "operations",
-            "library_ms": None,
+            # eager on (a), as the Revolver rule calls it; the graph replay
+            # and device time beside, and all of them on (b)
+            **k2_a_times, "library_ms": None,
+            "superstep_input": {"max_abs_err": k2_err_b, **k2_b_times},
         },
     }
     del flush
     emit({"phase": "kernels", "k1_live_edges": live, "k1_bytes": k1_bytes,
-          "k2_rows": bv, "k2_bytes": k2_bytes, "shape_note":
-          "K1 at block 0 of full WIKI (nb=1), K2 at [block_v, 8]"})
+          "k2_rows": bv, "shape_note": "K1 at block 0 of full WIKI (nb=1), K2 at "
+          "[block_v, 8] on random weights and on superstep 2's block 0 (self_lambda)"})
 
     # 10. the partitioner main path, through the entry point a user calls
     torch.cuda.synchronize()
@@ -1397,7 +1576,7 @@ def main() -> int:
 
     # 11. where a superstep's time goes
     emit({"phase": "profile", **profile_phase(torch, dg)})
-    del args, labels, lam, actions, feasible, k1_cuda, k1_plain, p, w, r, k2_cuda, k2_plain
+    del args, labels, lam, actions, feasible, k1_cuda, k1_plain, k2_a, k2_b
 
     # 11a. Spinner, restream and the static baselines through the same entry
     # point, on the same layout
@@ -1466,7 +1645,7 @@ def main() -> int:
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: records[n][k] for k in keys} for n in ops.LAUNCH_COUNTERS]})
+    emit({"kernels": [{k: rec[k] for k in keys} for rec in records.values()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -119,7 +119,7 @@ class ChunkContext(NamedTuple):
     e_row: torch.Tensor     # [e_max] int32 local row in the block (0 pad)
     e_w: torch.Tensor       # [e_max] f32 eq.(4) weights (0.0 pad)
     row_ptr: torch.Tensor   # [block_v+1] int32 row runs of the slab
-    spans: SpanPlan         # the slab's edge-phase work split (nb = 1)
+    spans: SpanPlan         # the slab's span plan (K1's and K3's work split, nb = 1)
     deg: torch.Tensor       # [block_v] f32 outdegrees
     inv_wsum: torch.Tensor  # [block_v] f32 1/sum w_hat
     vmask: torch.Tensor     # [block_v] bool real-vertex mask
@@ -167,6 +167,7 @@ class ShardContext:
     blk_row: torch.Tensor   # [blocks, e_max] int32
     blk_w: torch.Tensor     # [blocks, e_max] f32
     blk_row_ptr: torch.Tensor  # [blocks, block_v+1] int32 row runs
+    blk_spans: SpanPlan     # the slabs' span plan (the span kernels' work split)
     deg: torch.Tensor       # [local_n] f32
     inv_wsum: torch.Tensor  # [local_n] f32
     vmask: torch.Tensor     # [local_n] bool
@@ -240,8 +241,8 @@ def _shard_superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, cap, draws):
     ctx = ShardContext(
         n_pad=dg.n_pad, local_n=dg.n_pad, block_v=dg.block_v,
         blocks=dg.n_blocks, v0=0, blk_dst=dg.blk_dst, blk_row=dg.blk_row,
-        blk_w=dg.blk_w, blk_row_ptr=dg.blk_row_ptr, deg=dg.deg_out,
-        inv_wsum=dg.inv_wsum, vmask=dg.vmask, step=state.step,
+        blk_w=dg.blk_w, blk_row_ptr=dg.blk_row_ptr, blk_spans=dg.blk_spans,
+        deg=dg.deg_out, inv_wsum=dg.inv_wsum, vmask=dg.vmask, step=state.step,
         repl={f: getattr(state, f) for f in algo.replicated_fields},
         draws=draws)
     local = {f: getattr(state, f) for f in algo.vertex_fields}

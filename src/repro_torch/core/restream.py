@@ -155,10 +155,11 @@ def _restream_chunk_rule(cfg: RestreamConfig, ctx: engine.ChunkContext,
         active &= used < cfg.restream_budget
     used = used + active.to(used.dtype)
 
-    # greedy objective against the freshest configuration (K3, one launch)
-    hist = ops.edge_histogram(labels[ctx.e_dst][None], ctx.e_row[None],
-                              ctx.e_w[None], row_ptr=ctx.row_ptr[None],
-                              block_v=bv, k=k)[0]
+    # greedy objective against the freshest configuration (K3, one launch,
+    # the neighbors' labels gathered in-kernel)
+    hist = ops.edge_histogram(ctx.e_dst[None], ctx.e_row[None], ctx.e_w[None],
+                              labels=labels, row_ptr=ctx.row_ptr[None], spans=ctx.spans,
+                              block_v=bv, k=k, integer_values=True)[0]
     scores = tau_term(hist, ctx.inv_wsum) \
         - cfg.gamma * spinner_penalty(loads, cap)[None, :]
     bump = torch.nn.functional.one_hot(cur.long(), k).to(scores.dtype) * 1e-6

@@ -108,9 +108,11 @@ def _spinner_shard_rule(cfg: SpinnerConfig, ctx: engine.ShardContext,
         u_full = torch.rand((ctx.n_pad,), generator=gen, device=labels.device)
     labels_g = ctx.gather(labels)
 
-    # eq. (3) histogram over every slab at once (K3, one launch)
-    hist = ops.edge_histogram(labels_g[ctx.blk_dst], ctx.blk_row, ctx.blk_w,
-                              row_ptr=ctx.blk_row_ptr, block_v=ctx.block_v, k=k)
+    # eq. (3) histogram over every slab at once (K3, one launch, the
+    # neighbors' labels gathered in-kernel)
+    hist = ops.edge_histogram(ctx.blk_dst, ctx.blk_row, ctx.blk_w, labels=labels_g,
+                              row_ptr=ctx.blk_row_ptr, spans=ctx.blk_spans,
+                              block_v=ctx.block_v, k=k, integer_values=True)
     scores = spinner_scores(hist.view(ctx.local_n, k), ctx.inv_wsum, loads, cap)
     # prefer the current label on ties (Spinner keeps vertices in place)
     bump = torch.nn.functional.one_hot(labels.long(), k).to(scores.dtype) * 1e-6

@@ -1,11 +1,12 @@
 """Build and bind the hand-written CUDA kernels (nvcc + ctypes).
 
-Each source under ``csrc/`` is compiled on first use into its own shared
-library with a plain C interface, under ``build/repro_torch/`` at the root of
-the checkout, and loaded with `ctypes`. Library names carry a hash of the
-source and flags, so an edited source never loads a stale build. Nothing is
-built or loaded at import time: the CPU tests import every module on a
-machine without ``nvcc``.
+Each source under ``csrc/`` (with the headers it includes from there) is
+compiled on first use into its own shared library with a plain C
+interface, under ``build/repro_torch/`` at the root of the checkout, and
+loaded with `ctypes`. Library names carry a hash of the source, the
+headers and the flags, so an edited source never loads a stale build.
+Nothing is built or loaded at import time: the CPU tests import every
+module on a machine without ``nvcc``.
 
 Each C entry point enqueues its kernel on the stream it is given and returns
 ``cudaGetLastError()``; `check` raises on a non-zero code. Pointers and the
@@ -41,9 +42,10 @@ _ARGTYPES = {
     "la_update": ([_VOID] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_float,
                                  ctypes.c_int, _VOID]),
-    # slots, vals, row_ptr, hist; nb, e_max, block_v, k; stream
-    "edge_histogram": ([_VOID] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                      ctypes.c_int, ctypes.c_int, _VOID]),
+    # idx, vals, row_ptr, spans, hubs, labels, hist, partial; nb, e_max,
+    # block_v, k, route, n_span, n_hub, row_cap, vec, smem; stream
+    "edge_histogram": ([_VOID] * 8 + [ctypes.c_int, ctypes.c_longlong]
+                       + [ctypes.c_int] * 8 + [_VOID]),
     # q, k, v, o; b, hq, hkv, sq, skv, d, causal, window; scale; dtype; stream
     "flash_attention": ([_VOID] * 4 + [ctypes.c_int] * 8
                         + [ctypes.c_float, ctypes.c_int, _VOID]),
@@ -90,8 +92,12 @@ def _flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
+    """Where kernel ``name``'s library is built: named by a hash of its
+    source, the shared headers under ``csrc/`` and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -26,13 +26,15 @@
 // layout (`slab_span_plan`, cached on the DeviceGraph) cuts each slab into
 // spans of fewer than 2 * SPAN_EDGES entries and at most SPAN_ROWS rows,
 // and cuts a hub row (more than SPAN_EDGES entries) into pieces of its own.
-// One CTA takes one span:
+// One CTA takes one span (the span code K1 and K3 share is in
+// span_plan.cuh):
 //   * its warps read consecutive slab entries, 16 bytes of dst ids and 16
-//     of weights a lane where the slab is 16-byte aligned (4 entries a
+//     of weights at a time where the slab is 16-byte aligned (4 entries a
 //     lane), so a warp's loads are whole sectors, and every lane has 4
 //     independent label/lambda gathers in flight;
-//   * each entry finds its row by a binary search in the span's row
-//     pointer, staged in shared memory with the rows' actions;
+//   * each entry finds its row in the span's row pointer, staged in shared
+//     memory with the rows' actions (a binary search for a lane's first
+//     entry, a step forward for its next ones);
 //   * the sums are integers (weights in {1, 2}, counts and feasibility
 //     flags in {0, 1}), so they are accumulated per (row, label) in int32
 //     in shared memory, one shared atomicAdd an entry. Integer sums do not
@@ -55,23 +57,14 @@
 
 #include <cuda_runtime.h>
 
+#include "span_plan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // threads of a CTA (one span)
 
 __device__ __forceinline__ void add_shared(int* s, int key, int v, bool valid) {
   if (valid) atomicAdd(s + key, v);
-}
-
-// the row (index into the span's staged row pointer) whose run holds
-// entry e: ptr[lo] <= e < ptr[lo + 1]
-__device__ __forceinline__ int find_row(const int* ptr, int rows, int e) {
-  int lo = 0, hi = rows;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (ptr[mid] <= e) lo = mid; else hi = mid;
-  }
-  return lo;
 }
 
 template <bool NEIGHBOR, bool VEC>
@@ -83,11 +76,11 @@ edge_phase_span_kernel(const int* __restrict__ dst, const float* __restrict__ w,
                        float* __restrict__ hist, float* __restrict__ wacc,
                        int* __restrict__ partial, long long e_max, int block_v, int k,
                        int n_span, int row_cap) {
+  using namespace span_plan;
   extern __shared__ int smem[];
   const int b = blockIdx.y;
-  const int* sp = spans + ((long long)b * n_span + blockIdx.x) * 5;
-  const int e0 = sp[0], e1 = sp[1], r0 = sp[2], part = sp[4];
-  const int rows = sp[3] - r0;
+  const Span sp = load_span(spans, b, n_span);
+  const int rows = sp.rows, r0 = sp.r0;
   if (rows <= 0) return;  // a padding span (uniform over the CTA)
   const int acols = NEIGHBOR ? k : 2;
   // shared layout; `shared_bytes` in edge_phase.py sizes it the same way
@@ -97,10 +90,9 @@ edge_phase_span_kernel(const int* __restrict__ dst, const float* __restrict__ w,
   int* act_s = ptr_s + row_cap + 1;      // [row_cap] the rows' actions
   int* feas_s = act_s + row_cap;         // [k] feasibility flags
 
-  const int* rp = row_ptr + (long long)b * (block_v + 1) + r0;
-  for (int i = threadIdx.x; i < rows * k; i += kThreads) hs[i] = 0;
-  for (int i = threadIdx.x; i < rows * acols; i += kThreads) as[i] = 0;
-  for (int i = threadIdx.x; i <= rows; i += kThreads) ptr_s[i] = rp[i];
+  zero_shared<kThreads>(hs, rows * k);
+  zero_shared<kThreads>(as, rows * acols);
+  stage_row_ptr<kThreads>(ptr_s, row_ptr + (long long)b * (block_v + 1) + r0, rows);
   for (int i = threadIdx.x; i < rows; i += kThreads)
     act_s[i] = actions[(long long)b * block_v + r0 + i];
   if (NEIGHBOR)
@@ -108,56 +100,36 @@ edge_phase_span_kernel(const int* __restrict__ dst, const float* __restrict__ w,
       feas_s[i] = __float2int_rn(feasible[(long long)b * k + i]);
   __syncthreads();
 
-  const int* d_b = dst + (long long)b * e_max;
-  const float* w_b = w + (long long)b * e_max;
-  const int lane = threadIdx.x & 31;
-  constexpr int kWarps = kThreads / 32;
-  constexpr int V = VEC ? 4 : 1;
-  const int first = VEC ? (e0 & ~3) : e0;
-  for (int base = first + (threadIdx.x >> 5) * 32 * V; base < e1; base += kWarps * 32 * V) {
-    const int ef = base + lane * V;
-    int u[V];
-    float we[V];
-    if (ef < e1) {
-      if constexpr (VEC) {  // in bounds: ef is 4-aligned, ef < e1 <= e_max, e_max % 4 == 0
-        const int4 d4 = *reinterpret_cast<const int4*>(d_b + ef);
-        const float4 w4 = *reinterpret_cast<const float4*>(w_b + ef);
-        u[0] = d4.x; u[1] = d4.y; u[2] = d4.z; u[3] = d4.w;
-        we[0] = w4.x; we[1] = w4.y; we[2] = w4.z; we[3] = w4.w;
-      } else {
-        u[0] = d_b[ef];
-        we[0] = w_b[ef];
-      }
-    } else {
+  constexpr int V = group_entries(VEC);
+  for_each_group<kThreads, VEC>(
+      dst + (long long)b * e_max, w + (long long)b * e_max, sp.e0, sp.e1, ptr_s, rows,
+      [&](int ef, const int* u, const float* we, const int* row_of) {
+        bool ok[V];
+        int lb[V], lm[V];
 #pragma unroll
-      for (int j = 0; j < V; ++j) { u[j] = 0; we[j] = 0.f; }
-    }
-    bool ok[V];
-    int lb[V], lm[V];
+        for (int j = 0; j < V; ++j) {
+          const int e = ef + j;
+          ok[j] = e >= sp.e0 && e < sp.e1 && we[j] > 0.f;
+          lb[j] = ok[j] ? __ldg(labels + u[j]) : 0;
+          lm[j] = ok[j] ? __ldg(lam + u[j]) : 0;
+        }
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int e = ef + j;
-      ok[j] = e >= e0 && e < e1 && we[j] > 0.f;
-      lb[j] = ok[j] ? __ldg(labels + u[j]) : 0;
-      lm[j] = ok[j] ? __ldg(lam + u[j]) : 0;
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int row = ok[j] ? find_row(ptr_s, rows, ef + j) : 0;
-      const int wi = __float2int_rn(we[j]);
-      add_shared(hs, row * k + lb[j], wi, ok[j]);
-      const bool agree = act_s[row] == lm[j];
-      if (NEIGHBOR) {
-        const int val = agree ? wi : feas_s[lm[j]];
-        add_shared(as, row * k + lm[j], val, ok[j] && val != 0);
-      } else {
-        add_shared(as, row * 2 + (agree ? 0 : 1), agree ? wi : 1, ok[j]);
-      }
-    }
-  }
+        for (int j = 0; j < V; ++j) {
+          const int row = ok[j] ? row_of[j] : 0;
+          const int wi = __float2int_rn(we[j]);
+          add_shared(hs, row * k + lb[j], wi, ok[j]);
+          const bool agree = act_s[row] == lm[j];
+          if (NEIGHBOR) {
+            const int val = agree ? wi : feas_s[lm[j]];
+            add_shared(as, row * k + lm[j], val, ok[j] && val != 0);
+          } else {
+            add_shared(as, row * 2 + (agree ? 0 : 1), agree ? wi : 1, ok[j]);
+          }
+        }
+      });
   __syncthreads();
 
-  if (part < 0) {  // whole rows: each output element written once, as f32
+  if (sp.part < 0) {  // whole rows: each output element written once, as f32
     float* ho = hist + ((long long)b * block_v + r0) * k;
     float* wo = wacc + ((long long)b * block_v + r0) * k;
     for (int i = threadIdx.x; i < rows * k; i += kThreads) {
@@ -169,30 +141,12 @@ edge_phase_span_kernel(const int* __restrict__ dst, const float* __restrict__ w,
         wo[i] = l < 2 ? (float)as[r * 2 + l] : 0.f;
       }
     }
-  } else {  // a hub row's piece: its int32 partial sums, added by hub_kernel
-    int* po = partial + ((long long)b * n_span + part) * 2 * k;
+  } else {  // a hub row's piece: its int32 partial sums, added by hub_add_kernel
+    int* po = partial + ((long long)b * n_span + sp.part) * 2 * k;
     for (int i = threadIdx.x; i < k; i += kThreads) {
       po[i] = hs[i];
       po[k + i] = (NEIGHBOR || i < 2) ? as[i] : 0;
     }
-  }
-}
-
-// one CTA per hub row: its pieces' partial sums added in piece order
-__global__ void __launch_bounds__(128)
-edge_phase_hub_kernel(const int* __restrict__ hubs, const int* __restrict__ partial,
-                      float* __restrict__ hist, float* __restrict__ wacc, int block_v,
-                      int k, int n_span, int n_hub) {
-  const int b = blockIdx.y;
-  const int* hp = hubs + ((long long)b * n_hub + blockIdx.x) * 3;
-  const int row = hp[0], p0 = hp[1], np = hp[2];
-  if (np <= 0) return;
-  const int* pb = partial + ((long long)b * n_span + p0) * 2 * k;
-  for (int i = threadIdx.x; i < 2 * k; i += blockDim.x) {
-    int s = 0;
-    for (int p = 0; p < np; ++p) s += pb[(long long)p * 2 * k + i];
-    float* out = i < k ? hist : wacc;
-    out[((long long)b * block_v + row) * k + (i < k ? i : i - k)] = (float)s;
   }
 }
 
@@ -203,11 +157,8 @@ cudaError_t launch_spans(const void* dst, const void* w, const void* row_ptr,
                          void* partial, int nb, long long e_max, int block_v, int k,
                          int n_span, int row_cap, int smem, cudaStream_t stream) {
   auto kernel = edge_phase_span_kernel<NEIGHBOR, VEC>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = span_plan::allow_shared(kernel, smem);
+  if (err != cudaSuccess) return err;
   kernel<<<dim3((unsigned)n_span, (unsigned)nb), kThreads, smem, stream>>>(
       (const int*)dst, (const float*)w, (const int*)row_ptr, (const int*)spans,
       (const int*)labels, (const int*)lam, (const int*)actions, (const float*)feasible,
@@ -242,11 +193,9 @@ extern "C" int edge_phase_launch(const void* dst, const void* w, const void* row
               : launch_spans<false, false>(dst, w, row_ptr, spans, labels, lam, actions,
                                            feasible, hist, wacc, partial, nb, e_max,
                                            block_v, k, n_span, row_cap, smem, s);
-  if (err != cudaSuccess || n_hub <= 0) return (int)err;
-  edge_phase_hub_kernel<<<dim3((unsigned)n_hub, (unsigned)nb), 128, 0, s>>>(
-      (const int*)hubs, (const int*)partial, (float*)hist, (float*)wacc, block_v, k, n_span,
-      n_hub);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)span_plan::launch_hub_add<2>(hubs, partial, hist, wacc, nb, block_v, k, n_span,
+                                           n_hub, s);
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -19,6 +19,7 @@ LAUNCH_COUNTERS = {
     "fused_edge_phase": _edge_phase.LAUNCHES,
     "la_update": _la_update.LAUNCHES,
     "edge_histogram": _edge_histogram.LAUNCHES,
+    "edge_histogram_float": _edge_histogram.FLOAT_LAUNCHES,
     "flash_attention": _flash_attention.LAUNCHES,
     "decode_attention": _decode_attention.LAUNCHES,
     "wkv6": _wkv6.LAUNCHES,
@@ -75,21 +76,41 @@ def la_update(probs, weights, signals, alpha: float, beta: float, *,
                                      renorm=renorm)
 
 
-def edge_histogram(slots, rows, vals, *, row_ptr, block_v: int, k: int):
+def edge_histogram(slots, rows, vals, *, row_ptr, block_v: int, k: int, spans=None,
+                   labels=None, integer_values: bool = False):
     """hist [nb, block_v, k] f32, hist[b, r, l] = sum of ``vals[b, e]``
-    over slab entries with ``rows[b, e] == r`` and ``slots[b, e] == l`` —
-    see `repro_torch.kernels.edge_histogram`.
+    over slab entries with ``rows[b, e] == r`` and slot l — see
+    `repro_torch.kernels.edge_histogram`.
 
     The `repro.kernels.edge_histogram.edge_histogram_pallas` signature
     (without ``edge_chunk``) plus ``row_ptr`` ([nb, block_v+1] int32, the
-    row runs of the row-sorted slabs), which the CUDA kernel walks instead
-    of scattering by ``rows``.
+    row runs of the row-sorted slabs), by which the CUDA kernels split the
+    slabs instead of scattering by ``rows``. The slot of entry e is
+    ``slots[b, e]``, or with ``labels`` (the gather form) ``labels[slots[b,
+    e]]``, ``slots`` then holding the neighbor ids.
+
+    ``integer_values=True`` states that the values are small non-negative
+    integers (the eq.-(4) weights): on CUDA they then take the span kernel
+    over ``spans`` (the slabs' `SpanPlan`, e.g. `DeviceGraph.blk_spans`),
+    else the row walk, which sums any f32 values. The gather form needs the
+    statement. The CPU path reads neither ``row_ptr`` nor ``spans``.
     """
+    if labels is not None and not integer_values:
+        raise ValueError("the gather form (labels=) sums integer values only "
+                         "(integer_values=True)")
     if _route(slots, "edge_histogram") == "cpu":
+        if labels is not None:
+            slots = labels[slots]
         return _edge_histogram.edge_histogram_plain(slots, rows, vals,
                                                     block_v=block_v, k=k)
-    return _edge_histogram.edge_histogram_cuda(slots, vals, row_ptr,
-                                               block_v=block_v, k=k)
+    if not integer_values:
+        return _edge_histogram.edge_histogram_cuda(slots, vals, row_ptr,
+                                                   block_v=block_v, k=k)
+    if spans is None:
+        raise ValueError("edge_histogram on CUDA with integer values needs the slabs' "
+                         "span plan (spans=)")
+    return _edge_histogram.edge_histogram_spans_cuda(slots, vals, row_ptr, spans,
+                                                     block_v=block_v, k=k, labels=labels)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):

@@ -147,11 +147,38 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert ops.LAUNCH_COUNTERS["edge_histogram"] is k3.LAUNCHES
 
 
+def test_gather_form_on_the_cpu_takes_the_plain_version_and_counts_no_launch():
+    """``labels=`` (the rules' gather form) on CPU tensors: the plain version
+    on labels[dst], no launch of either route."""
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(1)
+    _, rows, vals = sorted_slab(rng, 2, 256, 64, 4, True)
+    dst = rng.integers(0, 500, rows.shape).astype(np.int32)
+    labels = rng.integers(0, 4, 500).astype(np.int32)
+    got = ops.edge_histogram(t(dst), t(rows), t(vals), labels=t(labels),
+                             row_ptr=t(slab_row_ptr(rows, vals, 64)), spans=None,
+                             block_v=64, k=4, integer_values=True)
+    want = k3.edge_histogram_plain(t(labels[dst]), t(rows), t(vals), block_v=64, k=4)
+    assert torch.equal(got, want)
+    assert ops.launch_counts()["edge_histogram"] == 0
+    assert ops.launch_counts()["edge_histogram_float"] == 0
+    assert ops.LAUNCH_COUNTERS["edge_histogram_float"] is k3.FLOAT_LAUNCHES
+
+
+def test_the_gather_form_needs_the_integer_value_statement():
+    z = torch.zeros((1, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match="integer_values"):
+        ops.edge_histogram(z, z, z.float(), labels=torch.zeros(4, dtype=torch.int32),
+                           row_ptr=None, block_v=64, k=4)
+
+
 def test_wrappers_refuse_other_devices_and_bad_k():
     z = torch.zeros((1, 256), dtype=torch.int32)
     ptr = torch.zeros((1, 65), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         k3.edge_histogram_cuda(z, z.float(), ptr, block_v=64, k=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        k3.edge_histogram_spans_cuda(z, z.float(), ptr, None, block_v=64, k=4)
     with pytest.raises(ValueError, match="no implementation"):
         ops.edge_histogram(z.to("meta"), z.to("meta"), z.float().to("meta"),
                            row_ptr=ptr.to("meta"), block_v=64, k=4)

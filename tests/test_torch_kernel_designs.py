@@ -7,6 +7,14 @@ on the CPU (the kernels themselves run only on the card, where
     rows written by their span, hub rows cut into pieces whose partial sums
     a second pass adds in piece order. Bit-equal to
     `fused_edge_phase_plain` in both weight modes.
+  * K3 (edge histogram): the same span split with one int32 sum per (row,
+    slot), the slot read from a slot slab or gathered as labels[dst];
+    bit-equal to `edge_histogram_plain`, and the gather form equal to
+    `repro`'s Pallas kernel in interpret mode on labels[dst].
+  * K2 (LA update): the passes with each slot's factors computed once a row
+    and a pass applied by a select, bit-equal to `la_update_plain` before
+    the renormalization and within ``K2_TOL`` after it, and of `repro`'s
+    Pallas kernel in interpret mode.
   * K6 (RWKV6 recurrence): the chunk-parallel prefill, chunks of L tokens
     with a ragged last chunk, zero-initialised local passes taken a block
     of tokens a step (decay prefix/suffix products and the intra-block
@@ -25,13 +33,20 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
+from repro.kernels.edge_histogram import edge_histogram_pallas
+from repro.kernels.la_update import la_update_pallas
 
 from repro_torch.core.device_graph import SPAN_EDGES, SPAN_ROWS, SpanPlan, prepare_device_graph
 from repro_torch.graphs import load_dataset
 from repro_torch.graphs.blocking import slab_row_ptr, slab_span_plan
-from repro_torch.kernels import edge_phase, wkv6
+from repro_torch.core.la import split_weights_and_signals
+from repro_torch.kernels import edge_histogram, edge_phase, la_update, ops, wkv6
 
 WKV_TOL = dict(atol=2e-4, rtol=2e-4)
+# K2 against its plain version and the Pallas kernel: only the renorm sum's
+# order differs (chip_smoke.py's K2_TOL, the bound tests/test_kernels.py
+# holds the Pallas kernel to)
+K2_TOL = dict(atol=5e-6, rtol=5e-5)
 
 
 # --------------------------------------------------------------------------
@@ -206,6 +221,203 @@ def test_span_edge_phase_is_bit_equal_to_the_plain_version(k, weight_mode):
                                              block_v=block_v, k=k, weight_mode=weight_mode)
     for a, w in zip(got, want):
         assert torch.equal(a, w)
+
+
+# --------------------------------------------------------------------------
+# K3: the span kernel's arithmetic, emulated
+# --------------------------------------------------------------------------
+def span_edge_histogram(idx, vals, row_ptr, spans, hubs, *, block_v, k, labels=None):
+    """K3's span kernel in PyTorch: per span, int32 sums per (row, slot)
+    over its entries with a nonzero value (each entry's row by a binary
+    search in the span's row pointer; the slot ``idx[e]``, or
+    ``labels[idx[e]]`` in the gather form; a slot outside [0, k) adds
+    nothing); a row span writes its rows once as f32, a hub piece leaves
+    int32 partial sums that the hub pass adds in piece order."""
+    nb = idx.shape[0]
+    hist = torch.full((nb, block_v, k), float("nan"))
+    written = torch.zeros((nb, block_v), dtype=torch.int64)
+    partial = {}
+    for b in range(nb):
+        for e0, e1, r0, r1, part in spans[b].tolist():
+            rows = r1 - r0
+            if rows <= 0:
+                continue
+            e = torch.arange(e0, e1)
+            wi = torch.round(vals[b, e]).to(torch.int32)
+            e, wi = e[wi != 0], wi[wi != 0]
+            slot = idx[b, e].long()
+            if labels is not None:
+                slot = labels[slot].long()
+            ok = (slot >= 0) & (slot < k)
+            e, wi, slot = e[ok], wi[ok], slot[ok]
+            ptr = row_ptr[b, r0:r1 + 1].contiguous()
+            row = torch.searchsorted(ptr, e.to(ptr.dtype), right=True) - 1
+            hs = torch.zeros(rows * k, dtype=torch.int32).index_add_(0, row * k + slot, wi)
+            if part < 0:
+                hist[b, r0:r1] = hs.view(rows, k).float()
+                written[b, r0:r1] += 1
+            else:
+                partial[b, part] = hs
+        for row, p0, n in hubs[b].tolist():
+            if n == 0:
+                continue
+            hs = torch.zeros(k, dtype=torch.int32)
+            for piece in range(p0, p0 + n):
+                hs = hs + partial[b, piece]
+            hist[b, row] = hs.float()
+            written[b, row] += 1
+    assert bool((written == 1).all()), "a row was written other than once"
+    return hist
+
+
+def histogram_slab(seed, nb, block_v, k, long_rows):
+    """`hub_slab`'s layout with neighbor ids over nb * block_v vertices and
+    a label vector; slots = labels[dst]."""
+    rng = np.random.default_rng(seed)
+    dst, rows, vals, labels, *_ = hub_slab(rng, nb, block_v, k, long_rows)
+    return (torch.from_numpy(a) for a in (dst, rows, vals, labels))
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 33, 64])
+@pytest.mark.parametrize("form", ["slots", "gather"])
+def test_span_edge_histogram_is_bit_equal_to_the_plain_version(k, form):
+    """Small spans (16 entries, 4 rows): rows 3 and 40 (150 entries) cut
+    into ten pieces each, row 41 (17 entries) into two, spans at their row
+    cap; nb 1 and 3 over the same slab."""
+    dst, rows, vals, labels = histogram_slab(k, 3, 96, k, {3: 150, 40: 150, 41: 17})
+    slots = labels[dst.long()]
+    for nb in (1, 3):
+        row_ptr = torch.from_numpy(slab_row_ptr(rows[:nb].numpy(), vals[:nb].numpy(), 96))
+        plan = SpanPlan.from_row_ptr(row_ptr.numpy(), "cpu", span_edges=16, row_cap=4)
+        assert {int(r): int(n) for r, _, n in plan.hubs[0].tolist()} == {3: 10, 40: 10, 41: 2}
+        idx = slots[:nb] if form == "slots" else dst[:nb]
+        got = span_edge_histogram(idx, vals[:nb], row_ptr, plan.spans, plan.hubs, block_v=96,
+                                  k=k, labels=None if form == "slots" else labels)
+        want = edge_histogram.edge_histogram_plain(slots[:nb], rows[:nb], vals[:nb],
+                                                   block_v=96, k=k)
+        assert torch.equal(got, want)
+
+
+def test_span_edge_histogram_on_the_layout_plan_of_a_device_graph():
+    """The rules' own input: a WIKI layout's slabs and cached span plan,
+    random labels gathered by the slabs' neighbor ids."""
+    dg = prepare_device_graph(load_dataset("WIKI", scale=0.002), n_blocks=8, device="cpu")
+    labels = torch.from_numpy(np.random.default_rng(3).integers(0, 8, dg.n_pad).astype(np.int32))
+    got = span_edge_histogram(dg.blk_dst, dg.blk_w, dg.blk_row_ptr, dg.blk_spans.spans,
+                              dg.blk_spans.hubs, block_v=dg.block_v, k=8, labels=labels)
+    want = ops.edge_histogram(dg.blk_dst, dg.blk_row, dg.blk_w, labels=labels,
+                              row_ptr=dg.blk_row_ptr, spans=dg.blk_spans,
+                              block_v=dg.block_v, k=8, integer_values=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nb,block_v,k", [(1, 64, 3), (3, 96, 8), (2, 128, 17)])
+def test_gather_form_matches_pallas_on_gathered_labels(nb, block_v, k):
+    """The gather form (the CPU route and the kernel's emulation) against
+    `repro`'s Pallas kernel in interpret mode on the slots labels[dst]."""
+    dst, rows, vals, labels = histogram_slab(100 + k, nb, block_v, k, {5: 40})
+    slots = labels[dst.long()]
+    got = ops.edge_histogram(dst, rows, vals, labels=labels, row_ptr=None, block_v=block_v,
+                             k=k, integer_values=True)
+    e_max = dst.shape[1]
+    pad = (-e_max) % 256
+    pallas = edge_histogram_pallas(
+        *(jnp.asarray(np.pad(a.numpy(), ((0, 0), (0, pad)))) for a in (slots, rows, vals)),
+        block_v=block_v, k=k, edge_chunk=256, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    row_ptr = torch.from_numpy(slab_row_ptr(rows.numpy(), vals.numpy(), block_v))
+    plan = SpanPlan.from_row_ptr(row_ptr.numpy(), "cpu", span_edges=32, row_cap=8)
+    emulated = span_edge_histogram(dst, vals, row_ptr, plan.spans, plan.hubs,
+                                   block_v=block_v, k=k, labels=labels)
+    np.testing.assert_array_equal(emulated.numpy(), np.asarray(pallas))
+
+
+# --------------------------------------------------------------------------
+# K2: the hoisted-factor passes, emulated
+# --------------------------------------------------------------------------
+def hoisted_la_update(p, w, r, alpha, beta, *, renorm=True):
+    """K2's CUDA arithmetic in f32 PyTorch: each slot's factors 1 - beta w,
+    beta w / (k-1), alpha w and 1 - alpha w computed once a row; the
+    penalty sweep, then the reward sweep, pass i kept by a select on rows
+    that run it (w_i > 0 and r_i in the sweep's class); then the clip and a
+    slot-order row sum."""
+    k = p.shape[-1]
+    km1 = torch.tensor(float(k - 1))
+    bw = beta * w
+    pen_keep, pen_floor = 1.0 - bw, bw / km1
+    rew_gain = alpha * w
+    rew_keep = 1.0 - rew_gain
+    pen = r > 0
+    runs = w > 0
+    p = p.clone()
+    for want_pen in (True, False):
+        for i in range(k):
+            run = (runs[..., i] & (pen[..., i] == want_pen))[..., None]
+            if want_pen:
+                kept = p * pen_keep
+                nxt = kept + pen_floor
+                nxt[..., i] = kept[..., i]
+            else:
+                nxt = p * rew_keep
+                nxt[..., i] = p[..., i] + rew_gain[..., i] * (1.0 - p[..., i])
+            p = torch.where(run, nxt, p)
+    if renorm:
+        p = torch.clamp(p, 1e-12, 1.0)
+        total = torch.zeros(p.shape[:-1])
+        for j in range(k):
+            total = total + p[..., j]
+        p = p / total[..., None]
+    return p
+
+
+def la_inputs(seed, v, k, self_lambda):
+    """(p, w, r): rows on the simplex; weights split from random
+    accumulations, or as a self_lambda superstep gives them (one weighted
+    slot a row, some rows none)."""
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(rng.dirichlet(np.ones(k), v).astype(np.float32))
+    if self_lambda:
+        slot = torch.from_numpy(rng.integers(0, k, v))
+        contrib = torch.from_numpy(rng.integers(1, 40, v).astype(np.float32))
+        contrib[::7] = 0.0                     # rows whose edges all disagree
+        w_raw = torch.nn.functional.one_hot(slot, k).float() * contrib[:, None]
+    else:
+        w_raw = torch.from_numpy(rng.integers(0, 6, (v, k)).astype(np.float32))
+    return (p, *split_weights_and_signals(w_raw))
+
+
+@pytest.mark.parametrize("k", [2, 5, 8, 12, 33, 64])
+@pytest.mark.parametrize("self_lambda", [False, True], ids=["random", "self_lambda"])
+def test_hoisted_la_passes_match_the_plain_version_and_pallas(k, self_lambda):
+    """Every pass rounds as the plain version's: bit-equal before the
+    renormalization (a self_lambda input runs one reward pass a row at
+    most, so that case checks a single pass); after it within K2_TOL of
+    `la_update_plain` and of `repro`'s Pallas kernel in interpret mode."""
+    v = 203
+    p, w, r = la_inputs(k, v, k, self_lambda)
+    if self_lambda:
+        assert int((w > 0).sum(-1).max()) == 1 and bool((w == 0).all(-1).any())
+    raw = hoisted_la_update(p, w, r, 1.0, 0.1, renorm=False)
+    assert torch.equal(raw, la_update.la_update_plain(p, w, r, 1.0, 0.1, renorm=False))
+    got = hoisted_la_update(p, w, r, 1.0, 0.1)
+    torch.testing.assert_close(got, la_update.la_update_plain(p, w, r, 1.0, 0.1), **K2_TOL)
+    pad = (-v) % 8
+    pallas = la_update_pallas(
+        jnp.asarray(np.pad(p.numpy(), ((0, pad), (0, 0)), constant_values=1.0 / k)),
+        jnp.asarray(np.pad(w.numpy(), ((0, pad), (0, 0)))),
+        jnp.asarray(np.pad(r.numpy(), ((0, pad), (0, 0)))),
+        alpha=1.0, beta=0.1, renorm=True, block_v=8, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas)[:v], **K2_TOL)
+
+
+def test_the_la_kernel_hoists_the_floor_out_of_its_passes():
+    """The penalty floor beta w_j / (k-1) is divided once a row, before the
+    passes, not in a pass body (the tool's 'not hoisted' variant puts it
+    back by replacing the marked use)."""
+    src = (pathlib.Path(la_update.__file__).parent / "csrc" / "la_update.cu").read_text()
+    body = src[src.index("for (int sweep = 0;"):src.index("if (renorm)")]
+    assert "__fdiv_rn" not in body and "__fadd_rn(kept, pen_floor[j])" in body
+    assert "pen_floor[j] = __fdiv_rn(__fmul_rn(beta, w[j]), km1);" in src
 
 
 # --------------------------------------------------------------------------

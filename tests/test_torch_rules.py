@@ -354,8 +354,8 @@ def test_shard_context_local_rows(cliques):
     ctx = engine.ShardContext(
         n_pad=dg.n_pad, local_n=dg.n_pad, block_v=dg.block_v,
         blocks=dg.n_blocks, v0=0, blk_dst=dg.blk_dst, blk_row=dg.blk_row,
-        blk_w=dg.blk_w, blk_row_ptr=dg.blk_row_ptr, deg=dg.deg_out,
-        inv_wsum=dg.inv_wsum, vmask=dg.vmask, step=0, repl={})
+        blk_w=dg.blk_w, blk_row_ptr=dg.blk_row_ptr, blk_spans=dg.blk_spans,
+        deg=dg.deg_out, inv_wsum=dg.inv_wsum, vmask=dg.vmask, step=0, repl={})
     rows = ctx.local_rows().reshape(dg.n_blocks, -1)
     np.testing.assert_array_equal(
         rows.numpy(), dg.blk_row.numpy() + np.arange(dg.n_blocks)[:, None] * dg.block_v)
