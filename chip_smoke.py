@@ -15,7 +15,10 @@ failure raises and the script exits non-zero without printing a result:
               layout's span plan and one of 16-entry, 4-row spans, k up to
               64, nb 1 and 3, and on a slab with a hub row of 1,048,589
               entries, two calls bit-equal; K3 in its slots and gather forms
-              and on empty rows, its float route on random float values);
+              and on empty rows, its float route on random float values; K1
+              in both weight modes and K3's gather form on synthetic integer
+              weights up to 10^4, bit-equal; phase 11d checks them on WIKI's
+              own contracted levels);
               the load and demand sums
               of odd degrees past 2^24, permuted and repeated on the card,
               equal to the CPU's (the exact sum rounded once); then 3
@@ -83,6 +86,33 @@ failure raises and the script exits non-zero without printing a result:
               the card, two calls bit-equal, then timed as in phase 13 beside
               the ``labels[dst]`` gather the slots form needs first, with
               ``index_put_`` as the yardstick
+ 11c. stream  (run after phase 15, as 11d: the card idles through their
+              host work, after which torch.profiler loses the kernel events
+              of short windows, which phases 13 and 15 count)
+              ``StreamRunner`` on phase 8's graph: Revolver over 8 insertion
+              deltas in random arrival order (k=8, 15 supersteps and
+              patience 3 a delta, warm_sharpen 0.5), every launch counter
+              set to 0 just before each delta and read just after (K1 and
+              K2 8 times a superstep, nothing else); after the last
+              insertion the incremental layout equals the batch layout
+              (each slab's live prefix, blk_row_ptr, blk_spans); then a
+              delta deleting 1 % of the directed edges; local_edges > 0.5
+              and max_norm_load <= 1.30 after both; then Spinner and
+              restream over the first 2 of those deltas each (K3 once a
+              Spinner and 8 times a restream superstep, nothing else; the
+              balance gate and local_edges > 1/k); per delta the merge
+              seconds on the host, the refine seconds and supersteps/s
+ 11d. vcycle  the level stack of phase 8's graph built on the host, each
+              level's largest weight and row weight sum printed; K1 (every
+              block, both weight modes) and K3's gather form (all blocks)
+              on the layouts of level 1, a middle level and the coarsest,
+              bit-equal to the plain versions (summed in f64 where a row
+              sum passes 2^24), two calls bit-equal; then
+              ``run_partitioner("revolver", WIKI, k=8, mode="vcycle")``:
+              level sizes, block counts, budgets and steps per level, the
+              coarsening seconds on the host, K1 and K2 once per block and
+              superstep summed over the levels (nothing else), the same
+              quality gates, beside phase 10's flat run
  12. serve    ``Engine.generate`` on tinyllama-1.1b (batch 8, 1024-token
               prompts, 128 new tokens, greedy), with every launch counter set
               to 0 just before and read just after: K4 once per layer, K5
@@ -139,6 +169,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 K2_TOL = dict(atol=5e-6, rtol=5e-5)
+PROFILE_PAD_S = 0.2           # idle time around a short profiled window
 PARTITIONER_KERNELS = ("fused_edge_phase", "la_update")
 # K3 against its plain version on random float values: both sum a row's
 # entries in f32, in other orders, so up to one rounding per entry
@@ -339,6 +370,70 @@ def check_k1_block(torch, dg, seed: int):
             require(torch.equal(a, c), f"K1 {mode} {name}: two calls differ at full block")
     live = int((dg.blk_w[0] > 0).sum())
     return args, labels, lam, actions, feasible, live
+
+
+def check_contracted_weights(torch, np, seed: int) -> dict:
+    """K1 in both weight modes and K3's span kernel in its gather form on
+    small slabs whose integer weights reach 10^4 (synthetic; phase 11d
+    holds both on the layouts of WIKI's contracted levels), under the
+    default span plan and one of 16-entry,
+    4-row spans (hub rows in pieces): bit-equal to the plain versions on
+    the CPU, two calls bit-equal. The layout's weight check passes first."""
+    from repro_torch.core.device_graph import SpanPlan
+    from repro_torch.graphs.blocking import check_integer_weights, slab_row_ptr
+    from repro_torch.kernels import edge_histogram as k3
+    from repro_torch.kernels import edge_phase
+
+    rng = np.random.default_rng(seed)
+    cases = 0
+    for nb, e_max, bv, k in ((2, 4096, 128, 8), (3, 2048, 64, 5), (1, 8192, 256, 33)):
+        dst = np.zeros((nb, e_max), np.int32)
+        rows = np.zeros((nb, e_max), np.int32)
+        vals = np.zeros((nb, e_max), np.float32)
+        for b in range(nb):
+            deg = rng.multinomial(int(rng.integers(e_max // 2, e_max - 64)),
+                                  np.full(bv, 1 / bv))
+            deg[bv // 3] += 64                  # a row past 16 entries
+            cnt = int(deg.sum())
+            rows[b, :cnt] = np.repeat(np.arange(bv), deg)
+            dst[b, :cnt] = rng.integers(0, nb * bv, cnt)
+            vals[b, :cnt] = rng.integers(1, 10_001, cnt)
+        host_ptr = slab_row_ptr(rows, vals, bv)
+        check_integer_weights(vals, host_ptr)
+        labels, lam = (rng.integers(0, k, nb * bv).astype(np.int32) for _ in range(2))
+        actions = rng.integers(0, k, (nb, bv)).astype(np.int32)
+        feasible = (rng.random((nb, k)) > 0.3).astype(np.float32)
+        cpu = [torch.from_numpy(a) for a in (dst, rows, vals, labels, lam, actions, feasible)]
+        cuda = [t.cuda() for t in cpu]
+        row_ptr = torch.from_numpy(host_ptr).cuda()
+        for plan in (SpanPlan.from_row_ptr(host_ptr, "cuda"),
+                     SpanPlan.from_row_ptr(host_ptr, "cuda", span_edges=16, row_cap=4)):
+            for mode in ("self_lambda", "neighbor_lambda"):
+                call = lambda: edge_phase.fused_edge_phase_cuda(  # noqa: E731
+                    cuda[0], cuda[2], row_ptr, plan, *cuda[3:], block_v=bv, k=k,
+                    weight_mode=mode)
+                got, again = call(), call()
+                want = edge_phase.fused_edge_phase_plain(*cpu, block_v=bv, k=k,
+                                                         weight_mode=mode)
+                torch.cuda.synchronize()
+                for a, b, c in zip(got, again, want):
+                    require(torch.equal(a.cpu(), c), f"K1 {mode} k={k} on weights up to "
+                            f"10^4 (spans of {plan.span_edges}) differs from plain")
+                    require(torch.equal(a, b), f"K1 {mode} k={k} on weights up to 10^4: "
+                            "two calls differ")
+                cases += 1
+            call = lambda: k3.edge_histogram_spans_cuda(  # noqa: E731
+                cuda[0], cuda[2], row_ptr, plan, block_v=bv, k=k, labels=cuda[3])
+            got, again = call(), call()
+            want = k3.edge_histogram_plain(cpu[3][cpu[0].long()], cpu[1], cpu[2],
+                                           block_v=bv, k=k)
+            torch.cuda.synchronize()
+            require(torch.equal(got.cpu(), want), f"K3 gather form k={k} on weights up to "
+                    f"10^4 (spans of {plan.span_edges}) differs from plain")
+            require(torch.equal(got, again), f"K3 gather form k={k} on weights up to 10^4: "
+                    "two calls differ")
+            cases += 1
+    return {"contracted_weight_cases": cases, "max_weight": 10_000}
 
 
 def k2_agrees(torch, p, w, r, what: str) -> float:
@@ -679,6 +774,235 @@ def rules_phase(torch, np, ops, g, dg) -> dict:
                       "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                       "launches": counts}
     return rows
+
+
+def expect_launches(counts: dict, want: dict, what: str) -> None:
+    """Every launch counter equals ``want`` (0 for a kernel not named)."""
+    for name, c in counts.items():
+        require(c == want.get(name, 0), f"{what}: {name} launched {c} times, "
+                f"expected {want.get(name, 0)}")
+
+
+def stream_delta(torch, ops, runner, delta, per_step: dict, what: str) -> dict:
+    """One `StreamRunner.ingest` with every launch counter set to 0 just
+    before and read just after; each kernel of ``per_step`` must have
+    launched that many times a superstep (replays included), every other
+    kernel never. Returns the delta's printed row."""
+    ops.reset_launch_counts()
+    rep = runner.ingest(delta)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expect_launches(counts, {n: c * rep.steps for n, c in per_step.items()},
+                    f"{what} delta {rep.delta_idx} ({rep.steps} supersteps)")
+    refine_s = rep.wall_s - rep.merge_s
+    return {"delta": rep.delta_idx, "m": rep.m, "added": rep.added, "deleted": rep.deleted,
+            "dirty_blocks": rep.dirty_blocks, "repadded": rep.repadded,
+            "e_max": runner.idg.e_max, "steps": rep.steps, "converged": rep.converged,
+            "local_edges": rep.local_edges, "max_norm_load": rep.max_norm_load,
+            "merge_s": rep.merge_s, "refine_s": refine_s,
+            "supersteps_per_s": rep.steps / refine_s, "launches": counts}
+
+
+def check_stream_layout(torch, np, g, dg) -> dict:
+    """The incremental layout after the last insertion delta against a
+    batch layout of the same graph: each slab's live prefix equals
+    `block_edges`' (the tails zero), and `blk_row_ptr` and `blk_spans`
+    equal those `slab_row_ptr` and `SpanPlan.from_row_ptr` derive."""
+    from repro_torch.core.device_graph import SpanPlan
+    from repro_torch.graphs.blocking import block_edges, slab_row_ptr
+
+    be = block_edges(g, block_v=dg.block_v)
+    require((be.n_blocks, dg.m, dg.n) == (dg.n_blocks, g.m, g.n),
+            "stream layout: block count or graph size differs from the batch layout")
+    ptr = slab_row_ptr(be.edge_row, be.edge_w, be.block_v)
+    require(np.array_equal(dg.blk_row_ptr.cpu().numpy(), ptr),
+            "stream layout: blk_row_ptr differs from the batch layout's")
+    plan = SpanPlan.from_row_ptr(ptr, "cpu")
+    require(torch.equal(dg.blk_spans.spans.cpu(), plan.spans)
+            and torch.equal(dg.blk_spans.hubs.cpu(), plan.hubs),
+            "stream layout: the span plan differs from the batch layout's")
+    for b in range(be.n_blocks):
+        cnt = int(ptr[b, -1])
+        for name, want in (("blk_dst", be.edge_dst), ("blk_row", be.edge_row),
+                           ("blk_w", be.edge_w)):
+            got = getattr(dg, name)[b].cpu().numpy()
+            require(np.array_equal(got[:cnt], want[b, :cnt]) and not got[cnt:].any(),
+                    f"stream layout: block {b} {name} differs from the batch layout's")
+    return {"batch_e_max": be.e_max, "stream_e_max": dg.e_max,
+            "spans": int(plan.spans.shape[1]), "hub_rows": int(plan.hubs.shape[1])}
+
+
+def stream_phase(torch, np, ops, g, flat: dict) -> dict:
+    """Phase 11c: `StreamRunner` on full WIKI through the entry point a
+    user calls. Revolver over 8 insertion deltas in random arrival order
+    (the settings of benchmarks/streaming_bench.py), the incremental layout
+    then held against the batch layout, then a delta deleting 1 % of the
+    directed edges; then Spinner and restream over the first 2 of the 8
+    deltas each. K1 and K2 launch 8 times a Revolver superstep, K3 once a
+    Spinner and 8 times a restream superstep, nothing else. Returns the
+    phase's rows."""
+    from repro_torch.graphs.generators import edge_split
+    from repro_torch.streaming import EdgeDelta, StreamConfig, StreamRunner, stream_from_graph
+
+    t0 = time.perf_counter()
+    settings = dict(k=K, refine_max_steps=15, refine_patience=3, sync_every=2)
+    torch.cuda.reset_peak_memory_stats()
+    runner = StreamRunner(g.n, StreamConfig(**settings, warm_sharpen=0.5), seed=SEED)
+    per_step = {n: N_BLOCKS for n in PARTITIONER_KERNELS}
+    rows = [stream_delta(torch, ops, runner, d, per_step, "revolver stream")
+            for d in stream_from_graph(g, 8, seed=SEED)]
+    inserted = rows[-1]
+    layout = check_stream_layout(torch, np, g, runner.idg.device_graph)
+    src, dst = edge_split(g)
+    gone = np.random.default_rng(1).choice(g.m, g.m // 100, replace=False)
+    empty = np.empty(0, np.int32)
+    rows.append(stream_delta(torch, ops, runner,
+                             EdgeDelta(empty, empty, src[gone], dst[gone]), per_step,
+                             "revolver stream"))
+    require(rows[-1]["deleted"] == gone.size and rows[-1]["m"] == g.m - gone.size,
+            f"deletion delta removed {rows[-1]['deleted']} of {gone.size} edges")
+    for row in (inserted, rows[-1]):
+        require(row["local_edges"] > 0.5, f"stream local_edges {row['local_edges']} <= 0.5")
+        require(row["max_norm_load"] <= 1.30,
+                f"stream max_norm_load {row['max_norm_load']} > 1.30")
+    insert_steps = sum(r["steps"] for r in rows[:-1])
+    out = {"revolver": rows, "layout_check": layout,
+           "insert_supersteps": insert_steps, "flat_supersteps": flat["steps"],
+           "local_edges_vs_flat": inserted["local_edges"] / flat["local_edges"],
+           "revolver_peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "revolver_seconds": time.perf_counter() - t0}
+    del runner
+    # the other rules take the first 2 of the same 8 deltas (a cold start,
+    # a re-pad and a warm start on a quarter of the graph): 2 deltas over
+    # the whole graph spent ~120 s merging on the host per rule
+    for algo, k3_per_step in (("spinner", 1), ("restream", N_BLOCKS)):
+        t = time.perf_counter()
+        runner = StreamRunner(g.n, StreamConfig(**settings), algo=algo, seed=SEED)
+        out[algo] = [stream_delta(torch, ops, runner, d, {"edge_histogram": k3_per_step},
+                                  f"{algo} stream")
+                     for d in itertools.islice(stream_from_graph(g, 8, seed=SEED), 2)]
+        # a quarter of the graph in 30 supersteps leaves these rules short
+        # of convergence: the gate is the balance, and local edges above
+        # hash's 1/k
+        last = out[algo][-1]
+        require(1 / K < last["local_edges"] <= 1 and last["max_norm_load"] <= 1.30,
+                f"{algo} stream: {last}")
+        out[f"{algo}_seconds"] = time.perf_counter() - t
+        del runner
+    rows = [r for algo in ("revolver", "spinner", "restream") for r in out[algo]]
+    out["launches"] = {n: sum(r["launches"][n] for r in rows) for n in rows[0]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def level_weights(np, lg) -> tuple[float, float]:
+    """(largest eq.-(4) weight, largest row weight sum) of a level; the row
+    sum bounds every (row, label) sum K1 and K3 take on its layout."""
+    rows = np.repeat(np.arange(lg.n), np.diff(lg.adj_ptr))
+    wsum = np.bincount(rows, weights=lg.adj_w.astype(np.float64), minlength=lg.n)
+    return float(lg.adj_w.max()), float(wsum.max())
+
+
+def check_level_kernels(torch, np, lvl: int, lg, seed: int) -> dict:
+    """K1 and K3 on the layout `prepare_device_graph` gives a contracted
+    V-cycle level (its weights past 2), at the shapes the V-cycle calls
+    them: K1 on every block (nb=1, the block's span plan), both weight
+    modes, and K3's gather form over all blocks at once (Spinner's call),
+    on random labels. Bit-equal to the plain versions on the card while
+    every sum stays below 2^24 (the plain version adds in f32), else to the
+    plain version summed in f64 and rounded once (the kernels' contract);
+    two calls bit-equal."""
+    from repro_torch.core.device_graph import prepare_device_graph
+    from repro_torch.kernels import edge_histogram as k3
+    from repro_torch.kernels import edge_phase
+
+    dg = prepare_device_graph(lg, n_blocks=N_BLOCKS, device="cuda")
+    max_w, max_row_sum = level_weights(np, lg)
+    exact_f32 = max_row_sum < 2 ** 24
+    # the plain versions' values: f32 where its adds are exact, else f64
+    vals = dg.blk_w if exact_f32 else dg.blk_w.double()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bv, nb = dg.block_v, dg.n_blocks
+    labels = torch.randint(0, K, (dg.n_pad,), generator=gen, device="cuda", dtype=torch.int32)
+    lam = torch.randint(0, K, (dg.n_pad,), generator=gen, device="cuda", dtype=torch.int32)
+    actions = torch.randint(0, K, (nb, bv), generator=gen, device="cuda", dtype=torch.int32)
+    feasible = (torch.rand((nb, K), generator=gen, device="cuda") > 0.3).float()
+    what = f"level {lvl} (n {lg.n}, block_v {bv}, weights up to {max_w:g})"
+    for b, mode in itertools.product(range(nb), ("self_lambda", "neighbor_lambda")):
+        blk = slice(b, b + 1)
+        call = lambda: edge_phase.fused_edge_phase_cuda(  # noqa: E731
+            dg.blk_dst[blk], dg.blk_w[blk], dg.blk_row_ptr[blk], dg.blk_spans.block(b),
+            labels, lam, actions[blk], feasible[blk], block_v=bv, k=K, weight_mode=mode)
+        got, again = call(), call()
+        want = edge_phase.fused_edge_phase_plain(
+            dg.blk_dst[blk], dg.blk_row[blk], vals[blk], labels, lam, actions[blk],
+            feasible[blk], block_v=bv, k=K, weight_mode=mode)
+        torch.cuda.synchronize()
+        for a, c, w, name in zip(got, again, want, ("hist", "w_acc")):
+            require(torch.equal(a, w.float()), f"K1 {mode} {name} differs from plain on "
+                    f"{what}, block {b}")
+            require(torch.equal(a, c), f"K1 {mode} {name}: two calls differ on {what}")
+    call = lambda: k3.edge_histogram_spans_cuda(  # noqa: E731
+        dg.blk_dst, dg.blk_w, dg.blk_row_ptr, dg.blk_spans, block_v=bv, k=K, labels=labels)
+    got, again = call(), call()
+    want = k3.edge_histogram_plain(labels[dg.blk_dst.long()], dg.blk_row, vals,
+                                   block_v=bv, k=K)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want.float()), f"K3 gather form differs from plain on {what}")
+    require(torch.equal(got, again), f"K3 gather form: two calls differ on {what}")
+    return {"level": lvl, "n": lg.n, "n_blocks": nb, "block_v": bv, "e_max": dg.e_max,
+            "live_entries": int((dg.blk_w > 0).sum()), "hub_rows": int(dg.blk_spans.hubs.shape[1]),
+            "max_weight": max_w, "max_row_weight_sum": max_row_sum,
+            "held_to": "f32 plain" if exact_f32 else "f64 plain rounded once"}
+
+
+def vcycle_phase(torch, np, ops, g, flat: dict) -> dict:
+    """Phase 11d: the level stack built once on the host, each level's
+    largest weight and row weight sum printed, and K1 and K3 held against
+    their plain versions on the layouts of level 1, a middle level and the
+    coarsest (`check_level_kernels`); then ``run_partitioner("revolver",
+    WIKI, 8, mode="vcycle")`` through the entry point a user calls, every
+    launch counter set to 0 just before and read just after: K1 and K2
+    launch once per block and superstep, summed over the levels, nothing
+    else. Metrics recomputed on the host; printed beside phase 10's flat
+    run."""
+    from repro_torch.core import run_partitioner
+    from repro_torch.core.multilevel import DEFAULT_COARSE_N, build_level_stack
+
+    t = time.perf_counter()
+    graphs, _ = build_level_stack(g, DEFAULT_COARSE_N)
+    stack_s = time.perf_counter() - t
+    weights = [level_weights(np, lg) for lg in graphs]
+    top = len(graphs) - 1
+    checked = [check_level_kernels(torch, np, lvl, graphs[lvl], SEED + lvl)
+               for lvl in (sorted({1, max(1, top // 2), top}) if top else [])]
+    del graphs
+    check_s = time.perf_counter() - t - stack_s
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res = run_partitioner("revolver", g, K, seed=SEED, n_blocks=N_BLOCKS, mode="vcycle")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    vc = res.vcycle
+    require(len(vc["level_n_vertices"]) == top + 1,
+            f"vcycle: {len(vc['level_n_vertices'])} levels, the checked stack {top + 1}")
+    launches = sum(b * s for b, s in zip(vc["level_n_blocks"], vc["steps_per_level"]))
+    expect_launches(counts, {n: launches for n in PARTITIONER_KERNELS}, "vcycle")
+    host_metrics(np, g, res)
+    require(res.local_edges > 0.5, f"vcycle local_edges {res.local_edges} <= 0.5")
+    require(res.max_norm_load <= 1.30, f"vcycle max_norm_load {res.max_norm_load} > 1.30")
+    return {"algo": "revolver", "k": K, "seed": SEED, **vc,
+            "level_max_weight": [w for w, _ in weights],
+            "level_max_row_weight_sum": [s for _, s in weights],
+            "level_kernel_checks": checked, "stack_s": stack_s, "level_check_s": check_s,
+            "fine_steps": res.steps, "total_supersteps": sum(vc["steps_per_level"]),
+            "local_edges": res.local_edges, "max_norm_load": res.max_norm_load,
+            "wall_s": wall, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches": counts, "flat": flat}
 
 
 def k3_timed(torch, dg, flush, seed: int) -> dict:
@@ -1100,19 +1424,31 @@ def sass_counts(lib_path) -> dict:
             for op in ("HGMMA", "HMMA")}
 
 
-def kernels_per_call(torch, fn, calls: int = 20) -> tuple[float, set]:
-    """Device kernels per ``fn()`` call under torch.profiler, and their
-    names. The profiler can drop a kernel event of a window (seen: 0.9 a
-    call where every call launches one), so callers round the count."""
+def device_events(torch, fn, calls: int, cpu: bool) -> list:
+    """The device events of ``calls`` calls of ``fn()`` (after one warm-up
+    call) under torch.profiler. The profiler on the card loses kernel
+    events near the edges of a window, more the longer the process has run
+    (a window of 20 short calls lost them all late in a run), so the window
+    is padded with idle time on both sides."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        time.sleep(PROFILE_PAD_S)
+    return [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+def kernels_per_call(torch, fn, calls: int = 20) -> tuple[float, set]:
+    """Device kernels per ``fn()`` call under torch.profiler, and their
+    names. The profiler can drop a kernel event of a window (seen: 0.9 a
+    call where every call launches one), so callers round the count."""
+    names = [e.name for e in device_events(torch, fn, calls, cpu=True)]
     return len(names) / calls, set(names)
 
 
@@ -1121,20 +1457,11 @@ def device_ms_by_kernel(torch, fn, calls: int = 10) -> dict:
     torch.profiler, by name (templated names cut to the kernel's)."""
     import re
 
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            found = re.search(r"\w+_kernel\w*(<[^>]*>)?", e.name)
-            name = found.group(0) if found else e.name[:60]
-            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+    for e in device_events(torch, fn, calls, cpu=False):
+        found = re.search(r"\w+_kernel\w*(<[^>]*>)?", e.name)
+        name = found.group(0) if found else e.name[:60]
+        out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
     return out
 
 
@@ -1421,6 +1748,7 @@ def main() -> int:
     check_k2(torch, torch.device("cuda"), 4099, 5, SEED + 1)
     k3_small = check_k3_small(torch, np, SEED + 4)
     k3_hub = check_k3_hub(torch, np, SEED + 7)
+    contracted = check_contracted_weights(torch, np, SEED + 8)
     ops.reset_launch_counts()
     parity_steps = parity_phase(torch, np)
     parity_counts = ops.launch_counts()
@@ -1435,7 +1763,7 @@ def main() -> int:
     require(rule_counts == want, f"rule parity launches {rule_counts}, expected {want}")
     emit({"phase": "parity", "supersteps": parity_steps, "weight_modes": 2,
           "launches": parity_counts, "k1_cases": k1_small, "k1_hub": k1_hub, **k3_small,
-          "k3_hub": k3_hub,
+          "k3_hub": k3_hub, **contracted,
           "exact_sums": exact_sums, "rules": rule_parity, "rule_launches": rule_counts})
 
     # 4. attention kernels on small odd shapes, then reduced-LM parity: the
@@ -1564,6 +1892,8 @@ def main() -> int:
     host_metrics(np, g, res)
     require(res.local_edges > 0.5, f"local_edges {res.local_edges} <= 0.5")
     require(res.max_norm_load <= 1.30, f"max_norm_load {res.max_norm_load} > 1.30")
+    flat = {"steps": res.steps, "local_edges": res.local_edges,
+            "max_norm_load": res.max_norm_load, "wall_s": wall}
     emit({"phase": "main", "dataset": "WIKI", "scale": 1.0, "k": K, "seed": SEED,
           "steps": res.steps, "converged": res.converged,
           "local_edges": res.local_edges, "max_norm_load": res.max_norm_load,
@@ -1603,6 +1933,7 @@ def main() -> int:
     emit(records["edge_histogram"])
     emit({"phase": "histogram-kernel", "restream_shape": k3_shapes["restream"]})
 
+
     # 12. the serving main path, through the entry point a user calls
     next_model(torch)
     cfg, model, toks, _ = full_width_model(torch, "tinyllama-1.1b")
@@ -1641,6 +1972,22 @@ def main() -> int:
     records["wkv6"] = rec
     emit(rec)
     emit({"phase": "rwkv-kernel", "decode_shape": decode})
+
+    # 11c. streaming repartitioning of phase 8's graph, through StreamRunner,
+    # and 11d. the multilevel V-cycle on it. They run last: the card idles
+    # through their host work (merges, coarsening), and after such idle
+    # minutes torch.profiler loses the kernel events of short windows, which
+    # phases 13 and 15 count
+    next_model(torch)
+    stream = stream_phase(torch, np, ops, g, flat)
+    for algo in ("revolver", "spinner", "restream"):
+        for row in stream.pop(algo):
+            emit({"phase": "stream-delta", "algo": algo, **row})
+    emit({"phase": "stream", **stream})
+    t = time.perf_counter()
+    emit({"phase": "vcycle", **vcycle_phase(torch, np, ops, g, flat),
+          "seconds": time.perf_counter() - t})
+    del g
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

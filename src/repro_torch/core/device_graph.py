@@ -25,7 +25,12 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.graphs.blocking import block_edges, slab_row_ptr, slab_span_plan
+from repro_torch.graphs.blocking import (
+    block_edges,
+    check_integer_weights,
+    slab_row_ptr,
+    slab_span_plan,
+)
 from repro_torch.graphs.csr import Graph
 
 # the edge-phase kernel's span plan: a span holds fewer than 2 x SPAN_EDGES
@@ -107,13 +112,15 @@ def device_graph_from_numpy(arrays: dict, device) -> DeviceGraph:
     and ints — e.g. the fields of `repro`'s `DeviceGraph` from
     ``jax.device_get(dg._asdict())``; fields the port does not keep are
     ignored. `blk_row_ptr` and `blk_spans` are derived from the slabs
-    (`slab_row_ptr` also checks their row-sorted layout). Arrays are
+    (`slab_row_ptr` also checks their row-sorted layout, and
+    `check_integer_weights` the span kernels' weight contract). Arrays are
     copied.
     """
     dev = resolve_device(device)
     ints = {f: int(arrays[f])
             for f in ("n", "n_pad", "m", "n_blocks", "block_v", "e_max")}
     row_ptr = slab_row_ptr(arrays["blk_row"], arrays["blk_w"], ints["block_v"])
+    check_integer_weights(arrays["blk_w"], row_ptr)
     dtypes = {"blk_w": np.float32, "deg_out": np.float32,
               "inv_wsum": np.float32, "vmask": bool}
     tensors = {}
@@ -134,17 +141,32 @@ def prepare_device_graph(g: Graph, n_blocks: int = 8, block_multiple: int = 8,
     block_v = -(-g.n // n_blocks)
     block_v = -(-block_v // block_multiple) * block_multiple
     blocked = block_edges(g, block_v=block_v)
-    n_pad = blocked.n_pad
+    return device_graph_from_numpy(dict(
+        n=g.n,
+        n_pad=blocked.n_pad,
+        m=g.m,
+        n_blocks=blocked.n_blocks,
+        block_v=blocked.block_v,
+        e_max=blocked.e_max,
+        blk_dst=blocked.edge_dst,
+        blk_row=blocked.edge_row,
+        blk_w=blocked.edge_w,
+        **vertex_arrays(g, blocked.n_pad),
+    ), device)
 
+
+def vertex_arrays(g: Graph, n_pad: int) -> dict:
+    """The per-vertex fields (padded to ``n_pad``) and the flat directed
+    edges of a `DeviceGraph` of ``g``, as numpy arrays."""
     deg_out = np.zeros(n_pad, dtype=np.float32)
     deg_out[: g.n] = g.deg_out.astype(np.float32)
 
     src_flat = np.repeat(np.arange(g.n, dtype=np.int32),
                          np.diff(g.adj_ptr).astype(np.int64))
-    # sums of eq.-(4) weights in {1, 2}: bincount sums in f64 (exact for
-    # integers below 2^53) and rounds to f32 once, so it equals the
-    # reference's sequential f32 np.add.at bit for bit while a vertex's sum
-    # stays below 2^24 (its degree is at most 2n)
+    # sums of integer weights (eq.-(4)'s {1, 2}, or a contracted level's
+    # sums of them): bincount sums in f64 (exact below 2^53) and rounds to
+    # f32 once, so it equals the reference's sequential f32 np.add.at bit
+    # for bit while a vertex's sum stays below 2^24
     wsum = np.zeros(n_pad, dtype=np.float32)
     wsum[: g.n] = np.bincount(src_flat, weights=g.adj_w, minlength=g.n)
     inv_wsum = np.where(wsum > 0, 1.0 / np.maximum(wsum, 1e-30), 0.0).astype(np.float32)
@@ -153,23 +175,8 @@ def prepare_device_graph(g: Graph, n_blocks: int = 8, block_multiple: int = 8,
     vmask[: g.n] = True
 
     dir_src = np.repeat(np.arange(g.n, dtype=np.int32), np.diff(g.row_ptr).astype(np.int64))
-
-    return device_graph_from_numpy(dict(
-        n=g.n,
-        n_pad=n_pad,
-        m=g.m,
-        n_blocks=blocked.n_blocks,
-        block_v=blocked.block_v,
-        e_max=blocked.e_max,
-        dir_src=dir_src,
-        dir_dst=g.col_idx,
-        blk_dst=blocked.edge_dst,
-        blk_row=blocked.edge_row,
-        blk_w=blocked.edge_w,
-        deg_out=deg_out,
-        inv_wsum=inv_wsum,
-        vmask=vmask,
-    ), device)
+    return dict(dir_src=dir_src, dir_dst=g.col_idx, deg_out=deg_out,
+                inv_wsum=inv_wsum, vmask=vmask)
 
 
 CAPACITY_MODES = ("spinner", "paper")

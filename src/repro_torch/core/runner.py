@@ -12,10 +12,12 @@ supersteps; with `track_history=True` the per-step `local_edges` /
 Convergence is then detected up to `sync_every - 1` steps late;
 `sync_every=1` (the default) is exactly synchronous.
 
+``mode="vcycle"`` runs the multilevel V-cycle (`repro_torch.core.multilevel`).
+
 What waits for later slices, and raises NotImplementedError when asked
 for: mesh / halo / hub / assignment knobs and non-sequential schedules
 (ROADMAP queue 1 item 9), tracing, checkpoints and the state guard
-(item 8), ``mode="vcycle"`` (item 7).
+(item 8).
 """
 from __future__ import annotations
 
@@ -51,11 +53,20 @@ _UNPORTED = {
     "resume": (False, "queue 1 item 8 (checkpoints)"),
     "keep_checkpoints": (2, "queue 1 item 8 (checkpoints)"),
     "guard": ("off", "queue 1 item 8 (state guards)"),
-    "mode": ("flat", "queue 1 item 7 (multilevel V-cycle)"),
-    "coarse_n": (None, "queue 1 item 7 (multilevel V-cycle)"),
-    "level_decay": (None, "queue 1 item 7 (multilevel V-cycle)"),
-    "vcycle_sharpen": (None, "queue 1 item 7 (multilevel V-cycle)"),
 }
+
+
+def reject_unported(kwargs: dict, unported: dict, where: str) -> None:
+    """Pop every key of ``unported`` ({name: (off value, ROADMAP item)})
+    from ``kwargs``; raise NotImplementedError for one not at its "off"
+    value."""
+    for name in sorted(set(kwargs) & set(unported)):
+        off, item = unported[name]
+        value = kwargs.pop(name)
+        if value != off:
+            raise NotImplementedError(
+                f"{where}({name}={value!r}) is not ported yet; it comes with "
+                f"ROADMAP {item}")
 
 
 @dataclasses.dataclass
@@ -72,6 +83,8 @@ class PartitionResult:
     probs: Optional[np.ndarray] = None  # [n_blocks, block_v, k] final LA state
                                         # (keep_probs=True only; feeds warm
                                         # restarts)
+    vcycle: Optional[dict] = None       # mode="vcycle": level sizes, budgets,
+                                        # steps per level, coarsening seconds
 
 
 def run_convergence_loop(
@@ -170,6 +183,30 @@ def _run_static(algorithm: StaticAlgorithm, graph: Graph, k: int,
         wall_s=time.time() - t0)
 
 
+def _check_vcycle_args(algo, static, cfg_kwargs, dg, init_labels, init_probs,
+                       init_sharpen, draws) -> None:
+    """`repro`'s argument errors of ``mode="vcycle"``."""
+    if static:
+        raise TypeError(
+            f"{algo!r} runs no supersteps; mode='vcycle' refines through "
+            "warm starts")
+    if (cfg_kwargs.get("checkpoint_dir") is not None or cfg_kwargs.get("resume", False)
+            or cfg_kwargs.get("guard", "off") != "off"):
+        raise ValueError(
+            "mode='vcycle' is incompatible with checkpointing/resume/"
+            "guard; its per-level runs are short — checkpoint a flat "
+            "refinement from init_labels instead")
+    if init_labels is not None or init_probs is not None or init_sharpen:
+        raise ValueError(
+            "mode='vcycle' derives its warm starts from the coarse "
+            "levels; init_labels/init_probs/init_sharpen cannot be "
+            "passed in")
+    if dg is not None or draws is not None:
+        raise ValueError(
+            "mode='vcycle' builds its own per-level device layouts and "
+            "draws; dg=/draws= cannot be passed in")
+
+
 def run_partitioner(
     algo: str,
     graph: Graph,
@@ -187,6 +224,10 @@ def run_partitioner(
     keep_probs: bool = False,
     device="cuda",
     draws=None,
+    mode: str = "flat",
+    coarse_n: Optional[int] = None,
+    level_decay: Optional[float] = None,
+    vcycle_sharpen: Optional[float] = None,
     **cfg_kwargs,
 ) -> PartitionResult:
     """Partition `graph` into `k` parts with the named algorithm, on
@@ -207,6 +248,16 @@ def run_partitioner(
 
     The static baselines (``"hash"``, ``"range"``) run no supersteps: they
     take no config kwargs and no warm-start arguments (TypeError).
+
+    ``mode="vcycle"`` runs the multilevel V-cycle
+    (`repro_torch.core.multilevel`): coarsen by heavy-edge matching down to
+    `coarse_n` vertices, partition the coarsest graph to score-stall
+    convergence, then uncoarsen level by level with `init_from_labels` warm
+    starts under shrinking per-level superstep budgets (the finest level is
+    capped at `level_decay * max_steps`; probs-carrying rules sharpen the
+    projected labels by `vcycle_sharpen`). It builds its own per-level
+    layouts, so it is incompatible with a passed `dg`, warm-start args,
+    checkpointing, the state guard and `draws`.
     """
     t0 = time.time()
     algorithm = get_algorithm(algo)
@@ -217,16 +268,29 @@ def run_partitioner(
     if static and config_keys:
         raise TypeError(f"{algo!r} runs no supersteps; it takes no config "
                         f"kwargs (got {sorted(config_keys)})")
-    for name in sorted(set(cfg_kwargs) & set(_UNPORTED)):
-        off, item = _UNPORTED[name]
-        value = cfg_kwargs.pop(name)
-        if value != off:
-            raise NotImplementedError(
-                f"run_partitioner({name}={value!r}) is not ported yet; it "
-                f"comes with ROADMAP {item}")
+    if mode not in ("flat", "vcycle"):
+        raise ValueError(f"mode={mode!r} is not one of ('flat', 'vcycle')")
+    if mode != "vcycle" and (coarse_n is not None or level_decay is not None
+                             or vcycle_sharpen is not None):
+        raise ValueError(
+            "coarse_n/level_decay/vcycle_sharpen are only meaningful with "
+            "mode='vcycle'")
+    if mode == "vcycle":
+        _check_vcycle_args(algo, static, cfg_kwargs, dg, init_labels,
+                           init_probs, init_sharpen, draws)
+    reject_unported(cfg_kwargs, _UNPORTED, "run_partitioner")
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
     dev = resolve_device(device)
+    if mode == "vcycle":
+        from repro_torch.core import multilevel
+
+        return multilevel.run_vcycle(
+            algo, graph, k, seed=seed, n_blocks=n_blocks, max_steps=max_steps,
+            track_history=track_history, sync_every=sync_every,
+            keep_probs=keep_probs, device=dev, coarse_n=coarse_n,
+            level_decay=level_decay, vcycle_sharpen=vcycle_sharpen,
+            cfg_kwargs=cfg_kwargs)
     if not static:
         cfg = _make_cfg(algorithm.config_cls, k, max_steps, cfg_kwargs)
     elif init_labels is not None or init_probs is not None or init_sharpen:

@@ -15,6 +15,13 @@ For each edge slot:
 Slabs are row-sorted with the padding at the tail, so every row owns one
 contiguous run of its slab; `slab_row_ptr` turns that into the per-block row
 pointer the hand-written edge-phase kernel walks.
+
+The weight contract of the span kernels (K1, and K3 as the rules call it):
+every live weight is an integer and each row's weights sum below 2^31.
+They sum per (row, label) in int32 and write f32 once. The eq.-(4) weights
+are in {1, 2}; a contracted V-cycle level sums them past 2 (its weights
+stay integers). `check_integer_weights` holds a layout to the contract
+when the layout is built; one that breaks it raises.
 """
 from __future__ import annotations
 
@@ -137,6 +144,28 @@ def slab_row_ptr(edge_row: np.ndarray, edge_w: np.ndarray, block_v: int) -> np.n
                              f"[0, {block_v})")
         ptr[b] = np.searchsorted(rows, queries, side="left")
     return ptr
+
+
+# the span kernels' per-(row, label) int32 sums stay below this
+INT32_SUM_LIMIT = 2 ** 31
+
+
+def check_integer_weights(edge_w: np.ndarray, row_ptr: np.ndarray) -> None:
+    """Raise ValueError unless the slabs keep the span kernels' weight
+    contract (module docstring): every live weight an integer, and each
+    row's weight sum, which bounds each of its (row, label) sums, below
+    2^31. ``row_ptr`` is `slab_row_ptr`'s for the same slabs."""
+    edge_w = np.asarray(edge_w)
+    for b in range(edge_w.shape[0]):
+        w = edge_w[b, :int(row_ptr[b, -1])]
+        if not np.array_equal(w, np.floor(w)):
+            raise ValueError(f"block {b}: a slab weight is not an integer; the span "
+                             "kernels sum weights in int32")
+        csum = np.concatenate([[0.0], np.cumsum(w, dtype=np.float64)])
+        row_sums = csum[row_ptr[b, 1:]] - csum[row_ptr[b, :-1]]
+        if row_sums.size and not row_sums.max() < INT32_SUM_LIMIT:
+            raise ValueError(f"block {b}: a row's weights sum to {row_sums.max():.0f}, "
+                             f"past the span kernels' int32 sums (< 2^31)")
 
 
 def slab_span_plan(row_ptr: np.ndarray, span_edges: int, row_cap: int):

@@ -14,6 +14,8 @@ skewness sign) are validated against Table I in benchmarks/table1_datasets.py.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 from repro_torch.graphs.csr import Graph, build_graph
@@ -140,3 +142,9 @@ def dc_sbm(
     dst = np.where(intra, dst_intra, dst_global)
     dst = np.minimum(dst, n_eff - 1)
     return build_graph(src, dst, n_eff)
+
+
+def edge_split(g: Graph, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Return (src, dst) arrays of the directed edge list (for re-generation)."""
+    src = np.repeat(np.arange(g.n, dtype=np.int32), np.diff(g.row_ptr).astype(np.int64))
+    return src, g.col_idx.copy()

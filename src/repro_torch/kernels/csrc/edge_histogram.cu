@@ -21,8 +21,10 @@
 //   * slots (and labels) lie in [0, k): by the rules' invariant, not
 //     checked on the host, which would cost a sync; an out-of-range slot
 //     matches no sum and adds nothing;
-//   * the span routes: the values are small non-negative integers (the
-//     eq.-(4) weights, in {1, 2}) and the span plan was built from row_ptr.
+//   * the span routes: the values are integers whose (row, slot) sums stay
+//     below 2^31 (the eq.-(4) weights or a contracted V-cycle level's sums
+//     of them; the layout checks this when it is built) and the span plan
+//     was built from row_ptr.
 //
 // Bound on the card: bytes. The kernel reads each live entry's slot (or
 // neighbor id) and value once (8 B), the row pointer, in the gather form

@@ -35,7 +35,7 @@
 //   * each entry finds its row in the span's row pointer, staged in shared
 //     memory with the rows' actions (a binary search for a lane's first
 //     entry, a step forward for its next ones);
-//   * the sums are integers (weights in {1, 2}, counts and feasibility
+//   * the sums are integers (integer weights, counts and feasibility
 //     flags in {0, 1}), so they are accumulated per (row, label) in int32
 //     in shared memory, one shared atomicAdd an entry. Integer sums do not
 //     depend on the order of the adds: the result is deterministic and
@@ -50,10 +50,12 @@
 //
 // Preconditions: 1 <= k <= 64; row_ptr describes the slab's row runs and
 // the span plan was built from it (`slab_span_plan`, row_cap rows at most a
-// span); weights and feasibility flags are small non-negative integers
-// (eq.-(4) weights in {1, 2}, flags in {0, 1}); labels and lam are in
-// [0, k) by the rule's invariant. The Python wrapper checks shapes, dtypes
-// and k; the values are not checked here, which would cost a host sync.
+// span); weights are integers whose (row, label) sums stay below 2^31
+// (eq.-(4)'s {1, 2}, or a contracted V-cycle level's sums of them; the
+// layout checks this when it is built), flags are in {0, 1}; labels and lam
+// are in [0, k) by the rule's invariant. The Python wrapper checks shapes,
+// dtypes and k; the values are not checked here, which would cost a host
+// sync.
 
 #include <cuda_runtime.h>
 

@@ -17,8 +17,10 @@ Implementations of one function:
 
   * `edge_histogram_plain` — one `index_put_(accumulate=True)` scatter by
     ``rows``, any row order; the CPU path and the oracle;
-  * `edge_histogram_spans_cuda` — the rules' route, for values that are
-    small non-negative integers (the eq.-(4) weights): the hand-written
+  * `edge_histogram_spans_cuda` — the rules' route, for integer values
+    under K1's weight contract (`kernels.edge_phase`: each (row, slot) sum
+    below 2^31; the eq.-(4) weights, or a contracted V-cycle level's sums
+    of them), which the layout checks when it is built: the hand-written
     kernel in ``csrc/edge_histogram.cu`` over the layout's `SpanPlan` (K1's
     design: one CTA a span, coalesced 16-byte slab reads, int32 sums per
     (row, slot) in shared memory, hub rows in pieces added in order), in
@@ -137,9 +139,11 @@ def edge_histogram_spans_cuda(
     With ``labels`` the slot of entry e is ``labels[idx[b, e]]``, else
     ``idx[b, e]``.
 
-    The values must be small non-negative integers (they are summed in
-    int32; the eq.-(4) weights are in {1, 2}): not checked, which would
-    cost a host sync. Returns hist [nb, block_v, k] f32, allocated here.
+    The values must be integers whose (row, slot) sums stay below 2^31
+    (they are summed in int32 and written to f32 once): not checked here,
+    which would cost a host sync; the layout checks its weights when it is
+    built (`graphs.blocking.check_integer_weights`). Returns hist
+    [nb, block_v, k] f32, allocated here.
     Raises on any input the kernel does not take, or if the launch fails.
     """
     _check_call(idx, "edge_histogram_spans_cuda", k)

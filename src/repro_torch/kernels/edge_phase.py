@@ -25,9 +25,14 @@ Two implementations of one function:
     (edge-balanced, a hub row cut into pieces), int32 sums per (row, label)
     in shared memory, a second small pass adding each hub row's pieces.
 
-Both are exact: eq.-(4) weights are integers in {1, 2} and feasibility
-flags in {0, 1}, so every sum is an integer; the kernel sums in int32 and
-writes f32 once, and the two agree bit for bit.
+The weight contract: every live weight is an integer (eq.-(4)'s {1, 2},
+or a contracted V-cycle level's sums of them), feasibility flags are in
+{0, 1}, and each (row, label) sum stays below 2^31. The layout checks it
+when it is built (`graphs.blocking.check_integer_weights`) and raises if
+it does not hold. The kernel sums in int32 and writes f32 once; the plain
+version adds in f32, exact while each sum stays below 2^24, so there the
+two agree bit for bit. Past 2^24 the plain version (like `repro`) rounds
+at every add, and the kernel's exact sum rounded once can differ from it.
 """
 from __future__ import annotations
 

@@ -5,10 +5,10 @@
       --algo hash --algo range [--device cpu]
 
 Runs each `--algo` (repeatable; default: every registered algorithm) with
-the flat sequential schedule and prints the rows `repro.launch.partition`
-prints, one per algorithm. The superstep-only knobs (--epsilon, --sync-every)
-go to the engine-driven algorithms only; the static baselines (hash, range)
-take none. `--device` defaults to cuda and fails without a CUDA device.
+the sequential schedule and prints the rows `repro.launch.partition`
+prints, one per algorithm. The superstep-only knobs (--epsilon, --sync-every,
+--mode vcycle with --coarse-n and --level-decay) go to the engine-driven
+algorithms only; the static baselines (hash, range) take none and run flat. `--device` defaults to cuda and fails without a CUDA device.
 """
 from __future__ import annotations
 
@@ -34,6 +34,16 @@ def main(argv=None):
     ap.add_argument("--max-steps", type=int, default=290)
     ap.add_argument("--epsilon", type=float, default=0.05)
     ap.add_argument("--n-blocks", type=int, default=8)
+    ap.add_argument("--mode", default="flat", choices=["flat", "vcycle"],
+                    help="flat = refine at full resolution from superstep 0; "
+                         "vcycle = coarsen, partition the coarsest graph, "
+                         "uncoarsen with warm-started refinement")
+    ap.add_argument("--coarse-n", type=int, default=None,
+                    help="coarsest-level vertex target for --mode vcycle "
+                         "(default 512)")
+    ap.add_argument("--level-decay", type=float, default=None,
+                    help="finest level's share of --max-steps for --mode "
+                         "vcycle (default 0.12)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sync-every", type=int, default=1,
                     help="device->host score fetch window (supersteps)")
@@ -52,6 +62,9 @@ def main(argv=None):
         kwargs = {}
         if not isinstance(get_algorithm(algo), StaticAlgorithm):
             kwargs = dict(epsilon=args.epsilon, sync_every=args.sync_every)
+            if args.mode != "flat":
+                kwargs.update(mode=args.mode, coarse_n=args.coarse_n,
+                              level_decay=args.level_decay)
         res = run_partitioner(algo, g, args.k, seed=args.seed,
                               max_steps=args.max_steps,
                               n_blocks=args.n_blocks, device=args.device,

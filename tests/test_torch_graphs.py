@@ -69,3 +69,88 @@ def test_slab_row_ptr_rejects_unsorted_slabs():
     with pytest.raises(ValueError, match="padding"):
         blocking.slab_row_ptr(np.array([[0, 0, 1, 0]], np.int32),
                               np.array([[1, 0, 1, 0]], np.float32), 4)
+
+
+# the sorted-key merge primitives of the streaming subsystem and the
+# contraction primitives of the V-cycle, on the same inputs
+def _keys_case(rng, n=200, m=900):
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    return n, src, dst
+
+
+def _case_encode(csr, rng):
+    n, src, dst = _keys_case(rng)
+    return (csr.encode_edge_keys(src, dst, n),
+            *csr.decode_edge_keys(csr.encode_edge_keys(src, dst, n), n))
+
+
+def _case_canonicalize(csr, rng):
+    n, src, dst = _keys_case(rng)
+    return (csr.canonicalize_edges(src, dst, n),
+            csr.canonicalize_edges(np.empty(0), np.empty(0), n))
+
+
+def _case_isin_merge_remove(csr, rng):
+    n, src, dst = _keys_case(rng)
+    keys = csr.canonicalize_edges(src, dst, n)
+    q = csr.canonicalize_edges(*_keys_case(rng)[1:], n)
+    hit = csr.sorted_isin(keys, q)
+    return (hit, csr.sorted_isin(np.empty(0, np.int64), q),
+            csr.merge_sorted_keys(keys, q[~hit]), csr.remove_sorted_keys(keys, q[hit]))
+
+
+def _case_graph_from_sorted_state(csr, rng):
+    n, src, dst = _keys_case(rng)
+    dir_keys = csr.canonicalize_edges(src, dst, n)
+    sym_keys = np.unique(np.concatenate([dir_keys, (dir_keys % n) * n + dir_keys // n]))
+    sym_w = rng.integers(1, 3, sym_keys.size).astype(np.float32)
+    return dataclasses.astuple(csr.graph_from_sorted_state(n, dir_keys, sym_keys, sym_w))
+
+
+def _case_matching_and_contraction(csr, rng):
+    g = csr.build_graph(*_keys_case(rng, 300, 2400)[1:], 300)
+    cmap, n_coarse = csr.heavy_edge_matching(g)
+    coarse, self_w = csr.contract_graph(g, cmap, n_coarse)
+    cmap2, n2 = csr.heavy_edge_matching(coarse)   # weights past 2 now
+    return (cmap, n_coarse, *dataclasses.astuple(coarse), self_w, cmap2, n2,
+            *dataclasses.astuple(csr.contract_graph(coarse, cmap2, n2)[0]))
+
+
+@pytest.mark.parametrize("case", [_case_encode, _case_canonicalize, _case_isin_merge_remove,
+                                  _case_graph_from_sorted_state,
+                                  _case_matching_and_contraction],
+                         ids=lambda f: f.__name__[6:])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_copied_csr_functions_match_reference(case, seed):
+    from repro.graphs import csr as jax_csr
+
+    from repro_torch.graphs import csr
+
+    got = case(csr, np.random.default_rng(seed))
+    want = case(jax_csr, np.random.default_rng(seed))
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype, i
+            np.testing.assert_array_equal(a, b, err_msg=str(i))
+        else:
+            assert a == b, i
+
+
+def test_edge_split_matches_reference():
+    g = datasets.load_dataset("WIKI", scale=SCALE)
+    for a, b in zip(generators.edge_split(g), jax_generators.edge_split(g)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_check_integer_weights_holds_the_span_kernels_contract():
+    rows = np.array([[0, 0, 1, 2, 0, 0]], np.int32)
+    ptr = blocking.slab_row_ptr(rows, np.array([[1, 2, 1, 1, 0, 0]], np.float32), 3)
+    blocking.check_integer_weights(np.array([[1e4, 2, 7, 1, 0, 0]], np.float32), ptr)
+    with pytest.raises(ValueError, match="not an integer"):
+        blocking.check_integer_weights(np.array([[1, 2.5, 1, 1, 0, 0]], np.float32), ptr)
+    # row 0's two weights sum to 2^31: past the int32 sums
+    with pytest.raises(ValueError, match="2\\^31"):
+        blocking.check_integer_weights(np.array([[2.0 ** 30, 2.0 ** 30, 1, 1, 0, 0]],
+                                                np.float32), ptr)

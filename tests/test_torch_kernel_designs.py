@@ -36,7 +36,13 @@ from repro.kernels import ops as jops
 from repro.kernels.edge_histogram import edge_histogram_pallas
 from repro.kernels.la_update import la_update_pallas
 
-from repro_torch.core.device_graph import SPAN_EDGES, SPAN_ROWS, SpanPlan, prepare_device_graph
+from repro_torch.core.device_graph import (
+    SPAN_EDGES,
+    SPAN_ROWS,
+    SpanPlan,
+    device_graph_from_numpy,
+    prepare_device_graph,
+)
 from repro_torch.graphs import load_dataset
 from repro_torch.graphs.blocking import slab_row_ptr, slab_span_plan
 from repro_torch.core.la import split_weights_and_signals
@@ -330,6 +336,63 @@ def test_gather_form_matches_pallas_on_gathered_labels(nb, block_v, k):
     emulated = span_edge_histogram(dst, vals, row_ptr, plan.spans, plan.hubs,
                                    block_v=block_v, k=k, labels=labels)
     np.testing.assert_array_equal(emulated.numpy(), np.asarray(pallas))
+
+
+# --------------------------------------------------------------------------
+# K1 and K3 on a contracted V-cycle level's weights
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("form", ["self_lambda", "neighbor_lambda", "slots", "gather"])
+@pytest.mark.parametrize("k", [3, 8, 64])
+def test_span_sums_are_exact_on_contracted_level_weights(form, k):
+    """Integer weights up to 10^4, the range a contracted level holds, in
+    K1's two weight modes and K3's two forms, under 16-entry, 4-row spans
+    (hub rows of 150 entries in ten pieces): the emulated span sums are
+    bit-equal to the plain versions."""
+    rng = np.random.default_rng(50 + k)
+    block_v = 96
+    dst, rows, vals, labels, lam, actions, feasible = hub_slab(
+        rng, 2, block_v, k, {3: 150, 40: 150, 41: 17})
+    vals = np.where(vals > 0, rng.integers(1, 10_001, vals.shape), 0).astype(np.float32)
+    assert vals.max() > 9000
+    row_ptr = slab_row_ptr(rows, vals, block_v)
+    plan = SpanPlan.from_row_ptr(row_ptr, "cpu", span_edges=16, row_cap=4)
+    t = {n: torch.from_numpy(a) for n, a in dict(
+        dst=dst, rows=rows, vals=vals, labels=labels, lam=lam, actions=actions,
+        feasible=feasible, row_ptr=row_ptr).items()}
+    if form in edge_phase.WEIGHT_MODES:
+        got = span_edge_phase(t["dst"], t["vals"], t["row_ptr"], plan.spans, plan.hubs,
+                              t["labels"], t["lam"], t["actions"], t["feasible"],
+                              block_v=block_v, k=k, weight_mode=form)
+        want = edge_phase.fused_edge_phase_plain(
+            t["dst"], t["rows"], t["vals"], t["labels"], t["lam"], t["actions"],
+            t["feasible"], block_v=block_v, k=k, weight_mode=form)
+    else:
+        slots = t["labels"][t["dst"].long()]
+        idx, lab = (slots, None) if form == "slots" else (t["dst"], t["labels"])
+        got = (span_edge_histogram(idx, t["vals"], t["row_ptr"], plan.spans, plan.hubs,
+                                   block_v=block_v, k=k, labels=lab),)
+        want = (edge_histogram.edge_histogram_plain(slots, t["rows"], t["vals"],
+                                                    block_v=block_v, k=k),)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+def test_a_layout_past_the_int32_sums_raises():
+    """A slab whose row 0 sums to 2^31 or more breaks the span kernels'
+    int32 sums: building the layout raises, so no kernel ever sees it."""
+    dg = prepare_device_graph(load_dataset("WIKI", scale=0.0005), n_blocks=2, device="cpu")
+    arrays = {f: (getattr(dg, f).numpy().copy() if isinstance(getattr(dg, f), torch.Tensor)
+                  else getattr(dg, f))
+              for f in ("n", "n_pad", "m", "n_blocks", "block_v", "e_max", "dir_src",
+                        "dir_dst", "blk_dst", "blk_row", "blk_w", "deg_out", "inv_wsum",
+                        "vmask")}
+    first = int(dg.blk_row_ptr[0, 1])
+    assert first >= 2
+    arrays["blk_w"][0, :first] = 2.0 ** 30
+    with pytest.raises(ValueError, match="2\\^31"):
+        device_graph_from_numpy(arrays, "cpu")
+    arrays["blk_w"][0, 1:first] = 1.0    # 2^30 + first - 1 stays below
+    device_graph_from_numpy(arrays, "cpu")
 
 
 # --------------------------------------------------------------------------

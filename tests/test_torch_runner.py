@@ -131,7 +131,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     {"trace": object()},
     {"checkpoint_dir": "ckpt"},
     {"guard": "raise"},
-    {"mode": "vcycle"},
+    {"resume": True},
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values())))[:12])
 def test_unported_options_raise(kwargs):
     g = load_dataset("WIKI", scale=0.0005)
