@@ -102,17 +102,17 @@ failure raises and the script exits non-zero without printing a result:
               Spinner and 8 times a restream superstep, nothing else; the
               balance gate and local_edges > 1/k); per delta the merge
               seconds on the host, the refine seconds and supersteps/s
- 11d. vcycle  the level stack of phase 8's graph built on the host, each
-              level's largest weight and row weight sum printed; K1 (every
-              block, both weight modes) and K3's gather form (all blocks)
-              on the layouts of level 1, a middle level and the coarsest,
-              bit-equal to the plain versions (summed in f64 where a row
-              sum passes 2^24), two calls bit-equal; then
-              ``run_partitioner("revolver", WIKI, k=8, mode="vcycle")``:
+ 11d. vcycle  ``run_partitioner("revolver", WIKI, k=8, mode="vcycle")``:
               level sizes, block counts, budgets and steps per level, the
               coarsening seconds on the host, K1 and K2 once per block and
               superstep summed over the levels (nothing else), the same
-              quality gates, beside phase 10's flat run
+              quality gates, beside phase 10's flat run; then, on the
+              level stack that run coarsened, each level's largest weight
+              and row weight sum printed, and K1 (every block, both weight
+              modes) and K3's gather form (all blocks) on the layouts of
+              level 1, a middle level and the coarsest, bit-equal to the
+              plain versions (summed in f64 where a row sum passes 2^24),
+              two calls bit-equal
  12. serve    ``Engine.generate`` on tinyllama-1.1b (batch 8, 1024-token
               prompts, 128 new tokens, greedy), with every launch counter set
               to 0 just before and read just after: K4 once per layer, K5
@@ -138,6 +138,29 @@ failure raises and the script exits non-zero without printing a result:
               call counted (2 from one chunk on, 1 below); all five timed as
               in phase 13 (no single PyTorch call computes the recurrence,
               so it has no yardstick)
+ 16. crash-safety  (after 15, before 11c/11d) tracing, checkpoints, resume
+              and the state guard on Revolver's main path: a layout of
+              phase 8's graph built anew; ``run_partitioner`` (k 8,
+              sync_every 5) plain, then traced with ``Tracer()``,
+              checkpointed every 10 supersteps and guarded
+              (``guard="raise"``): labels and supersteps bit-equal, K1 and
+              K2 8 times a superstep, the same blocking fetches (the
+              runner's ``fetch`` calls) and synchronizing CUDA calls
+              (torch's sync debug mode) as the plain run, the saved trace
+              valid under ``tools/trace_report.py --validate`` (run as a
+              program); both and a traced-only run timed in turns; a run
+              cut at superstep 20 and resumed: resumed_from 20, bit-equal;
+              ``nan@superstep=8`` under each guard policy (raise raises
+              PartitionStateError, reinit ends in range and finite,
+              rollback replays to the plain run's labels). Its legs off
+              the full graph run while phase 8 waits for the host build: a
+              SIGKILL and resume through the CLI at WIKI 0.01
+              (``tools/torch_kill_resume_check.py``, exit -9, bit-equal);
+              a Revolver stream of 8 deltas at WIKI 0.1 checkpointed every
+              2, dropped after delta 4 and resumed in a new ``StreamRunner``:
+              labels, probs and supersteps bit-equal to the uninterrupted
+              stream. K2 keeps a NaN in its row as the plain version does
+              (checked with K2 in phases 3 and 9)
 
 Each model phase starts after the previous model is deleted and the
 allocator's cache emptied, with the peak memory statistics reset.
@@ -149,6 +172,7 @@ line; the last line is
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import itertools
@@ -456,16 +480,27 @@ def k2_agrees(torch, p, w, r, what: str) -> float:
 
 
 def check_k2(torch, dev, v: int, k: int, seed: int):
-    """K2 against its plain version on dense random [v, k] inputs; returns
-    the inputs and the error."""
+    """K2 against its plain version on dense random [v, k] inputs, and on
+    the same with a NaN in row 0; returns the inputs and the error."""
     from repro_torch.core.la import split_weights_and_signals
+    from repro_torch.kernels import la_update
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     p = torch.rand((v, k), generator=gen, device=dev) + 0.01
     p = p / p.sum(-1, keepdim=True)
     w_raw = torch.randint(0, 6, (v, k), generator=gen, device=dev).float()
     w, r = split_weights_and_signals(w_raw)
-    return (p, w, r), k2_agrees(torch, p, w, r, f"[{v},{k}] random")
+    err = k2_agrees(torch, p, w, r, f"[{v},{k}] random")
+    # a NaN stays in its row, as in the plain version: the state guard
+    # finds a corrupt row by it
+    p_nan = p.clone()
+    p_nan[0, 0] = float("nan")
+    got = torch.isnan(la_update.la_update_cuda(p_nan, w, r, 1.0, 0.1))
+    want = torch.isnan(la_update.la_update_plain(p_nan, w, r, 1.0, 0.1))
+    require(torch.equal(got, want) and bool(got[0].all()) and not bool(got[1:].any()),
+            f"K2 [{v},{k}]: a NaN in row 0 gives NaNs at {got.nonzero().tolist()[:8]}, "
+            f"the plain version at {want.nonzero().tolist()[:8]}")
+    return (p, w, r), err
 
 
 def capture_k2_inputs(torch, dg, steps: int = 2):
@@ -957,52 +992,311 @@ def check_level_kernels(torch, np, lvl: int, lg, seed: int) -> dict:
 
 
 def vcycle_phase(torch, np, ops, g, flat: dict) -> dict:
-    """Phase 11d: the level stack built once on the host, each level's
-    largest weight and row weight sum printed, and K1 and K3 held against
-    their plain versions on the layouts of level 1, a middle level and the
-    coarsest (`check_level_kernels`); then ``run_partitioner("revolver",
-    WIKI, 8, mode="vcycle")`` through the entry point a user calls, every
-    launch counter set to 0 just before and read just after: K1 and K2
-    launch once per block and superstep, summed over the levels, nothing
-    else. Metrics recomputed on the host; printed beside phase 10's flat
-    run."""
-    from repro_torch.core import run_partitioner
-    from repro_torch.core.multilevel import DEFAULT_COARSE_N, build_level_stack
+    """Phase 11d: ``run_partitioner("revolver", WIKI, 8, mode="vcycle")``
+    through the entry point a user calls, every launch counter set to 0
+    just before and read just after: K1 and K2 launch once per block and
+    superstep, summed over the levels, nothing else. Metrics recomputed on
+    the host; printed beside phase 10's flat run. Then, on the level stack
+    that run coarsened (kept by wrapping `build_level_stack` for the run),
+    each level's largest weight and row weight sum printed, and K1 and K3
+    held against their plain versions on the layouts of level 1, a middle
+    level and the coarsest (`check_level_kernels`)."""
+    from repro_torch.core import multilevel, run_partitioner
+
+    # the level stack the V-cycle coarsens is kept for the kernel checks
+    # (building it a second time took 113-143 s on the host)
+    stacks = []
+    build_level_stack = multilevel.build_level_stack
+
+    def build_and_keep(*args, **kwargs):
+        graphs, cmaps = build_level_stack(*args, **kwargs)
+        stacks.append(graphs)
+        return graphs, cmaps
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    multilevel.build_level_stack = build_and_keep
+    t = time.perf_counter()
+    try:
+        res = run_partitioner("revolver", g, K, seed=SEED, n_blocks=N_BLOCKS, mode="vcycle")
+        torch.cuda.synchronize()
+    finally:
+        multilevel.build_level_stack = build_level_stack
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    vc = res.vcycle
+    require(len(stacks) == 1 and len(vc["level_n_vertices"]) == len(stacks[0])
+            and vc["level_n_vertices"] == [lg.n for lg in stacks[0]],
+            f"vcycle: level sizes {vc['level_n_vertices']}, the kept stack's "
+            f"{[[lg.n for lg in st] for st in stacks]}")
+    launches = sum(b * s for b, s in zip(vc["level_n_blocks"], vc["steps_per_level"]))
+    expect_launches(counts, {n: launches for n in PARTITIONER_KERNELS}, "vcycle")
 
     t = time.perf_counter()
-    graphs, _ = build_level_stack(g, DEFAULT_COARSE_N)
-    stack_s = time.perf_counter() - t
+    graphs = stacks.pop()
     weights = [level_weights(np, lg) for lg in graphs]
     top = len(graphs) - 1
     checked = [check_level_kernels(torch, np, lvl, graphs[lvl], SEED + lvl)
                for lvl in (sorted({1, max(1, top // 2), top}) if top else [])]
     del graphs
-    check_s = time.perf_counter() - t - stack_s
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t = time.perf_counter()
-    res = run_partitioner("revolver", g, K, seed=SEED, n_blocks=N_BLOCKS, mode="vcycle")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    counts = ops.launch_counts()
-    vc = res.vcycle
-    require(len(vc["level_n_vertices"]) == top + 1,
-            f"vcycle: {len(vc['level_n_vertices'])} levels, the checked stack {top + 1}")
-    launches = sum(b * s for b, s in zip(vc["level_n_blocks"], vc["steps_per_level"]))
-    expect_launches(counts, {n: launches for n in PARTITIONER_KERNELS}, "vcycle")
+    check_s = time.perf_counter() - t
     host_metrics(np, g, res)
     require(res.local_edges > 0.5, f"vcycle local_edges {res.local_edges} <= 0.5")
     require(res.max_norm_load <= 1.30, f"vcycle max_norm_load {res.max_norm_load} > 1.30")
     return {"algo": "revolver", "k": K, "seed": SEED, **vc,
             "level_max_weight": [w for w, _ in weights],
             "level_max_row_weight_sum": [s for _, s in weights],
-            "level_kernel_checks": checked, "stack_s": stack_s, "level_check_s": check_s,
+            "level_kernel_checks": checked, "level_check_s": check_s,
             "fine_steps": res.steps, "total_supersteps": sum(vc["steps_per_level"]),
             "local_edges": res.local_edges, "max_norm_load": res.max_norm_load,
             "wall_s": wall, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "launches": counts, "flat": flat}
+
+
+def counted_run(torch, ops, runner_mod, g, **kw):
+    """``run_partitioner("revolver", g, K, **kw)`` with every launch counter
+    set to 0 just before and read just after, the run's blocking fetches
+    counted two ways: calls of the runner's `fetch` (through which every
+    window fetch goes) and the synchronizing CUDA calls torch's sync debug
+    mode warns about. Returns (result, wall seconds, launches, fetches,
+    synchronizing calls, {source line: synchronizing calls})."""
+    import warnings
+
+    calls = [0]
+    real = runner_mod.fetch
+
+    def counting(groups):
+        calls[0] += 1
+        return real(groups)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    runner_mod.fetch = counting
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t = time.perf_counter()
+            try:
+                res = runner_mod.run_partitioner("revolver", g, K, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        runner_mod.fetch = real
+    sites = collections.Counter("/".join(pathlib.Path(w.filename).parts[-2:]) + f":{w.lineno}"
+                                for w in caught if "synchroniz" in str(w.message))
+    return res, wall, ops.launch_counts(), calls[0], sum(sites.values()), dict(sites)
+
+
+def crash_safety_phase(torch, np, ops, g, dg) -> dict:
+    """Phase 16: tracing, checkpoints, resume and the state guard on
+    Revolver's main path (``g`` and its layout ``dg``, k 8, sync_every 5),
+    on ``dg``'s device. Every check raises. Returns the phase's row."""
+    import shutil
+
+    from repro_torch import faults
+    from repro_torch.core import runner as runner_mod
+    from repro_torch.core.runner import PartitionStateError
+    from repro_torch.obs import Tracer
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_crash_safety"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dev = dg.device.type
+    common = dict(seed=SEED, n_blocks=N_BLOCKS, dg=dg, sync_every=5, device=dev)
+    per_step = {n: N_BLOCKS for n in PARTITIONER_KERNELS}
+    out = {}
+
+    # a counted superstep first, so that both counted runs find the device
+    # scalars the runner caches (their creation synchronizes once), and the
+    # one synchronizing call torch makes in a process's first debug-mode
+    # window (from torch/cuda/__init__.py) falls outside them
+    counted_run(torch, ops, runner_mod, g, max_steps=1, **common)
+
+    # 1. reference: untraced, no checkpoints
+    ref, wall1, counts1, fetch1, sync1, sites1 = counted_run(torch, ops, runner_mod, g,
+                                                             **common)
+    expect_launches(counts1, {n: c * ref.steps for n, c in per_step.items()}, "reference run")
+    host_metrics(np, g, ref)
+    out["reference"] = {"steps": ref.steps, "wall_s": wall1,
+                        "supersteps_per_s": ref.steps / wall1, "fetches": fetch1,
+                        "synchronizing_calls": sync1, "synchronizing_sites": sites1,
+                        "local_edges": ref.local_edges}
+
+    # 2. the same run traced, checkpointed every 10 supersteps and guarded
+    tracer = Tracer()
+    ckpt = work / "traced"
+    res, wall2, counts2, fetch2, sync2, sites2 = counted_run(
+        torch, ops, runner_mod, g, trace=tracer, checkpoint_dir=str(ckpt),
+        checkpoint_every=10, guard="raise", **common)
+    require(np.array_equal(res.labels, ref.labels) and res.steps == ref.steps,
+            f"traced run: {res.steps} supersteps, labels equal "
+            f"{np.array_equal(res.labels, ref.labels)} (reference {ref.steps})")
+    # supersteps/s in turns on this card: plain (run 1), full (run 2), then
+    # traced only, traced only, full, plain
+    walls = {"plain": [wall1], "traced_only": [], "full": [wall2]}
+    for kind in ("traced_only", "traced_only", "full", "plain"):
+        extra = {"traced_only": dict(trace=Tracer()),
+                 "full": dict(trace=Tracer(), checkpoint_dir=str(work / "turns"),
+                              checkpoint_every=10, guard="raise"),
+                 "plain": {}}[kind]
+        walls[kind].append(counted_run(torch, ops, runner_mod, g, **extra, **common)[1])
+    out["turns"] = {kind: {"wall_s": w, "supersteps_per_s": [ref.steps / x for x in w]}
+                    for kind, w in walls.items()}
+    require(fetch2 == fetch1 and sync2 == sync1,
+            f"traced run fetched {fetch2} times ({sync2} synchronizing calls), "
+            f"the reference {fetch1} ({sync1}); synchronizing calls by line, "
+            f"reference {sites1}, traced {sites2}")
+    expect_launches(counts2, {n: c * res.steps for n, c in per_step.items()}, "traced run")
+    trace_path = work / "trace.json"
+    tracer.save(str(trace_path))
+    check = subprocess.run([sys.executable, str(ROOT / "tools" / "trace_report.py"),
+                            str(trace_path), "--validate"],
+                           capture_output=True, text=True, timeout=300)
+    require(check.returncode == 0, f"trace_report --validate: {check.stdout}{check.stderr}")
+    summary = tracer.summary()
+    saves = [e for e in tracer.events if e["name"] == "checkpoint-save" and e["ph"] == "X"]
+    # a save is skipped (not waited for) while two writes are in flight
+    require(1 <= len(saves) <= ref.steps // 10 and saves[0]["args"]["bytes"] > 0,
+            f"{len(saves)} checkpoint saves in {ref.steps} supersteps")
+    out["traced"] = {
+        "steps": res.steps, "wall_s": wall2, "supersteps_per_s": res.steps / wall2,
+        "fetches": fetch2, "synchronizing_calls": sync2,
+        "cost_vs_reference": wall2 / wall1 - 1.0,
+        "trace_validate": check.stdout.strip(),
+        "span_counts": {k: v["count"] for k, v in summary["spans"].items()},
+        "snapshot_bytes": saves[0]["args"]["bytes"],
+        "save_snapshot_s": [e["dur"] / 1e6 for e in tracer.events
+                            if e["name"] == "checkpoint-snapshot" and e["ph"] == "X"],
+        "save_enqueue_s": [e["dur"] / 1e6 for e in saves],
+        "save_snapshot_wait_s": [v for _, v in tracer.series["checkpoint_wait_s"]],
+        "save_writer_s": [v for _, v in tracer.series["checkpoint_write_s"]],
+        "migrations_first_last": [tracer.series["migrations"][0][1],
+                                  tracer.series["migrations"][-1][1]]}
+
+    # 3. cut at superstep 20, then resume with the default budget
+    cut_dir = work / "cut"
+    runner_mod.run_partitioner("revolver", g, K, max_steps=20, checkpoint_dir=str(cut_dir),
+                               checkpoint_every=10, **common)
+    resumed_trace = Tracer()
+    t = time.perf_counter()
+    res = runner_mod.run_partitioner("revolver", g, K, checkpoint_dir=str(cut_dir),
+                                     checkpoint_every=10, resume=True, trace=resumed_trace,
+                                     **common)
+    torch.cuda.synchronize()
+    resume_wall = time.perf_counter() - t
+    require(res.resumed_from == 20, f"resumed from {res.resumed_from}, expected 20")
+    require(np.array_equal(res.labels, ref.labels) and res.steps == ref.steps,
+            f"resumed run: {res.steps} supersteps, labels equal "
+            f"{np.array_equal(res.labels, ref.labels)} (reference {ref.steps})")
+    restore = [e["dur"] / 1e6 for e in resumed_trace.events
+               if e["name"] == "checkpoint-restore" and e["ph"] == "X"]
+    require(len(restore) == 1, f"{len(restore)} checkpoint restores in the resumed run")
+    out["resume"] = {"resumed_from": res.resumed_from, "steps": res.steps,
+                     "restore_s": restore[0], "wall_s": resume_wall}
+
+    # 4. the guard under each policy, NaN probabilities after superstep 8
+    guard = {}
+    with faults.use_plan("nan@superstep=8"):
+        try:
+            runner_mod.run_partitioner("revolver", g, K, guard="raise", **common)
+            raised = False
+        except PartitionStateError:
+            raised = True
+    require(raised, "guard='raise' did not raise PartitionStateError")
+    guard["raise"] = "PartitionStateError"
+    with faults.use_plan("nan@superstep=8"):
+        res = runner_mod.run_partitioner("revolver", g, K, guard="reinit", keep_probs=True,
+                                         **common)
+    require(res.labels.min() >= 0 and res.labels.max() < K and np.isfinite(res.probs).all(),
+            "guard='reinit' left labels out of range or probs non-finite")
+    guard["reinit"] = {"steps": res.steps, "local_edges": res.local_edges}
+    with faults.use_plan("nan@superstep=8"):
+        res = runner_mod.run_partitioner("revolver", g, K, guard="rollback",
+                                         checkpoint_dir=str(work / "rollback"),
+                                         checkpoint_every=5, **common)
+    same = bool(np.array_equal(res.labels, ref.labels))
+    guard["rollback"] = {"steps": res.steps, "labels_equal_reference": same}
+    require(res.labels.min() >= 0 and res.labels.max() < K,
+            "guard='rollback' left labels out of range")
+    # the generator rewinds with the state, so the replay draws what the
+    # first pass drew (`repro` gives the same on the CPU at WIKI 0.002)
+    require(same and res.steps == ref.steps + 5,
+            f"rollback: labels equal the reference {same}, {res.steps} supersteps "
+            f"(reference {ref.steps} + the 5 replayed)")
+    out["guard"] = guard
+
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def crash_safety_side_legs(torch, np, dev: str = "cuda", *, kill_scale: float = 0.01,
+                           stream_scale: float = 0.1) -> dict:
+    """Phase 16's legs off the full graph: a SIGKILL and resume through the
+    CLI at WIKI ``kill_scale`` (`tools/torch_kill_resume_check.py`, a
+    subprocess) and a Revolver stream at WIKI ``stream_scale``
+    checkpointed every 2 deltas, dropped after delta 4 and resumed in a new
+    `StreamRunner`, against the uninterrupted stream. Every check raises.
+    Returns the legs' row."""
+    import shutil
+
+    from repro_torch.graphs import load_dataset
+    from repro_torch.streaming import StreamConfig, StreamRunner, stream_from_graph
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_side_legs"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+
+    # a real SIGKILL and resume through the CLI, at WIKI kill_scale
+    t = time.perf_counter()
+    kill = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "torch_kill_resume_check.py"), "--device",
+         dev, "--scale", str(kill_scale), "--k", str(K), "--seed", str(SEED),
+         "--max-steps", "290", "--kill-at", "12", "--checkpoint-every", "4",
+         "--sync-every", "4"], capture_output=True, text=True, timeout=600)
+    lines = kill.stdout.strip().splitlines()
+    require(kill.returncode == 0 and lines and lines[-1] == "PASS",
+            f"kill-and-resume at WIKI {kill_scale}: {kill.stdout}{kill.stderr}")
+    out["sigkill"] = {"scale": kill_scale, "report": lines, "seconds": time.perf_counter() - t}
+
+    # a stream checkpointed every 2 deltas, dropped after delta 4 and
+    # resumed in a new runner, against the uninterrupted stream
+    t = time.perf_counter()
+    gs = load_dataset("WIKI", scale=stream_scale, seed=SEED)
+    cfg = StreamConfig(k=K, refine_max_steps=15, refine_patience=3, sync_every=2)
+    deltas = list(stream_from_graph(gs, 8, seed=SEED))
+    plain = StreamRunner(gs.n, cfg, seed=SEED, device=dev)
+    plain.run(deltas)
+    sdir = str(work / "stream")
+    first = StreamRunner(gs.n, cfg, seed=SEED, device=dev, checkpoint_dir=sdir,
+                         checkpoint_every=2)
+    first.run(deltas[:4])
+    first.finish()
+    del first
+    second = StreamRunner(gs.n, cfg, seed=SEED, device=dev, checkpoint_dir=sdir,
+                          checkpoint_every=2, resume=True)
+    require(second.delta_base == 4, f"stream resumed at delta {second.delta_base}, expected 4")
+    second.run(deltas)
+    second.finish()
+    require(np.array_equal(second.labels, plain.labels)
+            and np.array_equal(second.probs, plain.probs)
+            and second.total_steps == plain.total_steps,
+            f"resumed stream: labels/probs equal {np.array_equal(second.labels, plain.labels)}"
+            f"/{np.array_equal(second.probs, plain.probs)}, supersteps "
+            f"{second.total_steps} vs {plain.total_steps}")
+    out["stream"] = {"scale": stream_scale, "n": gs.n, "m": gs.m, "deltas": len(deltas),
+                     "resumed_at": second.delta_base, "total_steps": plain.total_steps,
+                     "seconds": time.perf_counter() - t}
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def k3_timed(torch, dg, flush, seed: int) -> dict:
@@ -1809,6 +2103,11 @@ def main() -> int:
         del model, toks      # rebuilt from the seed for phase 14
     next_model(torch)
 
+    # 16 (its legs off the full graph, while the host build above runs on):
+    # a SIGKILL and resume through the CLI, and a checkpointed stream
+    emit({"phase": "crash-safety-side", "graph_built": "g" in built,
+          **crash_safety_side_legs(torch, np)})
+
     # 8. graph: full-size WIKI, host build (started above) then device layout
     t = time.perf_counter()
     graph_thread.join()
@@ -1972,6 +2271,18 @@ def main() -> int:
     records["wkv6"] = rec
     emit(rec)
     emit({"phase": "rwkv-kernel", "decode_shape": decode})
+
+    # 16. tracing, checkpoints, resume and the state guard on the main path,
+    # on phase 8's graph and a layout of it built anew (phase 8's was freed
+    # before the serving phases, whose peak memory it would otherwise hold)
+    next_model(torch)
+    t = time.perf_counter()
+    dg = prepare_device_graph(g, n_blocks=N_BLOCKS, device="cuda")
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t
+    emit({"phase": "crash-safety", "layout_s": layout_s,
+          **crash_safety_phase(torch, np, ops, g, dg)})
+    del dg
 
     # 11c. streaming repartitioning of phase 8's graph, through StreamRunner,
     # and 11d. the multilevel V-cycle on it. They run last: the card idles

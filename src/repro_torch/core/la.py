@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.device_graph import scalar_device
+
 _EPS = 1e-12
 
 
@@ -39,10 +41,12 @@ def classic_la_update(p: torch.Tensor, action: torch.Tensor, penalty: torch.Tens
 
 
 def _div(x, d: int, like: torch.Tensor) -> torch.Tensor:
-    """``x / d`` as an IEEE f32 division on ``like``'s device. CUDA turns a
-    division by a host scalar into a multiply by its reciprocal, which rounds
-    differently from the reference (and from the CUDA kernel)."""
-    return x / torch.tensor(float(d), dtype=like.dtype, device=like.device)
+    """``x / d`` as an IEEE f32 division on ``like``'s (f32) device. CUDA
+    turns a division by a host scalar into a multiply by its reciprocal,
+    which rounds differently from the reference (and from the CUDA kernel).
+    The divisor is the cached device scalar: uploading a new one on every
+    call synchronized the host with the card once a block."""
+    return x / scalar_device(float(d), like.device)
 
 
 def weighted_la_update(

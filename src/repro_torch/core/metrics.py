@@ -27,8 +27,11 @@ def moved_sums(src: torch.Tensor, dst: torch.Tensor, values: torch.Tensor,
 
 
 def partition_loads(labels: torch.Tensor, deg_out: torch.Tensor, k: int) -> torch.Tensor:
-    """b(l) = sum of outdegrees of vertices assigned to l (eq. 5); sums to |E|."""
-    return bin_sums(labels, deg_out, k)
+    """b(l) = sum of outdegrees of vertices assigned to l (eq. 5); sums to |E|.
+    A label outside [0, k) (a corrupt state the guard has yet to see)
+    counts in no partition, as `repro`'s segment sum drops it."""
+    ok = (labels >= 0) & (labels < k)
+    return bin_sums(torch.where(ok, labels, 0), deg_out * ok, k)
 
 
 def local_edges(labels: torch.Tensor, edge_src: torch.Tensor,

@@ -23,10 +23,13 @@ lands here:
      rules sharpen the carried labels into LA confidence
      (``vcycle_sharpen``).
 
-Every level runs the sequential schedule on one device. What `repro`
-records in its trace (level sizes, budgets, steps per level) the port
-returns in `PartitionResult.vcycle`, with each level's block count (from
-the layout it built) and the host seconds of the coarsening; tracing itself waits for ROADMAP queue 1 item 8.
+Every level runs the sequential schedule on one device. With ``trace=``
+the V-cycle records `repro`'s spans ("coarsen", "coarse-solve",
+"uncoarsen-level-<l>", each level's run nested inside), the
+``level_n_vertices`` counters and ``meta["vcycle"]``; the same level sizes,
+budgets and steps per level, with each level's block count (from the
+layout it built) and the host seconds of the coarsening, come back in
+`PartitionResult.vcycle` whether traced or not.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.device_graph import prepare_device_graph
 from repro_torch.core.registry import get_algorithm
 from repro_torch.graphs.csr import Graph, contract_graph, heavy_edge_matching
@@ -114,6 +118,7 @@ def run_vcycle(
     track_history: bool = True,
     sync_every: int = 1,
     keep_probs: bool = False,
+    trace=None,
     device="cuda",
     coarse_n: Optional[int] = None,
     level_decay: Optional[float] = None,
@@ -150,12 +155,18 @@ def run_vcycle(
     cfg = runner._make_cfg(algorithm.config_cls, k, max_steps, cfg_kwargs)
     budget_base = cfg.max_steps
     patience = cfg.patience
+    tracer = trace if trace is not None else obs.NULL_TRACER
 
     t = time.perf_counter()
-    graphs, cmaps = build_level_stack(graph, coarse_n)
+    with tracer.span("coarsen", coarse_n=coarse_n, n=graph.n):
+        graphs, cmaps = build_level_stack(graph, coarse_n)
     coarsen_s = time.perf_counter() - t
     n_levels = len(graphs)
-    common = dict(seed=seed, sync_every=sync_every, device=device, **cfg_kwargs)
+    if tracer.enabled:
+        for lvl, g in enumerate(graphs):
+            tracer.counter("level_n_vertices", g.n, step=lvl)
+    common = dict(seed=seed, sync_every=sync_every, device=device, trace=trace,
+                  **cfg_kwargs)
     fine = dict(track_history=track_history, keep_probs=keep_probs)
     level_blocks = {}
 
@@ -174,17 +185,21 @@ def run_vcycle(
         budgets = [budget_base]
     else:
         budgets = level_budgets(budget_base, n_levels, level_decay, patience)
-        res = runner.run_partitioner(algo, graphs[-1], k, max_steps=budgets[-1],
-                                     dg=layout(n_levels - 1), track_history=False,
-                                     **common)
+        with tracer.span("coarse-solve", level=n_levels - 1, n=graphs[-1].n,
+                         budget=budgets[-1]):
+            res = runner.run_partitioner(algo, graphs[-1], k, max_steps=budgets[-1],
+                                         dg=layout(n_levels - 1), track_history=False,
+                                         **common)
         steps = {n_levels - 1: res.steps}
         sharpen = vcycle_sharpen if algorithm.supports_probs else 0.0
         for lvl in range(n_levels - 2, -1, -1):
             projected = np.asarray(res.labels)[cmaps[lvl]]
-            res = runner.run_partitioner(
-                algo, graphs[lvl], k, max_steps=budgets[lvl], dg=layout(lvl),
-                init_labels=projected, init_sharpen=sharpen,
-                **(fine if lvl == 0 else dict(track_history=False)), **common)
+            with tracer.span(f"uncoarsen-level-{lvl}", n=graphs[lvl].n,
+                             budget=budgets[lvl]):
+                res = runner.run_partitioner(
+                    algo, graphs[lvl], k, max_steps=budgets[lvl], dg=layout(lvl),
+                    init_labels=projected, init_sharpen=sharpen,
+                    **(fine if lvl == 0 else dict(track_history=False)), **common)
             steps[lvl] = res.steps
     res.vcycle = {
         "level_n_vertices": [g.n for g in graphs],
@@ -193,4 +208,11 @@ def run_vcycle(
         "steps_per_level": [res.steps] if n_levels == 1 else [steps[i] for i in range(n_levels)],
         "coarsen_s": coarsen_s,
     }
+    if tracer.enabled and n_levels > 1:
+        tracer.meta.setdefault("vcycle", []).append({
+            "algo": algo, "k": k,
+            "level_n_vertices": res.vcycle["level_n_vertices"],
+            "budgets": budgets,
+            "steps_per_level": res.vcycle["steps_per_level"],
+        })
     return res

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import engine
 from repro_torch.core.device_graph import CAPACITY_MODES, DeviceGraph, scalar_device
 from repro_torch.core.lp import spinner_penalty, tau_term
@@ -157,9 +158,10 @@ def _restream_chunk_rule(cfg: RestreamConfig, ctx: engine.ChunkContext,
 
     # greedy objective against the freshest configuration (K3, one launch,
     # the neighbors' labels gathered in-kernel)
-    hist = ops.edge_histogram(ctx.e_dst[None], ctx.e_row[None], ctx.e_w[None],
-                              labels=labels, row_ptr=ctx.row_ptr[None], spans=ctx.spans,
-                              block_v=bv, k=k, integer_values=True)[0]
+    with obs.annotate("edge-phase", kernel="edge_histogram"):
+        hist = ops.edge_histogram(ctx.e_dst[None], ctx.e_row[None], ctx.e_w[None],
+                                  labels=labels, row_ptr=ctx.row_ptr[None], spans=ctx.spans,
+                                  block_v=bv, k=k, integer_values=True)[0]
     scores = tau_term(hist, ctx.inv_wsum) \
         - cfg.gamma * spinner_penalty(loads, cap)[None, :]
     bump = torch.nn.functional.one_hot(cur.long(), k).to(scores.dtype) * 1e-6

@@ -35,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import engine
 from repro_torch.core.device_graph import CAPACITY_MODES, DeviceGraph
 from repro_torch.core.la import split_weights_and_signals
@@ -218,10 +219,11 @@ def _revolver_chunk_rule(cfg: RevolverConfig, ctx: engine.ChunkContext,
     # one fused slab pass (K1); for self_lambda the second output is the
     # per-row (A, N) packing, finished below once lambda(v) exists
     feasible = (p_mig > 0).to(torch.float32)
-    hist, w_acc = ops.fused_edge_phase(
-        ctx.e_dst[None], ctx.e_row[None], ctx.e_w[None], labels, lam,
-        action[None], feasible[None], row_ptr=ctx.row_ptr[None],
-        spans=ctx.spans, block_v=bv, k=k, weight_mode=cfg.weight_mode)
+    with obs.annotate("edge-phase", kernel="fused_edge_phase"):
+        hist, w_acc = ops.fused_edge_phase(
+            ctx.e_dst[None], ctx.e_row[None], ctx.e_w[None], labels, lam,
+            action[None], feasible[None], row_ptr=ctx.row_ptr[None],
+            spans=ctx.spans, block_v=bv, k=k, weight_mode=cfg.weight_mode)
     hist, w_acc = hist[0], w_acc[0]
 
     scores = revolver_scores(hist, ctx.inv_wsum, loads, cap)
@@ -250,8 +252,9 @@ def _revolver_chunk_rule(cfg: RevolverConfig, ctx: engine.ChunkContext,
 
     # -- 6./7. reinforcement signals + weighted LA update ---------------------
     w_norm, r = split_weights_and_signals(w_raw)
-    new_probs = ops.la_update(probs, w_norm, r, cfg.alpha, cfg.beta,
-                              renorm=cfg.renorm)
+    with obs.annotate("la-update", kernel="la_update"):
+        new_probs = ops.la_update(probs, w_norm, r, cfg.alpha, cfg.beta,
+                                  renorm=cfg.renorm)
 
     return engine.ChunkUpdate(
         vert={"labels": new_lbl, "lam": lam_chunk},

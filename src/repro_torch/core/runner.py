@@ -6,28 +6,36 @@ consecutive steps (paper settings: theta=0.001, patience=5, max 290 steps).
 
 Host/device synchronization: reading a CUDA score as a Python float blocks
 on the device every superstep. The loop instead buffers the per-step score
-tensors and fetches them with one ``.tolist()`` every `sync_every`
-supersteps; with `track_history=True` the per-step `local_edges` /
-`max_norm_load` tensors are buffered and drained on the same window.
+tensors and fetches them with one `fetch` every `sync_every` supersteps;
+with `track_history=True` the per-step `local_edges` / `max_norm_load`
+tensors are buffered and drained on the same window, in one more `fetch`.
 Convergence is then detected up to `sync_every - 1` steps late;
 `sync_every=1` (the default) is exactly synchronous.
+
+Crash safety and observability ride those windows (see `run_partitioner`):
+tracing (`repro_torch.obs`), drain-window checkpoints and resume
+(`repro_torch.checkpoint`), the state guard, and the fault-injection hook
+(`repro_torch.faults`). With all of them on, a run issues exactly as many
+blocking fetches as with them off.
 
 ``mode="vcycle"`` runs the multilevel V-cycle (`repro_torch.core.multilevel`).
 
 What waits for later slices, and raises NotImplementedError when asked
 for: mesh / halo / hub / assignment knobs and non-sequential schedules
-(ROADMAP queue 1 item 9), tracing, checkpoints and the state guard
-(item 8).
+(ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import faults, obs
+from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.core import engine
 from repro_torch.core.device_graph import DeviceGraph, prepare_device_graph, resolve_device
 from repro_torch.core.metrics import local_edges, max_normalized_load
@@ -35,24 +43,21 @@ from repro_torch.core.registry import StaticAlgorithm, get_algorithm
 from repro_torch.core.revolver import make_generator
 from repro_torch.graphs.csr import Graph
 
+_log = logging.getLogger("repro_torch.core.runner")
+
+_ITEM9 = "queue 1 item 9 (multi-GPU schedules)"
 # run_partitioner keywords of `repro` that are not ported yet:
 # name -> (the value that means "off", the ROADMAP queue item that ports it)
 _UNPORTED = {
-    "chunk_schedule": ("sequential", "queue 1 item 9 (multi-GPU schedules)"),
-    "mesh": (None, "queue 1 item 9 (multi-GPU schedules)"),
-    "assignment": ("contiguous", "queue 1 item 9 (multi-GPU schedules)"),
-    "halo_threshold": (None, "queue 1 item 9 (multi-GPU schedules)"),
-    "halo_granularity": ("auto", "queue 1 item 9 (multi-GPU schedules)"),
-    "hub_replication": (False, "queue 1 item 9 (multi-GPU schedules)"),
-    "hub_quantile": (0.0, "queue 1 item 9 (multi-GPU schedules)"),
-    "hub_target_coverage": (None, "queue 1 item 9 (multi-GPU schedules)"),
-    "staleness_bound": (0, "queue 1 item 9 (multi-GPU schedules)"),
-    "trace": (None, "queue 1 item 8 (observability)"),
-    "checkpoint_dir": (None, "queue 1 item 8 (checkpoints)"),
-    "checkpoint_every": (0, "queue 1 item 8 (checkpoints)"),
-    "resume": (False, "queue 1 item 8 (checkpoints)"),
-    "keep_checkpoints": (2, "queue 1 item 8 (checkpoints)"),
-    "guard": ("off", "queue 1 item 8 (state guards)"),
+    "chunk_schedule": ("sequential", _ITEM9),
+    "mesh": (None, _ITEM9),
+    "assignment": ("contiguous", _ITEM9),
+    "halo_threshold": (None, _ITEM9),
+    "halo_granularity": ("auto", _ITEM9),
+    "hub_replication": (False, _ITEM9),
+    "hub_quantile": (0.0, _ITEM9),
+    "hub_target_coverage": (None, _ITEM9),
+    "staleness_bound": (0, _ITEM9),
 }
 
 
@@ -69,6 +74,29 @@ def reject_unported(kwargs: dict, unported: dict, where: str) -> None:
                 f"ROADMAP {item}")
 
 
+class PartitionStateError(RuntimeError):
+    """The drain-window state guard found corrupt partitioner state
+    (non-finite LA probabilities or out-of-range labels) under the
+    ``guard="raise"`` policy, or a recovery policy could not be applied
+    (e.g. rollback with no usable checkpoint)."""
+
+
+def fetch(groups: Dict[str, List[torch.Tensor]]) -> Dict[str, List[float]]:
+    """One blocking device->host transfer: every 0-dim tensor of every
+    group, as Python floats per group (f32 scores and metrics, counts and
+    booleans are exact as f64). The convergence loop and the drain make
+    every window fetch through here, so counting its calls counts the
+    run's blocking fetches."""
+    names = [n for n, ts in groups.items() if ts]
+    values = torch.cat([torch.stack(groups[n]).reshape(-1).to(torch.float64)
+                        for n in names]).tolist()
+    out, i = {}, 0
+    for n in names:
+        out[n] = values[i:i + len(groups[n])]
+        i += len(groups[n])
+    return out
+
+
 @dataclasses.dataclass
 class PartitionResult:
     algo: str
@@ -83,6 +111,10 @@ class PartitionResult:
     probs: Optional[np.ndarray] = None  # [n_blocks, block_v, k] final LA state
                                         # (keep_probs=True only; feeds warm
                                         # restarts)
+    resumed_from: int = 0               # global superstep of the checkpoint
+                                        # this run resumed from (0 = fresh);
+                                        # `steps` counts from superstep 0
+                                        # either way
     vcycle: Optional[dict] = None       # mode="vcycle": level sizes, budgets,
                                         # steps per level, coarsening seconds
 
@@ -98,36 +130,60 @@ def run_convergence_loop(
     on_step=None,
     on_score=None,
     on_drain=None,
+    tracer=None,
+    step0: int = 0,
     prev_score: float = -np.inf,
     stall: int = 0,
 ):
     """Drive `step_fn` with the paper's score-stall halting (Section IV-D
     step 9): stop after `patience` consecutive steps whose score improves by
     less than `theta`. Scores are fetched in `sync_every`-sized windows (see
-    module docstring).
+    module docstring). Shared by `run_partitioner` and the streaming
+    `StreamRunner` so the halting semantics cannot drift.
 
     `on_step(state)` fires after every superstep; `on_score(float)` for
     every fetched score, in step order (including the steps past the
     detected convergence point within the window); `on_drain(state, steps,
-    prev_score, stall)` once per fetched window, after its scores. It may
-    return a dict with any of ``state`` / ``prev_score`` / ``stall`` to
-    replace the loop's state (which also clears a convergence detected in
-    that window).
+    prev_score, stall)` once per fetched window, after its scores, with the
+    loop's halting state (so a checkpoint written there resumes exactly).
+    It may return a dict with any of ``state`` / ``prev_score`` / ``stall``
+    to replace the loop's state (the guard's recovery; it also clears a
+    convergence detected in that window).
+
+    `prev_score` / `stall` seed the halting state (a resumed run passes what
+    its checkpoint recorded); `step0` offsets the superstep numbering of the
+    spans and the fault-injection points to the global step index.
+
+    Fault injection (`repro_torch.faults`): after each superstep the loop
+    checks the ``superstep`` point with the global step index — a kill plan
+    SIGKILLs here, a poison plan corrupts the state (for guard testing).
+    One early-returning call when no plan is active.
+
+    `tracer` (a `repro_torch.obs.Tracer`; default no-op) records one
+    "superstep" span per executed step (its dispatch) and a "device-sync"
+    span per window fetch, which is where the device time of a window
+    accrues. Tracing changes no fetch cadence.
 
     Returns (state, steps_executed, converged).
     """
+    tracer = tracer if tracer is not None else obs.NULL_TRACER
     converged = False
     steps = 0
     pending: list = []
     for step in range(max_steps):
-        state = step_fn(state)
+        with tracer.span("superstep", step=step0 + step):
+            state = step_fn(state)
+        act = faults.fire("superstep", step0 + step)
+        if act is not None:
+            state = faults.poison(state, act)
         steps = step + 1
         pending.append(state.score)
         if on_step is not None:
             on_step(state)
         if len(pending) < sync_every and steps < max_steps:
             continue
-        scores = torch.stack(pending).tolist()     # one host sync per window
+        with tracer.span("device-sync", steps=len(pending), what="scores"):
+            scores = fetch({"score": pending})["score"]
         for score in scores:
             if on_score is not None:
                 on_score(score)
@@ -147,7 +203,7 @@ def run_convergence_loop(
                 state = replace.get("state", state)
                 prev_score = replace.get("prev_score", prev_score)
                 stall = replace.get("stall", stall)
-                converged = False
+                converged = False   # scores from corrupt state don't count
         if converged:
             break
     return state, steps, converged
@@ -169,13 +225,16 @@ def _make_cfg(cls, k: int, max_steps: Optional[int], cfg_kwargs: dict):
 
 
 def _run_static(algorithm: StaticAlgorithm, graph: Graph, k: int,
-                dg: DeviceGraph, t0: float) -> PartitionResult:
+                dg: DeviceGraph, t0: float, tracer) -> PartitionResult:
     """A static baseline: no supersteps; the metrics on the padded labels,
     as `repro` computes them."""
     labels = torch.zeros((dg.n_pad,), dtype=torch.int32, device=dg.device)
     labels[:graph.n] = algorithm.partition(graph.n, k, dg.device)
     le = float(local_edges(labels, dg.dir_src, dg.dir_dst))
     ml = float(max_normalized_load(labels[:graph.n], dg.deg_out[:graph.n], k))
+    if tracer.enabled:
+        tracer.counter("local_edges", le, step=0)
+        tracer.counter("max_norm_load", ml, step=0)
     return PartitionResult(
         algo=algorithm.name, k=k, labels=labels[:graph.n].cpu().numpy(),
         steps=0, converged=True, local_edges=le, max_norm_load=ml,
@@ -183,15 +242,159 @@ def _run_static(algorithm: StaticAlgorithm, graph: Graph, k: int,
         wall_s=time.time() - t0)
 
 
-def _check_vcycle_args(algo, static, cfg_kwargs, dg, init_labels, init_probs,
-                       init_sharpen, draws) -> None:
+# ---------------------------------------------------------------------------
+# crash safety: checkpointed resume (`repro`'s docs/fault-tolerance.md)
+# ---------------------------------------------------------------------------
+def _state_to_original(state) -> dict:
+    """Checkpoint view of a state: every field by name. The port's layout
+    is contiguous, so original vertex order is storage order and the
+    per-vertex and per-block fields are taken as they are. The generator
+    is state too: its ``get_state()`` bytes (CPU ``uint8``; 16 bytes for a
+    CUDA generator, whose Philox offset advances when a draw is enqueued,
+    so the bytes taken at a window drain match the draws already
+    enqueued), and the step a 0-dim int64."""
+    out = {name: getattr(state, name) for name in state._fields}
+    out["gen"] = state.gen.get_state()
+    out["step"] = torch.tensor(state.step, dtype=torch.int64)
+    return out
+
+
+def _state_from_original(algo, tree: dict, device):
+    """Inverse of `_state_to_original`: a state NamedTuple with a fresh
+    generator on ``device`` set to the saved bytes."""
+    out = dict(tree)
+    gen = torch.Generator(device=device)
+    gen.set_state(out["gen"])
+    out["gen"] = gen
+    out["step"] = int(out["step"])
+    return algo.state_cls(**out)
+
+
+class _CheckpointManager:
+    """Drain-window checkpointing for `run_partitioner`.
+
+    Saves ride the existing ``sync_every`` drain windows: the state is
+    snapshotted into pinned host buffers by non-blocking copies enqueued
+    just before the window's bundled `fetch`, whose sync covers them (zero
+    additional blocking fetches), then written by an async writer thread
+    while the loop keeps dispatching. Waiting on the previous handles
+    before a new save is due (at most two in flight) and at run end both
+    orders the atomic renames and re-raises write failures.
+    """
+
+    def __init__(self, ckpt_dir, every, keep, algorithm, dg, meta, tracer):
+        self.dir = ckpt_dir
+        self.every = every
+        self.keep = keep
+        self.algorithm = algorithm
+        self.dg = dg
+        self.meta = meta
+        self.tracer = tracer
+        self.last_saved = 0
+        self.saved = 0
+        self._handles: list = []
+
+    def _reap(self, block: bool = False):
+        """Collect finished writer threads, re-raising any write failure.
+        Non-blocking unless `block` — the loop must never stall on an
+        fsync."""
+        alive = []
+        for h in self._handles:
+            if block or h.done():
+                h.wait()
+                if self.tracer.enabled:
+                    self.tracer.counter("checkpoint_wait_s", h.wait_s)
+                    self.tracer.counter("checkpoint_write_s", h.write_s)
+            else:
+                alive.append(h)
+        self._handles = alive
+
+    def busy(self) -> bool:
+        """True when the disk is falling behind (two writes already in
+        flight); the due save is skipped rather than blocking the loop —
+        the next drain window picks it up."""
+        self._reap()
+        return len(self._handles) >= 2
+
+    def due(self, global_steps: int) -> bool:
+        return self.every > 0 and global_steps - self.last_saved >= self.every
+
+    def snapshot(self, state) -> ckpt_store.Snapshot:
+        return ckpt_store.Snapshot(_state_to_original(state))
+
+    def save(self, global_steps: int, snap, prev_score, stall):
+        meta = dict(self.meta, steps=global_steps,
+                    prev_score=float(prev_score), stall=int(stall),
+                    converged=bool(stall >= self.meta.get("patience", 1 << 30)))
+        with self.tracer.span("checkpoint-save", step=global_steps, bytes=snap.nbytes):
+            self._handles.append(ckpt_store.save_checkpoint(
+                self.dir, global_steps, snap, async_save=True,
+                meta=meta, keep=self.keep))
+        self.last_saved = global_steps
+        self.saved += 1
+        if self.tracer.enabled:
+            self.tracer.counter("checkpoints_saved", float(self.saved),
+                                step=global_steps)
+
+    def finish(self):
+        self._reap(block=True)
+
+    # -- restore ---------------------------------------------------------- #
+
+    def restore_latest(self, like_state):
+        """Restore the newest usable checkpoint, falling back past corrupt
+        or incompatible ones. Returns ``(state, steps, prev_score, stall,
+        converged)`` or None when no checkpoint is usable."""
+        for step in reversed(ckpt_store.all_steps(self.dir)):
+            try:
+                return self._restore(step, like_state)
+            except (ckpt_store.CheckpointError, ValueError, KeyError) as e:
+                _log.warning(
+                    "checkpoint step %d in %s unusable (%s); trying the "
+                    "previous one", step, self.dir, e)
+        return None
+
+    def _restore(self, step, like_state):
+        manifest = ckpt_store.load_manifest(self.dir, step)
+        meta = manifest.get("meta", {})
+        for field in ("algo", "k", "n", "m"):
+            if field in meta and field in self.meta \
+                    and meta[field] != self.meta[field]:
+                raise ValueError(
+                    f"checkpoint step {step} was written by a different run: "
+                    f"{field}={meta[field]!r} vs this run's "
+                    f"{self.meta[field]!r}")
+        # the random state is not shared across device types (nor with
+        # `repro`, whose checkpoints carry a threefry key and no device_type)
+        if meta.get("device_type") != self.meta["device_type"]:
+            raise ValueError(
+                f"checkpoint step {step} was written by a different run: "
+                f"device_type={meta.get('device_type')!r} vs this run's "
+                f"{self.meta['device_type']!r}")
+        like = _state_to_original(like_state)
+        with self.tracer.span("checkpoint-restore", step=step):
+            tree = ckpt_store.restore_checkpoint(self.dir, step, like)
+            state = _state_from_original(self.algorithm, tree, self.dg.device)
+        if self.tracer.enabled:
+            self.tracer.instant("resumed", step=step)
+        return (state, int(meta.get("steps", step)),
+                float(meta.get("prev_score", -np.inf)),
+                int(meta.get("stall", 0)), bool(meta.get("converged", False)))
+
+
+_GUARD_POLICIES = ("off", "raise", "rollback", "reinit")
+_GUARD_ALIASES = {"rollback-to-last-checkpoint": "rollback",
+                  "reinit-affected-vertices": "reinit"}
+
+
+def _check_vcycle_args(algo, static, dg, init_labels, init_probs,
+                       init_sharpen, draws, checkpoint_dir, resume, guard) -> None:
     """`repro`'s argument errors of ``mode="vcycle"``."""
     if static:
         raise TypeError(
             f"{algo!r} runs no supersteps; mode='vcycle' refines through "
             "warm starts")
-    if (cfg_kwargs.get("checkpoint_dir") is not None or cfg_kwargs.get("resume", False)
-            or cfg_kwargs.get("guard", "off") != "off"):
+    if checkpoint_dir is not None or resume or guard != "off":
         raise ValueError(
             "mode='vcycle' is incompatible with checkpointing/resume/"
             "guard; its per-level runs are short — checkpoint a flat "
@@ -222,6 +425,12 @@ def run_partitioner(
     init_probs: Optional[np.ndarray] = None,
     init_sharpen: float = 0.0,
     keep_probs: bool = False,
+    trace=None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    keep_checkpoints: int = 2,
+    guard: str = "off",
     device="cuda",
     draws=None,
     mode: str = "flat",
@@ -247,7 +456,30 @@ def run_partitioner(
     bit on one device type.
 
     The static baselines (``"hash"``, ``"range"``) run no supersteps: they
-    take no config kwargs and no warm-start arguments (TypeError).
+    take no config kwargs, no warm-start arguments and neither checkpoints
+    nor the guard (TypeError).
+
+    `trace` (a `repro_torch.obs.Tracer`; default off) records the run into a
+    perfetto-exportable trace: a "run-partitioner" root span, the layout
+    build, one span per superstep, the rules' "edge-phase" / "la-update"
+    dispatch spans, the window fetches, kernel builds, and per-superstep
+    counter series (`local_edges`, `max_norm_load`, `migrations`) that ride
+    the existing fetch windows. With tracing off results are bit-identical.
+
+    Crash safety (`repro`'s docs/fault-tolerance.md): `checkpoint_dir` +
+    `checkpoint_every=N` snapshot the whole algorithm state (every field,
+    the generator's state included, plus the host-side score-stall
+    counters) at the first drain window N or more supersteps after the
+    last save; the snapshot's copies ride the window's fetch and the disk
+    write is async. `resume=True` restores the newest usable checkpoint
+    (corrupt ones, and ones written by another run or on another device
+    type, are skipped; none at all is a fresh run) and continues: a killed
+    and resumed run is bit-identical to an uninterrupted one with the same
+    arguments on the same device type. `keep_checkpoints` bounds the
+    checkpoints on disk. `guard` checks state sanity (finite probs,
+    in-range labels) at each drain window: "off" (default) | "raise" |
+    "rollback"/"rollback-to-last-checkpoint" (the generator rewinds with
+    the rest of the state) | "reinit"/"reinit-affected-vertices".
 
     ``mode="vcycle"`` runs the multilevel V-cycle
     (`repro_torch.core.multilevel`): coarsen by heavy-edge matching down to
@@ -262,12 +494,30 @@ def run_partitioner(
     t0 = time.time()
     algorithm = get_algorithm(algo)
     static = isinstance(algorithm, StaticAlgorithm)
+    if sync_every < 1:
+        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    guard = _GUARD_ALIASES.get(guard, guard)
+    if guard not in _GUARD_POLICIES:
+        raise ValueError(
+            f"unknown guard policy {guard!r}; expected one of "
+            f"{_GUARD_POLICIES} (or a long alias {tuple(_GUARD_ALIASES)})")
+    if checkpoint_every < 0:
+        raise ValueError(
+            f"checkpoint_every must be >= 0, got {checkpoint_every}")
+    if checkpoint_dir is None and (checkpoint_every > 0 or resume):
+        raise ValueError("checkpoint_every/resume need a checkpoint_dir")
+    if guard == "rollback" and checkpoint_dir is None:
+        raise ValueError("guard='rollback' needs a checkpoint_dir")
     # chunk_schedule is a config kwarg in `repro`, the other unported
     # options are run_partitioner keywords
     config_keys = set(cfg_kwargs) - (set(_UNPORTED) - {"chunk_schedule"})
     if static and config_keys:
         raise TypeError(f"{algo!r} runs no supersteps; it takes no config "
                         f"kwargs (got {sorted(config_keys)})")
+    if static and (checkpoint_dir is not None or guard != "off"):
+        raise TypeError(
+            f"{algo!r} runs no supersteps; checkpointing and the state guard "
+            "are meaningless")
     if mode not in ("flat", "vcycle"):
         raise ValueError(f"mode={mode!r} is not one of ('flat', 'vcycle')")
     if mode != "vcycle" and (coarse_n is not None or level_decay is not None
@@ -276,11 +526,9 @@ def run_partitioner(
             "coarse_n/level_decay/vcycle_sharpen are only meaningful with "
             "mode='vcycle'")
     if mode == "vcycle":
-        _check_vcycle_args(algo, static, cfg_kwargs, dg, init_labels,
-                           init_probs, init_sharpen, draws)
+        _check_vcycle_args(algo, static, dg, init_labels, init_probs,
+                           init_sharpen, draws, checkpoint_dir, resume, guard)
     reject_unported(cfg_kwargs, _UNPORTED, "run_partitioner")
-    if sync_every < 1:
-        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
     dev = resolve_device(device)
     if mode == "vcycle":
         from repro_torch.core import multilevel
@@ -288,19 +536,51 @@ def run_partitioner(
         return multilevel.run_vcycle(
             algo, graph, k, seed=seed, n_blocks=n_blocks, max_steps=max_steps,
             track_history=track_history, sync_every=sync_every,
-            keep_probs=keep_probs, device=dev, coarse_n=coarse_n,
+            keep_probs=keep_probs, trace=trace, device=dev, coarse_n=coarse_n,
             level_decay=level_decay, vcycle_sharpen=vcycle_sharpen,
             cfg_kwargs=cfg_kwargs)
+    tracer = trace if trace is not None else obs.NULL_TRACER
+    with obs.use(tracer), \
+            tracer.span("run-partitioner", algo=algo, k=k, schedule="sequential",
+                        n=graph.n, m=graph.m):
+        result = _run_partitioner_traced(
+            tracer, algorithm, static, algo, graph, k, t0, dev,
+            seed=seed, n_blocks=n_blocks, max_steps=max_steps,
+            track_history=track_history, dg=dg, sync_every=sync_every,
+            init_labels=init_labels, init_probs=init_probs,
+            init_sharpen=init_sharpen, keep_probs=keep_probs, draws=draws,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            resume=resume, keep_checkpoints=keep_checkpoints, guard=guard,
+            cfg_kwargs=cfg_kwargs)
+    if tracer.enabled:
+        # run manifest: trace_report --validate checks one superstep span
+        # per executed step against this (resumed steps ran in an earlier
+        # process — only the steps executed here have spans)
+        tracer.meta.setdefault("runs", []).append({
+            "algo": algo, "k": k, "schedule": "sequential",
+            "steps": result.steps - result.resumed_from})
+    return result
+
+
+def _run_partitioner_traced(
+    tracer, algorithm, static, algo: str, graph: Graph, k: int, t0: float, dev,
+    *, seed, n_blocks, max_steps, track_history, dg, sync_every, init_labels,
+    init_probs, init_sharpen, keep_probs, draws, checkpoint_dir,
+    checkpoint_every, resume, keep_checkpoints, guard, cfg_kwargs,
+) -> PartitionResult:
+    """Body of `run_partitioner`, running under `obs.use(tracer)` inside the
+    root span (split out so the traced scope covers every early return)."""
     if not static:
         cfg = _make_cfg(algorithm.config_cls, k, max_steps, cfg_kwargs)
     elif init_labels is not None or init_probs is not None or init_sharpen:
         raise TypeError(f"{algo!r} is stateless; warm-start args are meaningless")
-    if dg is None:
-        dg = prepare_device_graph(graph, n_blocks=n_blocks, device=dev)
-    elif dg.device.type != dev.type:
-        raise ValueError(f"dg lives on {dg.device}, but device={device!r}")
+    with tracer.span("prepare-layout", schedule="sequential"):
+        if dg is None:
+            dg = prepare_device_graph(graph, n_blocks=n_blocks, device=dev)
+        elif dg.device.type != dev.type:
+            raise ValueError(f"dg lives on {dg.device}, but device={dev.type!r}")
     if static:
-        return _run_static(algorithm, graph, k, dg, t0)
+        return _run_static(algorithm, graph, k, dg, t0, tracer)
 
     if not algorithm.supports_probs and (init_probs is not None or init_sharpen):
         raise TypeError(
@@ -322,44 +602,197 @@ def run_partitioner(
             raise TypeError("init_sharpen requires init_labels")
         state = algorithm.init(dg, cfg, gen)
 
+    # ---- crash safety: checkpoint manager + resume -----------------------
+    ckpt = None
+    if checkpoint_dir is not None:
+        run_meta = {"kind": "partition", "algo": algo, "k": k, "n": graph.n,
+                    "m": graph.m, "schedule": "sequential", "seed": seed,
+                    "sync_every": sync_every, "patience": cfg.patience,
+                    "device_type": dg.device.type}
+        ckpt = _CheckpointManager(checkpoint_dir, checkpoint_every,
+                                  keep_checkpoints, algorithm, dg, run_meta,
+                                  tracer)
+    start_step, start_prev_score, start_stall = 0, -np.inf, 0
+    resumed_converged = False
+    if resume:
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            (state, start_step, start_prev_score, start_stall,
+             resumed_converged) = restored
+            ckpt.last_saved = start_step
+        # no checkpoint yet -> a fresh run (so the same command line works
+        # for the first launch and every relaunch)
+
     history: Dict[str, List[float]] = {"local_edges": [], "max_norm_load": [], "score": []}
     # per-step metric tensors stay on the device and are drained on the
     # same sync_every window as the scores
     pending_le: List[torch.Tensor] = []
     pending_ml: List[torch.Tensor] = []
+    pending_mig: List[torch.Tensor] = []
+    step_ts: List[float] = []    # dispatch timestamp per buffered step, so
+                                 # drained counters are back-dated to the
+                                 # superstep that produced them
+    drained = [start_step]       # global index of the next drained step
 
-    def step_fn(s):
+    def base_step(s):
         return engine.superstep(algorithm, dg, cfg, s, draws=draws)
+
+    if tracer.enabled:
+        def step_fn(s):
+            # the superstep updates labels in place: clone them before the
+            # dispatch to count migrations as a device-side reduction,
+            # drained with the window
+            prev = s.labels.clone()
+            s2 = base_step(s)
+            pending_mig.append(((s2.labels != prev) & dg.vmask).sum())
+            return s2
+    else:
+        step_fn = base_step
+
+    collect = track_history or tracer.enabled
 
     def on_step(s):
         pending_le.append(local_edges(s.labels, dg.dir_src, dg.dir_dst))
         pending_ml.append(max_normalized_load(s.labels, dg.deg_out, k))
+        if tracer.enabled:
+            step_ts.append(tracer.now_us())
 
-    def on_drain(s, loop_steps, prev_score, stall):
-        history["local_edges"].extend(torch.stack(pending_le).tolist())
-        history["max_norm_load"].extend(torch.stack(pending_ml).tolist())
+    def drain_metrics(dstate, loop_steps, prev_score, stall):
+        # one bundled fetch per window, traced or not; the guard's checks
+        # ride it, and the snapshot's copies are enqueued before it, so
+        # crash safety adds no blocking fetch
+        gsteps = start_step + loop_steps
+        groups = {"le": pending_le, "ml": pending_ml, "mig": pending_mig}
+        checks = []
+        if guard != "off":
+            lab = dstate.labels
+            checks.append(("labels", torch.all(torch.where(
+                dg.vmask, (lab >= 0) & (lab < cfg.k), True))))
+            if algorithm.supports_probs:
+                checks.append(("probs", torch.isfinite(dstate.probs).all()))
+            groups["guard"] = [c for _, c in checks]
+        save_due = ckpt is not None and ckpt.due(gsteps) and not ckpt.busy()
+        snap = None
+        if save_due:
+            with tracer.span("checkpoint-snapshot", step=gsteps):
+                snap = ckpt.snapshot(dstate)
+        fetched = {}
+        if any(groups.values()):
+            with tracer.span("device-sync", steps=len(pending_le), what="metrics"):
+                fetched = fetch(groups)
+        le_v, ml_v = fetched.get("le", []), fetched.get("ml", [])
+        mig_v = fetched.get("mig", [])
+        if track_history:
+            history["local_edges"].extend(le_v)
+            history["max_norm_load"].extend(ml_v)
+        if tracer.enabled:
+            for i in range(len(le_v)):
+                step = drained[0] + i
+                ts = step_ts[i] if i < len(step_ts) else None
+                tracer.counter("local_edges", le_v[i], step=step, ts=ts)
+                tracer.counter("max_norm_load", ml_v[i], step=step, ts=ts)
+                if i < len(mig_v):
+                    tracer.counter("migrations", mig_v[i], step=step, ts=ts)
+        drained[0] += len(le_v)
         pending_le.clear()
         pending_ml.clear()
+        pending_mig.clear()
+        step_ts.clear()
 
-    state, steps, converged = run_convergence_loop(
-        step_fn, state,
-        max_steps=cfg.max_steps, patience=cfg.patience, theta=cfg.theta,
-        sync_every=sync_every,
-        on_step=on_step if track_history else None,
-        on_score=history["score"].append if track_history else None,
-        on_drain=on_drain if track_history else None,
-    )
+        bad = [name for (name, _), ok in zip(checks, fetched.get("guard", []))
+               if not ok]
+        if bad:
+            return _handle_guard_violation(bad, gsteps)
+        if save_due:
+            ckpt.save(gsteps, snap, prev_score, stall)
+        return None
 
-    if track_history and history["local_edges"]:
-        le, ml = history["local_edges"][-1], history["max_norm_load"][-1]
+    def _handle_guard_violation(bad, gsteps):
+        # never checkpoint a corrupt state — the save for this window is
+        # skipped no matter which recovery policy runs
+        desc = ("non-finite probs" if "probs" in bad
+                else "out-of-range labels")
+        tracer.instant("guard-violation", step=gsteps, checks=",".join(bad))
+        tracer.counter("guard_violations", 1)
+        _log.warning("state guard tripped at step %d: %s", gsteps, desc)
+        if guard == "raise":
+            raise PartitionStateError(
+                f"state guard tripped at step {gsteps}: {desc}")
+        if guard == "rollback":
+            restored = ckpt.restore_latest(state)
+            if restored is None:
+                raise PartitionStateError(
+                    f"state guard tripped at step {gsteps} ({desc}) and no "
+                    f"usable checkpoint exists in {checkpoint_dir} to roll "
+                    f"back to")
+            r_state, r_step, r_prev, r_stall, _ = restored
+            tracer.instant("rollback", from_step=gsteps, to_step=r_step)
+            _log.warning("rolled back to checkpoint step %d", r_step)
+            # loop step counting continues forward; only the halting state
+            # and the state (its generator included) rewind
+            return {"state": r_state, "prev_score": r_prev, "stall": r_stall}
+        # reinit-affected-vertices: repair on the device — clamp labels into
+        # range, rebuild loads from the repaired labels, and reset any
+        # non-finite prob rows to uniform
+        s = state_box[0]
+        labels = torch.clamp(s.labels, 0, cfg.k - 1)
+        fix = {"labels": labels, "loads": engine.loads_from_labels(dg, cfg.k, labels)}
+        if algorithm.supports_probs:
+            flat = s.probs.reshape(dg.n_pad, cfg.k)
+            row_ok = torch.isfinite(flat).all(dim=1, keepdim=True)
+            uniform = torch.full_like(flat, 1.0 / cfg.k)
+            fix["probs"] = torch.where(row_ok, flat, uniform).reshape(s.probs.shape)
+        tracer.instant("reinit", step=gsteps)
+        _log.warning("reinitialized affected vertices at step %d", gsteps)
+        return {"state": s._replace(**fix), "prev_score": -np.inf, "stall": 0}
+
+    # the reinit path needs the loop's current state object (drain_metrics
+    # receives it); a one-slot box keeps the closure simple
+    state_box = [state]
+
+    def on_drain(dstate, loop_steps, prev_score, stall):
+        state_box[0] = dstate
+        return drain_metrics(dstate, loop_steps, prev_score, stall)
+
+    need_drain = collect or ckpt is not None or guard != "off"
+    remaining = cfg.max_steps - start_step
+    if resumed_converged or remaining <= 0:
+        # nothing left to run: the checkpoint already recorded the outcome
+        # (hitting max_steps without a stall is converged=False, same as an
+        # uninterrupted run)
+        loop_steps, converged = 0, resumed_converged
     else:
-        le = float(local_edges(state.labels, dg.dir_src, dg.dir_dst))
-        ml = float(max_normalized_load(state.labels, dg.deg_out, k))
-    probs = None
-    if keep_probs and algorithm.supports_probs:
-        probs = state.probs.cpu().numpy()
+        state, loop_steps, converged = run_convergence_loop(
+            step_fn, state,
+            max_steps=remaining, patience=cfg.patience, theta=cfg.theta,
+            sync_every=sync_every,
+            on_step=on_step if collect else None,
+            on_score=history["score"].append if track_history else None,
+            on_drain=on_drain if need_drain else None,
+            tracer=tracer,
+            step0=start_step, prev_score=start_prev_score, stall=start_stall,
+        )
+    if ckpt is not None:
+        ckpt.finish()
+    steps = start_step + loop_steps
+
+    # the final step's local_edges / max_norm_load already came back through
+    # the windowed drain when history or tracing is on
+    with tracer.span("device-sync", what="result"):
+        if track_history and history["local_edges"]:
+            le, ml = history["local_edges"][-1], history["max_norm_load"][-1]
+        elif tracer.enabled and tracer.series.get("local_edges"):
+            le = tracer.series["local_edges"][-1][1]
+            ml = tracer.series["max_norm_load"][-1][1]
+        else:
+            le = float(local_edges(state.labels, dg.dir_src, dg.dir_dst))
+            ml = float(max_normalized_load(state.labels, dg.deg_out, k))
+        probs = None
+        if keep_probs and algorithm.supports_probs:
+            probs = state.probs.cpu().numpy()
+        labels = state.labels[: graph.n].cpu().numpy()
     return PartitionResult(
-        algo=algo, k=k, labels=state.labels[: graph.n].cpu().numpy(),
-        steps=steps, converged=converged, local_edges=le, max_norm_load=ml,
-        history=history, wall_s=time.time() - t0, probs=probs,
+        algo=algo, k=k, labels=labels, steps=steps, converged=converged,
+        local_edges=le, max_norm_load=ml, history=history,
+        wall_s=time.time() - t0, probs=probs, resumed_from=start_step,
     )

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import engine
 from repro_torch.core.device_graph import CAPACITY_MODES, DeviceGraph
 from repro_torch.core.lp import spinner_scores
@@ -110,9 +111,10 @@ def _spinner_shard_rule(cfg: SpinnerConfig, ctx: engine.ShardContext,
 
     # eq. (3) histogram over every slab at once (K3, one launch, the
     # neighbors' labels gathered in-kernel)
-    hist = ops.edge_histogram(ctx.blk_dst, ctx.blk_row, ctx.blk_w, labels=labels_g,
-                              row_ptr=ctx.blk_row_ptr, spans=ctx.blk_spans,
-                              block_v=ctx.block_v, k=k, integer_values=True)
+    with obs.annotate("edge-phase", kernel="edge_histogram"):
+        hist = ops.edge_histogram(ctx.blk_dst, ctx.blk_row, ctx.blk_w, labels=labels_g,
+                                  row_ptr=ctx.blk_row_ptr, spans=ctx.blk_spans,
+                                  block_v=ctx.block_v, k=k, integer_values=True)
     scores = spinner_scores(hist.view(ctx.local_n, k), ctx.inv_wsum, loads, cap)
     # prefer the current label on ties (Spinner keeps vertices in place)
     bump = torch.nn.functional.one_hot(labels.long(), k).to(scores.dtype) * 1e-6

@@ -21,6 +21,9 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
+
+from repro_torch import obs
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -133,11 +136,19 @@ def build(names=KERNELS) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The bound library of kernel ``name``, built first if needed."""
+    """The bound library of kernel ``name``, built first if needed; a
+    compile event (`repro_torch.obs.record_compile`, region = the kernel's
+    name) is recorded on its first use in a process when a tracer is
+    current."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build((name,))
+            t0 = time.perf_counter()
+            built = bool(build((name,)))
+            # the port's counterpart of a jit compile: the kernel's first use
+            # in this process (an nvcc build, or a cached library's load)
+            obs.record_compile(name, kernel=name, built=built,
+                               seconds=time.perf_counter() - t0)
             lib = ctypes.CDLL(str(library_path(name)))
             fn = getattr(lib, f"{name}_launch")
             fn.argtypes = _ARGTYPES[name]

@@ -152,7 +152,9 @@ la_update_kernel(const float* __restrict__ p_in, const float* __restrict__ w_in,
 #pragma unroll
     for (int j = 0; j < KMAX; ++j) {
       if (j < k) {
-        p[j] = fminf(fmaxf(p[j], 1e-12f), 1.f);
+        // clamp to [1e-12, 1] as torch.clamp does: a NaN stays NaN (an
+        // fmaxf would make it 1e-12 and hide a corrupt row from the guard)
+        p[j] = p[j] < 1e-12f ? 1e-12f : (p[j] > 1.f ? 1.f : p[j]);
         total = __fadd_rn(total, p[j]);
       }
     }

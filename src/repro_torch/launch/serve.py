@@ -5,8 +5,9 @@
 
 `--arch` takes the ported archs: the dense decoders (tinyllama-1.1b,
 stablelm-1.6b) and rwkv6-3b. `--device` defaults to cuda and fails without a CUDA device. Parameters and
-prompts are drawn from `--seed`; `--ckpt-dir` (restoring `repro`
-checkpoints) is not ported yet.
+prompts are drawn from `--seed`; `--ckpt-dir D` then replaces the
+parameters with the ``params`` tree of D's newest checkpoint (the store's
+format, as `repro`'s trainer writes it; bf16 leaves included).
 """
 from __future__ import annotations
 
@@ -15,9 +16,11 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import latest_step, load_checkpoint_tensors, unflatten
 from repro_torch.configs.registry import get_config
 from repro_torch.core.device_graph import resolve_device
 from repro_torch.models import init_lm
+from repro_torch.models.convert import lm_params_from_numpy
 from repro_torch.serve import Engine
 
 
@@ -35,16 +38,21 @@ def main(argv=None):
                     help="torch device to run on (cuda or cpu)")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoints are not ported yet; they come with "
-            "ROADMAP queue 1 item 8")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = init_lm(cfg, gen, dev)
+    if args.ckpt_dir:
+        step = latest_step(args.ckpt_dir)
+        if step is not None:
+            tree = unflatten(load_checkpoint_tensors(args.ckpt_dir, step, dev))
+            if "params" not in tree:
+                raise ValueError(f"checkpoint step {step} in {args.ckpt_dir} holds no "
+                                 f"params tree (keys: {sorted(tree)})")
+            model = lm_params_from_numpy(cfg, tree["params"], dev)
+            print(f"restored params from step {step}")
     eng = Engine(cfg, model, s_max=args.prompt_len + args.max_new)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=dev, dtype=torch.int32)

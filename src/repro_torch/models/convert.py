@@ -3,8 +3,9 @@
 `repro` keeps an LM's parameters as a nested dict whose block leaves carry
 a stacked ``[L, ...]`` layer axis (built with ``jax.vmap``) and whose dense
 weights are ``[d_in, d_out]``. `lm_params_from_numpy` takes that tree with
-numpy leaves (``jax.device_get(params)``), of a dense decoder or of an
-RWKV6 model, and returns the port's `Decoder` or `RWKV`, which computes
+numpy leaves (``jax.device_get(params)``) or tensor leaves (a checkpoint
+read by `repro_torch.checkpoint`), of a dense decoder or of an RWKV6 model,
+and returns the port's `Decoder` or `RWKV`, which computes
 what `repro` computes from them.
 """
 from __future__ import annotations
@@ -24,7 +25,11 @@ from repro_torch.models.transformer import Block, Decoder, check_ported
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
     """A copy of ``a`` on ``device``. bf16 arrays (``ml_dtypes``, which
-    `torch.from_numpy` refuses) go through a uint16 view of their bits."""
+    `torch.from_numpy` refuses) go through a uint16 view of their bits; a
+    tensor (a checkpoint leaf the store already rebuilt) is moved as it
+    is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)

@@ -298,6 +298,39 @@ class IncrementalDeviceGraph:
             self._fill(g, int(blk))
         info.dirty_blocks = int(len(dirty))
         self._upload(dirty, info.repadded)
+        return self._assemble(g), info
+
+    def restore(self, dir_keys: np.ndarray, sym_keys: np.ndarray, sym_w: np.ndarray,
+                blk_dst: np.ndarray, blk_row: np.ndarray, blk_w: np.ndarray,
+                deltas_applied: int) -> DeviceGraph:
+        """Rebuild the state a checkpoint recorded: the sorted edge arrays
+        and the host slabs (``e_max`` follows their width). The row pointer
+        is derived from the slabs and the span plan from the row pointer,
+        as every delta derives them; every slab is uploaded anew."""
+        if blk_dst.shape[0] != self.n_blocks or not (
+                blk_dst.shape == blk_row.shape == blk_w.shape):
+            raise ValueError(
+                f"stream checkpoint slab shapes {blk_dst.shape}/{blk_row.shape}/"
+                f"{blk_w.shape} do not fit {self.n_blocks} blocks")
+        inc = self.inc
+        inc.dir_keys = dir_keys.astype(np.int64)
+        inc.sym_keys = sym_keys.astype(np.int64)
+        inc.sym_w = sym_w.astype(np.float32)
+        inc.deltas_applied = deltas_applied
+        self.e_max = int(blk_dst.shape[1])
+        self._blk_dst = blk_dst.astype(np.int32)
+        self._blk_row = blk_row.astype(np.int32)
+        self._blk_w = blk_w.astype(np.float32)
+        self._row_ptr = slab_row_ptr(self._blk_row, self._blk_w, self.block_v)
+        check_integer_weights(self._blk_w, self._row_ptr)
+        self.graph = inc.to_graph()
+        self._upload(np.arange(self.n_blocks), True)
+        return self._assemble(self.graph)
+
+    def _assemble(self, g: Graph) -> DeviceGraph:
+        """The `DeviceGraph` of the device slabs and row pointer, with the
+        span plan derived from the host row pointer and ``g``'s per-vertex
+        arrays uploaded."""
         dev = self.device
         vert = {f: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for f, a in vertex_arrays(g, self.n_pad).items()}
@@ -306,7 +339,7 @@ class IncrementalDeviceGraph:
             block_v=self.block_v, e_max=self.e_max,
             blk_spans=SpanPlan.from_row_ptr(self._row_ptr, dev),
             **self._dev, **vert)
-        return self.device_graph, info
+        return self.device_graph
 
     def _upload(self, dirty: np.ndarray, repadded: bool) -> None:
         """Bring the device slabs and row pointer up to the host's: all of

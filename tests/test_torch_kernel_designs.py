@@ -483,6 +483,22 @@ def test_the_la_kernel_hoists_the_floor_out_of_its_passes():
     assert "pen_floor[j] = __fdiv_rn(__fmul_rn(beta, w[j]), km1);" in src
 
 
+def test_the_la_kernel_clamp_keeps_a_nan():
+    """K2 clamps to [1e-12, 1] by comparisons, which keep a NaN as
+    torch.clamp (the plain version, and the emulation above) does: fmaxf
+    would turn it into 1e-12 and hide a corrupt row from the state guard."""
+    src = (pathlib.Path(la_update.__file__).parent / "csrc" / "la_update.cu").read_text()
+    renorm = src[src.index("if (renorm)"):]
+    assert "fmaxf(" not in renorm and "fminf(" not in renorm
+    assert "p[j] = p[j] < 1e-12f ? 1e-12f : (p[j] > 1.f ? 1.f : p[j]);" in renorm
+    p, w, r = la_inputs(3, 9, 5, False)
+    p[0, 2] = float("nan")
+    got = hoisted_la_update(p, w, r, 1.0, 0.1)
+    want = la_update.la_update_plain(p, w, r, 1.0, 0.1)
+    assert torch.isnan(got[0]).all() and torch.isnan(want[0]).all()
+    assert torch.isfinite(got[1:]).all() and torch.isfinite(want[1:]).all()
+
+
 # --------------------------------------------------------------------------
 # K6: the chunk-parallel prefill and the spread decode, emulated
 # --------------------------------------------------------------------------

@@ -310,10 +310,16 @@ def test_unported_model_features_raise(overrides, item):
         init_cache(cfg, 1, 8, "cpu")
 
 
-def test_serve_cli_refuses_checkpoints_and_unported_archs():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+def test_serve_cli_refuses_checkpoints_and_unported_archs(tmp_path):
+    """``--ckpt-dir`` restores parameters (tests/test_torch_checkpoint.py);
+    a checkpoint that holds no parameters (here a partitioner's) is
+    refused, as an unported arch is."""
+    from repro.checkpoint import save_checkpoint as jax_save_checkpoint
+
+    jax_save_checkpoint(str(tmp_path), 1, {"labels": np.zeros(8, np.int32)})
+    with pytest.raises(ValueError, match="holds no params tree"):
         serve_cli.main(["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
-                        "--ckpt-dir", "ckpt"])
+                        "--ckpt-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
         serve_cli.main(["--arch", "zamba2-7b", "--reduced", "--device", "cpu"])
 

@@ -128,15 +128,36 @@ def test_entry_points_default_to_cuda(monkeypatch):
     {"assignment": "locality"},
     {"hub_replication": True},
     {"staleness_bound": 1},
-    {"trace": object()},
-    {"checkpoint_dir": "ckpt"},
-    {"guard": "raise"},
-    {"resume": True},
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values())))[:12])
 def test_unported_options_raise(kwargs):
     g = load_dataset("WIKI", scale=0.0005)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         run_partitioner("revolver", g, 4, device="cpu", max_steps=1, **kwargs)
+
+
+@pytest.mark.parametrize("option", ["trace", "checkpoint_dir", "guard", "resume"])
+def test_crash_safety_and_tracing_options_run(option, tmp_path):
+    """The options that raised until tracing, checkpoints and the guard were
+    ported now run and leave the result as the plain run's."""
+    from repro_torch.obs import Tracer
+
+    g = load_dataset("WIKI", scale=0.0005)
+    common = dict(device="cpu", seed=1, max_steps=6, sync_every=2)
+    kwargs = {"trace": dict(trace=Tracer()),
+              "checkpoint_dir": dict(checkpoint_dir=str(tmp_path), checkpoint_every=2),
+              "guard": dict(guard="raise"),
+              "resume": dict(checkpoint_dir=str(tmp_path), resume=True)}[option]
+    plain = run_partitioner("revolver", g, 4, **common)
+    res = run_partitioner("revolver", g, 4, **common, **kwargs)
+    np.testing.assert_array_equal(res.labels, plain.labels)
+    assert res.steps == plain.steps and res.history == plain.history
+    if option == "trace":
+        assert kwargs["trace"].summary()["spans"]["superstep"]["count"] == res.steps
+    if option == "checkpoint_dir":
+        assert sorted(p.name for p in tmp_path.iterdir()) == [
+            "step_00000004", "step_00000006"]
+    if option == "resume":
+        assert res.resumed_from == 0        # nothing on disk: a fresh run
 
 
 def test_impl_knobs_are_gone_and_unknown_keys_raise():

@@ -339,10 +339,6 @@ def test_stream_runner_argument_errors_match_reference(sbm):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"trace": object()},
-    {"checkpoint_dir": "ckpt"},
-    {"resume": True},
-    {"checkpoint_every": 4},
     {"mesh": object()},
     {"assignment": "locality"},
     {"chunk_schedule": "halo"},
@@ -350,8 +346,38 @@ def test_stream_runner_argument_errors_match_reference(sbm):
     {"hub_replication": True},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_stream_options_raise(sbm, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item [89]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
         StreamRunner(sbm.n, StreamConfig(k=4), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("option", ["trace", "checkpoint_dir", "resume", "checkpoint_every"])
+def test_stream_crash_safety_and_tracing_options_run(sbm, option, tmp_path):
+    """The options that raised until tracing and stream checkpoints were
+    ported now run and leave the stream as the plain runner's."""
+    from repro_torch.obs import Tracer
+
+    cfg = StreamConfig(k=4, n_blocks=4, refine_max_steps=6, refine_patience=2)
+    kwargs = {"trace": dict(trace=Tracer()),
+              "checkpoint_dir": dict(checkpoint_dir=str(tmp_path)),
+              "resume": dict(checkpoint_dir=str(tmp_path), resume=True),
+              "checkpoint_every": dict(checkpoint_dir=str(tmp_path), checkpoint_every=2)}[option]
+    plain = StreamRunner(sbm.n, cfg, seed=0, device="cpu")
+    plain.run(mixed_stream(sbm))
+    runner = StreamRunner(sbm.n, cfg, seed=0, device="cpu", **kwargs)
+    runner.run(mixed_stream(sbm))
+    runner.finish()
+    np.testing.assert_array_equal(runner.labels, plain.labels)
+    np.testing.assert_array_equal(runner.probs, plain.probs)
+    assert runner.total_steps == plain.total_steps
+    saved = sorted(p.name for p in tmp_path.iterdir())
+    n = len(plain.reports)
+    if option == "trace":
+        assert kwargs["trace"].summary()["spans"]["delta"]["count"] == n
+    elif option == "checkpoint_every":
+        assert saved == [f"step_{d:08d}" for d in range(2, n + 1, 2)][-2:]
+    else:
+        assert saved == [f"step_{d:08d}" for d in (n - 1, n)]
+        assert runner.delta_base == 0       # resume with nothing on disk: fresh
 
 
 def test_stream_runner_defaults_to_cuda(sbm, monkeypatch):
