@@ -55,8 +55,10 @@ failure raises and the script exits non-zero without printing a result:
               ulp of its top logit), then with f32 weights and activations
               (relative L2 < 1e-3, greedy argmax equal on every row)
   8. graph    the paper's WIKI graph at full size (1.79M vertices), built on
-              the host (in a thread started before phase 2, overlapping
-              phases 2-7) and laid out on the card in 8 blocks
+              the host (by a worker process started before phase 2,
+              overlapping phases 2-7, which then coarsens it for phase 11d
+              while phases 9-17 and 11c run) and laid out on the card in 8
+              blocks
   9. kernels  each partitioner kernel against its plain PyTorch version on
               the card, at the main path's shapes (K1 bit-exact in both
               weight modes, two calls bit-equal; K2 at atol 5e-6 / rtol
@@ -98,13 +100,15 @@ failure raises and the script exits non-zero without printing a result:
               (each slab's live prefix, blk_row_ptr, blk_spans); then a
               delta deleting 1 % of the directed edges; local_edges > 0.5
               and max_norm_load <= 1.30 after both; then Spinner and
-              restream over the first 2 of those deltas each (K3 once a
+              restream over the first of those deltas each (K3 once a
               Spinner and 8 times a restream superstep, nothing else; the
               balance gate and local_edges > 1/k); per delta the merge
               seconds on the host, the refine seconds and supersteps/s
  11d. vcycle  ``run_partitioner("revolver", WIKI, k=8, mode="vcycle")``:
               level sizes, block counts, budgets and steps per level, the
-              coarsening seconds on the host, K1 and K2 once per block and
+              host worker's coarsening seconds (its stack answers the run's
+              ``build_level_stack`` call, whose arguments are checked), and
+              the run's wait for that stack, K1 and K2 once per block and
               superstep summed over the levels (nothing else), the same
               quality gates, beside phase 10's flat run; then, on the
               level stack that run coarsened, each level's largest weight
@@ -118,8 +122,8 @@ failure raises and the script exits non-zero without printing a result:
               to 0 just before and read just after: K4 once per layer, K5
               once per layer and decode step; rates, time to first token,
               peak memory, and the device busy share over decode steps under
-              torch.profiler (after the graph thread joined, so the host is
-              not shared)
+              torch.profiler (the host worker coarsens on another core
+              meanwhile; it shares no interpreter lock with this process)
  13. attn-kernels  K4 and K5 at the serving shapes against their plain
               versions on the card, then timed as in phase 9 but replayed
               from a CUDA graph (device time without the wrapper's host
@@ -161,6 +165,32 @@ failure raises and the script exits non-zero without printing a result:
               labels, probs and supersteps bit-equal to the uninterrupted
               stream. K2 keeps a NaN in its row as the plain version does
               (checked with K2 in phases 3 and 9)
+ 17. sharded-schedules  (after 16, before 11c/11d) the sharded, halo and
+              async schedules on Revolver's main path: phase 8's graph in
+              32 blocks, k 8, sync_every 5, on ``BlocksMesh([cuda:0] * 8)``
+              (4 blocks a shard). A 1-shard sharded run equals the
+              sequential one at 32 blocks (labels, probs, supersteps,
+              history; every state field over a window on the engine);
+              the 8-shard contiguous ``run_partitioner`` at the sequential
+              run's step budget keeps >= 0.97 of its local edges and
+              max_norm_load <= 1.30, K1 and K2 launched 32 times a
+              superstep; halo (fallback off) equals sharded after every
+              window of 10 supersteps on the contiguous and locality
+              assignments at block and vertex granularity (the locality
+              order keeps the striping on WIKI); async at staleness 0
+              equals halo on the interior-first layout; K1 (both weight
+              modes) and K3's gather form equal their plain versions on
+              shard 3's halo slabs; halo and async (staleness 1) checkpointed every
+              10, cut at 20 and resumed equal the uncut runs, the async
+              trace valid under ``tools/trace_report.py --validate``.
+              Rates, plan and layout build seconds, the exchange's bytes
+              and peak memory printed. Its small legs run in the host
+              build's wait: a halo and an async superstep on the card equal
+              the CPU's with replayed draws (WIKI 0.002, 4 shards), and
+              Spinner and restream at WIKI 0.1 on 8 shards, halo equal to
+              sharded with K3 8 times a Spinner superstep and once a
+              restream block, and K1/K3 on shard 3 of a block-permuted
+              halo layout at WIKI 0.1
 
 Each model phase starts after the previous model is deleted and the
 allocator's cache emptied, with the peak memory statistics reset.
@@ -175,12 +205,14 @@ from __future__ import annotations
 import collections
 import dataclasses
 import gc
+import io
 import itertools
 import json
+import os
 import pathlib
+import pickle
 import subprocess
 import sys
-import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -189,6 +221,8 @@ SRC = ROOT / "src"
 K = 8
 N_BLOCKS = 8
 SEED = 0
+SHARDS = 8                    # phase 17: shards on the one card
+SHARD_BLOCKS = 32             # phase 17: 4 blocks a shard
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
@@ -872,7 +906,7 @@ def stream_phase(torch, np, ops, g, flat: dict) -> dict:
     user calls. Revolver over 8 insertion deltas in random arrival order
     (the settings of benchmarks/streaming_bench.py), the incremental layout
     then held against the batch layout, then a delta deleting 1 % of the
-    directed edges; then Spinner and restream over the first 2 of the 8
+    directed edges; then Spinner and restream over the first of the 8
     deltas each. K1 and K2 launch 8 times a Revolver superstep, K3 once a
     Spinner and 8 times a restream superstep, nothing else. Returns the
     phase's rows."""
@@ -907,16 +941,17 @@ def stream_phase(torch, np, ops, g, flat: dict) -> dict:
            "revolver_peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "revolver_seconds": time.perf_counter() - t0}
     del runner
-    # the other rules take the first 2 of the same 8 deltas (a cold start,
-    # a re-pad and a warm start on a quarter of the graph): 2 deltas over
-    # the whole graph spent ~120 s merging on the host per rule
+    # the other rules take the first of the same 8 deltas (a cold start on
+    # an eighth of the graph): cut from 2 deltas (a re-pad and a warm start
+    # too) to keep the run inside its time limit once phase 17 came; 8
+    # deltas over the whole graph spent ~120 s merging on the host per rule
     for algo, k3_per_step in (("spinner", 1), ("restream", N_BLOCKS)):
         t = time.perf_counter()
         runner = StreamRunner(g.n, StreamConfig(**settings), algo=algo, seed=SEED)
         out[algo] = [stream_delta(torch, ops, runner, d, {"edge_histogram": k3_per_step},
                                   f"{algo} stream")
-                     for d in itertools.islice(stream_from_graph(g, 8, seed=SEED), 2)]
-        # a quarter of the graph in 30 supersteps leaves these rules short
+                     for d in itertools.islice(stream_from_graph(g, 8, seed=SEED), 1)]
+        # an eighth of the graph in 15 supersteps leaves these rules short
         # of convergence: the gate is the balance, and local edges above
         # hash's 1/k
         last = out[algo][-1]
@@ -991,25 +1026,41 @@ def check_level_kernels(torch, np, lvl: int, lg, seed: int) -> dict:
             "held_to": "f32 plain" if exact_f32 else "f64 plain rounded once"}
 
 
-def vcycle_phase(torch, np, ops, g, flat: dict) -> dict:
+def vcycle_phase(torch, np, ops, g, flat: dict, host=None) -> dict:
     """Phase 11d: ``run_partitioner("revolver", WIKI, 8, mode="vcycle")``
     through the entry point a user calls, every launch counter set to 0
     just before and read just after: K1 and K2 launch once per block and
     superstep, summed over the levels, nothing else. Metrics recomputed on
-    the host; printed beside phase 10's flat run. Then, on the level stack
-    that run coarsened (kept by wrapping `build_level_stack` for the run),
-    each level's largest weight and row weight sum printed, and K1 and K3
-    held against their plain versions on the layouts of level 1, a middle
-    level and the coarsest (`check_level_kernels`)."""
+    the host; printed beside phase 10's flat run. The run's
+    `build_level_stack(g, DEFAULT_COARSE_N)` call is answered with the
+    stack the host worker built by that same call on its copy of ``g``
+    (`HostWorker`), while the card ran phases 9-17 and 11c; the wrapper
+    requires those arguments (without a ``host`` it calls the function
+    itself, timed the same way). Then, on that level stack, each level's
+    largest weight and row weight sum printed, and K1 and K3 held against
+    their plain versions on the layouts of level 1, a middle level and the
+    coarsest (`check_level_kernels`)."""
     from repro_torch.core import multilevel, run_partitioner
 
-    # the level stack the V-cycle coarsens is kept for the kernel checks
-    # (building it a second time took 113-143 s on the host)
-    stacks = []
+    # the stack is kept for the kernel checks too (building it took
+    # 102-143 s on the host)
+    stacks, coarsen = [], {}
     build_level_stack = multilevel.build_level_stack
 
-    def build_and_keep(*args, **kwargs):
-        graphs, cmaps = build_level_stack(*args, **kwargs)
+    def build_and_keep(graph, coarse_n, *args, **kwargs):
+        require(graph is g and coarse_n == multilevel.DEFAULT_COARSE_N
+                and not args and not kwargs,
+                f"vcycle: build_level_stack(n={graph.n}, coarse_n={coarse_n}, {args}, "
+                f"{kwargs}), not the call the host worker answered")
+        t = time.perf_counter()
+        if host is None:
+            graphs, cmaps = build_level_stack(graph, coarse_n)
+            graphs = graphs[1:]
+            coarsen["host_coarsen_s"] = time.perf_counter() - t
+        else:
+            graphs, cmaps, coarsen["host_coarsen_s"] = host.level_stack()
+        coarsen["stack_wait_s"] = time.perf_counter() - t
+        graphs = [g, *graphs]
         stacks.append(graphs)
         return graphs, cmaps
 
@@ -1047,7 +1098,7 @@ def vcycle_phase(torch, np, ops, g, flat: dict) -> dict:
     return {"algo": "revolver", "k": K, "seed": SEED, **vc,
             "level_max_weight": [w for w, _ in weights],
             "level_max_row_weight_sum": [s for _, s in weights],
-            "level_kernel_checks": checked, "level_check_s": check_s,
+            "level_kernel_checks": checked, "level_check_s": check_s, **coarsen,
             "fine_steps": res.steps, "total_supersteps": sum(vc["steps_per_level"]),
             "local_edges": res.local_edges, "max_norm_load": res.max_norm_load,
             "wall_s": wall, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -1298,6 +1349,392 @@ def crash_safety_side_legs(torch, np, dev: str = "cuda", *, kill_scale: float = 
     out["seconds"] = time.perf_counter() - t0
     return out
 
+
+# --------------------------------------------------------------------------
+# phase 17: the sharded, halo and async schedules
+# --------------------------------------------------------------------------
+def clone_state(torch, state, device=None):
+    """A copy of a rule state (its generator too), on ``device`` or its own.
+    Moving a CPU state to the card gives it a fresh card generator: the
+    legs that move one replay their draws."""
+    dev = state.labels.device if device is None else torch.device(device)
+    if dev == state.gen.device:
+        gen = torch.Generator(device=dev)
+        gen.set_state(state.gen.get_state())
+    else:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+    return state._replace(gen=gen, **{f: v.to(dev, copy=True) for f, v in state._asdict().items()
+                                      if isinstance(v, torch.Tensor)})
+
+
+def states_equal(torch, a, b, fields) -> dict:
+    """{field: bit-equal} over ``fields`` (one device reduction each)."""
+    return {f: bool(torch.equal(getattr(a, f), getattr(b, f).to(getattr(a, f).device)))
+            for f in fields}
+
+
+def lockstep(torch, engine, runs: dict, steps: int, window: int, what: str) -> dict:
+    """Drive each ``{name: (algo, layout, cfg, state)}`` through ``steps``
+    supersteps side by side and require every state field (loads, block
+    fields and the generator's state included) bit-equal across them after
+    every ``window``. Returns {"windows": n, "supersteps": steps}."""
+    names = list(runs)
+    states = {n: runs[n][3] for n in names}
+    windows = 0
+    for step in range(steps):
+        for n in names:
+            algo, layout, cfg, _ = runs[n]
+            states[n] = engine.superstep(algo, layout, cfg, states[n])
+        if (step + 1) % window == 0 or step + 1 == steps:
+            windows += 1
+            ref = states[names[0]]
+            fields = [f for f, v in ref._asdict().items() if isinstance(v, torch.Tensor)]
+            for n in names[1:]:
+                eq = states_equal(torch, ref, states[n], fields)
+                eq["gen"] = bool(ref.gen.get_state().equal(states[n].gen.get_state()))
+                require(all(eq.values()), f"{what}: {n} differs from {names[0]} after "
+                        f"superstep {step + 1}: {eq}")
+    return {"windows": windows, "supersteps": steps}
+
+
+def exchange_bytes(sdg, algo) -> dict:
+    """What one superstep's exchange moves under the layout's plan: per
+    device (`repro`'s ``gathered_bytes_*`` counters) and over all shards."""
+    spec = sdg.halo
+    wire = sum(spec.wire_bytes_per_elem(K, f in algo.wire_int8_fields)
+               for f in algo.vertex_fields)
+    per_dev = spec.gathered_elems_per_device() * wire
+    full = spec.full_gather_elems_per_device() * 4 * len(algo.vertex_fields)
+    return {"per_device": per_dev, "all_shards": per_dev * sdg.n_shards,
+            "full_gather_per_device": full}
+
+
+def plan_row(sdg) -> dict:
+    spec = sdg.halo
+    return {"decision": spec.decision, "coverage": spec.coverage, "b_max": spec.b_max,
+            "h_max": spec.h_max, "interior_split": spec.interior_split,
+            "interior_counts": list(spec.interior_counts), "buf_len": spec.buf_len,
+            "permuted": sdg.block_perm is not None}
+
+
+def check_shard_kernels(torch, sdg, s: int, seed: int) -> dict:
+    """K1 (both weight modes) and K3's gather form on shard ``s``'s halo
+    slabs of ``sdg`` (ids in the shard's ``local + halo`` buffer space),
+    against their plain versions on the card, on a random labels buffer of
+    the buffer's length: bit-equal. Returns the check's row."""
+    from repro_torch.kernels import edge_histogram, edge_phase
+
+    sh = sdg.shards[s]
+    dev = sh.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = sdg.halo.buf_len
+    labels = torch.randint(0, K, (buf,), generator=gen, device=dev, dtype=torch.int32)
+    lam = torch.randint(0, K, (buf,), generator=gen, device=dev, dtype=torch.int32)
+    bps, bv = sdg.blocks_per_shard, sdg.block_v
+    actions = torch.randint(0, K, (bps, bv), generator=gen, device=dev, dtype=torch.int32)
+    feasible = (torch.rand((bps, K), generator=gen, device=dev) > 0.2).float()
+    row = {"shard": s, "buf_len": buf, "blocks": bps, "max_dst": int(sh.blk_dst_halo.max()),
+           "permuted": sdg.block_perm is not None}
+    for mode in ("self_lambda", "neighbor_lambda"):
+        got = edge_phase.fused_edge_phase_cuda(
+            sh.blk_dst_halo, sh.blk_w, sh.blk_row_ptr, sh.blk_spans, labels, lam, actions,
+            feasible, block_v=bv, k=K, weight_mode=mode)
+        want = edge_phase.fused_edge_phase_plain(
+            sh.blk_dst_halo, sh.blk_row, sh.blk_w, labels, lam, actions, feasible,
+            block_v=bv, k=K, weight_mode=mode)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K1 ({mode}) on shard {s}'s halo slabs differs from its plain version")
+        row[f"k1_{mode}"] = "bit-equal"
+    got = edge_histogram.edge_histogram_spans_cuda(
+        sh.blk_dst_halo, sh.blk_w, sh.blk_row_ptr, sh.blk_spans, block_v=bv, k=K,
+        labels=labels)
+    want = edge_histogram.edge_histogram_plain(labels[sh.blk_dst_halo.long()], sh.blk_row,
+                                               sh.blk_w, block_v=bv, k=K)
+    require(torch.equal(got, want), f"K3 (gather form) on shard {s}'s halo slabs differs")
+    row["k3_gather"] = "bit-equal"
+    return row
+
+
+def sharded_side_legs(torch, np, ops, dev: str = "cuda") -> dict:
+    """Phase 17's legs off the full graph (run in the host build's wait).
+    (1) Card against CPU: WIKI 0.002 on 4 shards under an explicit block
+    permutation and the per-vertex plan; 3 halo and 3 async supersteps on
+    the card and on the CPU from one state with the same replayed draws:
+    labels, lambda and loads equal, probabilities within K2's tolerance.
+    (2) Spinner and restream at WIKI 0.1 on 8 shards (16 blocks): halo
+    equal to sharded on one layout over 4 supersteps, K3 launched 8 times
+    a Spinner superstep (once a shard) and once a restream block. (3) K1
+    and K3 on shard 3's slabs of a block-permuted halo layout at WIKI 0.1
+    (32 blocks, 8 shards). ``dev`` names the card (a CPU rehearsal passes
+    "cpu")."""
+    from repro_torch.core import engine
+    from repro_torch.core.device_graph import prepare_sharded_device_graph
+    from repro_torch.core.registry import get_algorithm
+    from repro_torch.graphs import load_dataset
+    from repro_torch.launch.mesh import BlocksMesh
+
+    t0 = time.perf_counter()
+    out = {}
+    cuda, cpu = torch.device(dev, 0 if dev == "cuda" else None), torch.device("cpu")
+    revolver = get_algorithm("revolver")
+    g = load_dataset("WIKI", scale=0.002, seed=SEED)
+    perm = np.random.default_rng(SEED + 17).permutation(16)
+    lay = {dev: prepare_sharded_device_graph(
+        g, BlocksMesh([dev] * 4), n_blocks=16, assignment=perm, halo=True,
+        halo_threshold=2.0, halo_granularity="vertex") for dev in (cpu, cuda)}
+    nb, bv = lay[cpu].n_blocks, lay[cpu].block_v
+    rng = np.random.default_rng(SEED + 18)
+    u = np.maximum(rng.random((3, nb, bv, K), dtype=np.float32),
+                   np.finfo(np.float32).tiny)
+    gumbel = -np.log(-np.log(u))
+    uniform = rng.random((3, nb, bv), dtype=np.float32)
+
+    def draws_block(step, b):
+        return gumbel[step][b], uniform[step][b]
+
+    parity = {}
+    for sched in ("halo", "async"):
+        cfg = revolver.config_cls(k=K, chunk_schedule=sched)
+        s_cpu = revolver.init(lay[cpu], cfg, torch.Generator().manual_seed(SEED))
+        s_gpu = clone_state(torch, s_cpu, cuda)
+        for step in range(3):
+            s_cpu = engine.superstep(revolver, lay[cpu], cfg, s_cpu, draws=draws_block)
+            s_gpu = engine.superstep(revolver, lay[cuda], cfg, s_gpu, draws=draws_block)
+            eq = states_equal(torch, s_cpu, s_gpu, ("labels", "lam", "loads"))
+            require(all(eq.values()), f"card vs CPU, {sched} superstep {step}: {eq}")
+            err = float((s_gpu.probs.cpu() - s_cpu.probs).abs().max())
+            require(torch.allclose(s_gpu.probs.cpu(), s_cpu.probs, **K2_TOL),
+                    f"card vs CPU, {sched} superstep {step}: probs off by {err}")
+        parity[sched] = {"supersteps": 3, "probs_max_abs_err": err}
+    out["card_vs_cpu"] = {"scale": 0.002, "shards": 4, **plan_row(lay[cuda]), **parity}
+    del lay
+
+    gs = load_dataset("WIKI", scale=0.1, seed=SEED)
+    sdg = prepare_sharded_device_graph(gs, BlocksMesh([cuda] * 8), n_blocks=16, halo=True,
+                                       halo_threshold=2.0, halo_granularity="vertex")
+    rules = {}
+    for algo_name, per_step in (("spinner", 8), ("restream", sdg.n_blocks)):
+        algo = get_algorithm(algo_name)
+        init = algo.init(sdg, algo.config_cls(k=K), torch.Generator(device=cuda).manual_seed(SEED))
+        runs = {}
+        for sched in ("sharded", "halo"):
+            cfg = algo.config_cls(k=K, chunk_schedule=sched)
+            runs[sched] = (algo, sdg, cfg, clone_state(torch, init))
+        t = time.perf_counter()
+        ops.reset_launch_counts()
+        row = lockstep(torch, engine, runs, 4, 2, f"{algo_name} halo vs sharded")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        expect_launches(counts, {"edge_histogram": 2 * 4 * per_step},
+                        f"{algo_name} at 8 shards (both schedules)")
+        rules[algo_name] = {**row, "k3_per_superstep": per_step, "launches": counts,
+                            "seconds": time.perf_counter() - t}
+    out["rules"] = {"scale": 0.1, "n": gs.n, "shards": 8, "n_blocks": sdg.n_blocks,
+                    **plan_row(sdg), **rules}
+    del sdg
+    psdg = prepare_sharded_device_graph(
+        gs, BlocksMesh([cuda] * 8), n_blocks=SHARD_BLOCKS,
+        assignment=np.random.default_rng(SEED + 19).permutation(SHARD_BLOCKS), halo=True,
+        halo_threshold=2.0, halo_granularity="vertex")
+    out["permuted_shard_kernels"] = {"scale": 0.1, **plan_row(psdg),
+                                     **check_shard_kernels(torch, psdg, 3, SEED + 20)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def timed_run(torch, ops, run_partitioner, g, **kw):
+    """``run_partitioner("revolver", g, K, **kw)`` with every launch counter
+    set to 0 just before and read just after; returns (result, wall s,
+    launches)."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res = run_partitioner("revolver", g, K, seed=SEED, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t, ops.launch_counts()
+
+
+def sharded_phase(torch, np, ops, g, dev: str = "cuda") -> dict:
+    """Phase 17: the sharded, halo and async schedules on Revolver's main
+    path, full WIKI, k 8, 32 blocks, sync_every 5, 8 shards on the one card
+    (``BlocksMesh([cuda:0] * 8)``: 4 blocks a shard). Every check raises.
+    Returns the phase's row."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import engine, run_partitioner
+    from repro_torch.core.device_graph import (
+        device_graph_from_numpy,
+        graph_host_arrays,
+        plan_layout,
+        shard_device_graph,
+        shard_host_arrays,
+    )
+    from repro_torch.core.halo import interior_first_order
+    from repro_torch.core.registry import get_algorithm
+    from repro_torch.launch.mesh import BlocksMesh
+
+    t0 = time.perf_counter()
+    cuda = torch.device(dev, 0 if dev == "cuda" else None)
+    nb, shards, window = SHARD_BLOCKS, SHARDS, 5
+    revolver = get_algorithm("revolver")
+    mesh8 = BlocksMesh([cuda] * shards)
+    common = dict(n_blocks=nb, sync_every=window, device=dev)
+    out, rates, build = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    t = time.perf_counter()
+    arrays = graph_host_arrays(g, nb)
+    build["host_arrays_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dg = device_graph_from_numpy(arrays, cuda)
+    torch.cuda.synchronize()
+    build["layout_s"] = time.perf_counter() - t
+
+    # 1. one shard is the sequential schedule: whole runs (labels, probs,
+    # steps, history), then every state field over a window on the engine
+    seq, wall, _ = timed_run(torch, ops, run_partitioner, g, dg=dg, keep_probs=True, **common)
+    rates["sequential"] = seq.steps / wall
+    one, wall, _ = timed_run(torch, ops, run_partitioner, g, dg=dg, keep_probs=True,
+                             chunk_schedule="sharded", mesh=BlocksMesh([cuda]), **common)
+    rates["sharded_1"] = one.steps / wall
+    require(np.array_equal(one.labels, seq.labels) and np.array_equal(one.probs, seq.probs)
+            and one.steps == seq.steps and one.history == seq.history,
+            f"1 shard vs sequential: steps {one.steps}/{seq.steps}")
+    sdg1 = shard_device_graph(dg, BlocksMesh([cuda]))
+    init = revolver.init(dg, revolver.config_cls(k=K), torch.Generator(device=cuda).manual_seed(SEED))
+    one_window = lockstep(torch, engine, {
+        "sequential": (revolver, dg, revolver.config_cls(k=K), clone_state(torch, init)),
+        "sharded_1": (revolver, sdg1, revolver.config_cls(k=K, chunk_schedule="sharded"),
+                      clone_state(torch, init))}, window, window, "1 shard vs sequential")
+    out["one_shard"] = {"steps": seq.steps, "lockstep": one_window}
+    del sdg1, init
+
+    # 2. 8 shards, contiguous: the main path, through the entry point, at
+    # the sequential run's step budget
+    sdg8 = shard_device_graph(dg, mesh8)
+    res, wall, counts = timed_run(torch, ops, run_partitioner, g, dg=sdg8, mesh=mesh8,
+                                  chunk_schedule="sharded", max_steps=seq.steps,
+                                  patience=10_000, **common)
+    rates["sharded_8"] = res.steps / wall
+    expect_launches(counts, {n: nb * res.steps for n in PARTITIONER_KERNELS},
+                    "8-shard sharded main path")
+    host_metrics(np, g, res)
+    require(res.local_edges >= 0.97 * seq.local_edges,
+            f"8 shards: local_edges {res.local_edges} < 0.97 x sequential {seq.local_edges}")
+    require(res.max_norm_load <= 1.30, f"8 shards: max_norm_load {res.max_norm_load} > 1.30")
+    out["main"] = {"steps": res.steps, "local_edges": res.local_edges,
+                   "sequential_local_edges": seq.local_edges,
+                   "quality_ratio": res.local_edges / seq.local_edges,
+                   "max_norm_load": res.max_norm_load, "wall_s": wall, "launches": counts}
+    del sdg8, dg
+
+    # 3. halo equals sharded on one layout: the contiguous and locality
+    # assignments at both granularities (the locality order keeps the
+    # striping on WIKI: then its layouts are the contiguous ones)
+    t = time.perf_counter()
+    locality = plan_layout(arrays, shards, assignment="locality")[1]
+    build["locality_order_s"] = time.perf_counter() - t
+    layouts = {}
+    variants = [("contiguous-block", "contiguous", "block"),
+                ("contiguous-vertex", "contiguous", "vertex")]
+    if locality is not None:
+        variants += [("locality-block", "locality", "block"),
+                     ("locality-vertex", "locality", "vertex")]
+    halo_rows = {}
+    for name, assignment, gran in variants:
+        t = time.perf_counter()
+        sdg = shard_host_arrays(arrays, mesh8, assignment=assignment, halo=True,
+                                halo_threshold=2.0, halo_granularity=gran)
+        torch.cuda.synchronize()
+        build[f"{name}_s"] = time.perf_counter() - t
+        init = revolver.init(sdg, revolver.config_cls(k=K),
+                             torch.Generator(device=cuda).manual_seed(SEED))
+        t = time.perf_counter()
+        row = lockstep(torch, engine, {
+            sched: (revolver, sdg, revolver.config_cls(k=K, chunk_schedule=sched),
+                    clone_state(torch, init)) for sched in ("sharded", "halo")},
+            2 * window, window, f"halo vs sharded, {name}")
+        halo_rows[name] = {**plan_row(sdg), **row, "exchange_bytes": exchange_bytes(sdg, revolver),
+                           "seconds": time.perf_counter() - t}
+        layouts[name] = sdg
+    out["halo_vs_sharded"] = {"locality_is_striping": locality is None, **halo_rows}
+
+    # 4. async at staleness 0 equals halo on the interior-first layout
+    # (over 10 supersteps); on WIKI every block reads the tail, so that
+    # layout is the contiguous one when interior_first_order changes nothing
+    order_perm = interior_first_order(layouts["contiguous-vertex"].halo)
+    if order_perm is None:
+        asdg = layouts["contiguous-vertex"]
+    else:
+        t = time.perf_counter()
+        asdg = shard_host_arrays(arrays, mesh8, assignment=order_perm, halo=True,
+                                 halo_threshold=2.0, halo_granularity="vertex")
+        build["interior_first_s"] = time.perf_counter() - t
+    init = revolver.init(asdg, revolver.config_cls(k=K),
+                         torch.Generator(device=cuda).manual_seed(SEED))
+    out["async_vs_halo"] = {"interior_first_reorders": order_perm is not None,
+                            **plan_row(asdg), **lockstep(torch, engine, {
+                                sched: (revolver, asdg, revolver.config_cls(k=K, chunk_schedule=sched),
+                                        clone_state(torch, init)) for sched in ("halo", "async")},
+                                2 * window, window, "async vs halo")}
+    del init
+
+    # 5. K1 and K3 on shard 3's halo slabs (the locality layout's: on WIKI
+    # it keeps the striping, so the ids are permuted by the halo rewrite
+    # alone; the side legs check a block-permuted layout at WIKI 0.1)
+    out["shard3_kernels"] = check_shard_kernels(
+        torch, layouts.get("locality-vertex", layouts["contiguous-vertex"]), 3, SEED + 20)
+
+    # 6. resume, and the rates of halo and async: each uncut (checkpointed
+    # every 10), cut at 20, resumed on the same mesh; async at staleness 1
+    # also traced (its cut run), the trace validated
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    resume = {}
+    hsdg = layouts["contiguous-vertex"]
+    for sched, extra, layout in (("halo", {}, hsdg), ("async", {"staleness_bound": 1}, asdg)):
+        kw = dict(dg=layout, mesh=mesh8, chunk_schedule=sched, keep_probs=True,
+                  checkpoint_every=10, **extra, **common)
+        ref, wall, counts = timed_run(torch, ops, run_partitioner, g,
+                                      checkpoint_dir=str(work / f"{sched}_ref"), **kw)
+        expect_launches(counts, {n: nb * ref.steps for n in PARTITIONER_KERNELS},
+                        f"{sched} run")
+        rates[sched] = ref.steps / wall
+        require(ref.local_edges > 0.5 and ref.max_norm_load <= 1.30,
+                f"{sched}: local_edges {ref.local_edges}, max_norm_load {ref.max_norm_load}")
+        tracer = None
+        if sched == "async":
+            from repro_torch.obs import Tracer
+
+            tracer = Tracer()
+        run_partitioner("revolver", g, K, seed=SEED, checkpoint_dir=str(work / sched),
+                        trace=tracer, **dict(kw, max_steps=20))
+        res, _, _ = timed_run(torch, ops, run_partitioner, g, checkpoint_dir=str(work / sched),
+                              resume=True, **kw)
+        require(res.resumed_from == 20 and res.steps == ref.steps
+                and np.array_equal(res.labels, ref.labels)
+                and np.array_equal(res.probs, ref.probs),
+                f"{sched} resume: from {res.resumed_from}, steps {res.steps}/{ref.steps}, "
+                f"labels equal {np.array_equal(res.labels, ref.labels)}")
+        resume[sched] = {"steps": ref.steps, "local_edges": ref.local_edges,
+                         "max_norm_load": ref.max_norm_load, "resumed_from": res.resumed_from,
+                         "bit_equal": True, **extra}
+        if tracer is not None:
+            path = work / "async_trace.json"
+            tracer.save(str(path))
+            rep = subprocess.run([sys.executable, str(ROOT / "tools" / "trace_report.py"),
+                                  str(path), "--validate"], capture_output=True, text=True,
+                                 timeout=300)
+            require(rep.returncode == 0, f"async trace invalid: {rep.stdout}{rep.stderr}")
+            resume[sched]["trace_valid"] = True
+            resume[sched]["staleness_series"] = [v for _, v in tracer.series["halo_staleness"]]
+    shutil.rmtree(work, ignore_errors=True)
+    out["resume"] = resume
+    out["supersteps_per_s"] = rates
+    out["build_s"] = build
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 def k3_timed(torch, dg, flush, seed: int) -> dict:
     """K3 at the main path's two shapes, Spinner's launch over all blocks
@@ -1976,6 +2413,116 @@ def wkv6_serve_kernel(torch, flush) -> tuple[dict, dict]:
     return record, out["decode"]
 
 
+# --------------------------------------------------------------------------
+# the host worker: phase 8's graph build and 11d's coarsening
+# --------------------------------------------------------------------------
+def send_raw(conn, msg) -> None:
+    """Sends ``msg`` as a pickle whose array buffers follow it raw on the
+    pipe, for `recv_raw`: the connection's own receive reallocates its
+    buffer for every chunk the pipe gives, too slow for the V-cycle's ~5 GB
+    level stack."""
+    bufs = []
+    data = pickle.dumps(msg, protocol=5, buffer_callback=bufs.append)
+    views = [b.raw() for b in bufs]
+    conn.send((data, [v.nbytes for v in views]))
+    for v in views:
+        while v.nbytes:
+            v = v[os.write(conn.fileno(), v):]
+
+
+def recv_raw(conn):
+    """What `send_raw` sent, its arrays over buffers read in place."""
+    data, sizes = conn.recv()
+    pipe = io.FileIO(conn.fileno(), closefd=False)
+    bufs = []
+    for n in sizes:
+        buf = memoryview(bytearray(n))
+        done = 0
+        while done < n:
+            got = pipe.readinto(buf[done:])
+            if not got:
+                raise EOFError(f"pipe closed {done} bytes into a {n}-byte buffer")
+            done += got
+        bufs.append(buf)
+    return pickle.loads(data, buffers=bufs)
+
+
+def host_worker(conn, seed: int) -> None:
+    """Builds WIKI at full size and sends it, then coarsens it as the
+    V-cycle does (`build_level_stack(g, DEFAULT_COARSE_N)`) and sends the
+    levels one at a time. Numpy on one core, in a process of its own, so it
+    shares no interpreter lock with the phases that issue the launches. A
+    failure is sent as its traceback."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(SRC))
+        from repro_torch.core import multilevel
+        from repro_torch.graphs import load_dataset
+
+        t = time.perf_counter()
+        g = load_dataset("WIKI", scale=1.0, seed=seed)
+        send_raw(conn, ("graph", g, time.perf_counter() - t))
+        t = time.perf_counter()
+        graphs, cmaps = multilevel.build_level_stack(g, multilevel.DEFAULT_COARSE_N)
+        send_raw(conn, ("levels", len(cmaps), time.perf_counter() - t))
+        for lg, cmap in zip(graphs[1:], cmaps):
+            send_raw(conn, ("level", lg, cmap))
+    except BaseException:
+        send_raw(conn, ("error", traceback.format_exc(), None))
+    finally:
+        conn.close()
+
+
+class HostWorker:
+    """`host_worker` in a spawned process, and the read end of its pipe.
+    Each read blocks until the worker has sent what it asks for; a worker
+    that failed or died fails the read."""
+
+    def __init__(self, seed: int):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=host_worker, args=(child, seed), daemon=True)
+        self._proc.start()
+        child.close()
+
+    def _recv(self, tag: str):
+        try:
+            got = recv_raw(self._conn)
+        except EOFError:
+            self._proc.join(timeout=10)
+            got = ("error", f"exited with code {self._proc.exitcode}", None)
+        require(got[0] == tag, f"host worker, expecting {tag!r}: {got[1]}")
+        return got[1:]
+
+    def ready(self) -> bool:
+        """True once the graph (or a failure) waits in the pipe."""
+        return self._conn.poll()
+
+    def graph(self):
+        """(the full WIKI graph, the worker's seconds building it)."""
+        return self._recv("graph")
+
+    def level_stack(self):
+        """(levels 1 and up, their coarse maps, the worker's seconds
+        coarsening) as `build_level_stack` returns them, level 0 left out."""
+        n, seconds = self._recv("levels")
+        graphs, cmaps = [], []
+        for _ in range(n):
+            lg, cmap = self._recv("level")
+            graphs.append(lg)
+            cmaps.append(cmap)
+        return graphs, cmaps, seconds
+
+    def stop(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join()
+        self._conn.close()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1989,6 +2536,18 @@ def main() -> int:
               "root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # phase 8's graph build and 11d's coarsening run in a process of their
+    # own from here on, overlapping phases 2-7 and 9-17 and 11c
+    host = HostWorker(SEED)
+    try:
+        return run_phases(torch, host, t_start)
+    finally:
+        host.stop()
+
+
+def run_phases(torch, host: HostWorker, t_start: float) -> int:
+    """Phases 1-17 in the order of the module docstring; every check
+    raises."""
     import numpy as np
 
     # f32 references in full f32 (the defaults, stated)
@@ -1997,7 +2556,6 @@ def main() -> int:
 
     from repro_torch.core import run_partitioner
     from repro_torch.core.device_graph import prepare_device_graph
-    from repro_torch.graphs import load_dataset
     from repro_torch.kernels import _build, edge_phase, ops
 
     # 1. device
@@ -2007,18 +2565,9 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # the host graph build is the longest phase (numpy, mostly one core): it
-    # runs in a thread while the kernels build and the correctness phases
-    # run. A daemon thread, so a failing phase ends the script at once.
-    built = {}
-
-    def build_graph():
-        t0 = time.perf_counter()
-        built["g"] = load_dataset("WIKI", scale=1.0, seed=SEED)
-        built["s"] = time.perf_counter() - t0
-
-    graph_thread = threading.Thread(target=build_graph, daemon=True)
-    graph_thread.start()
+    # the host graph build is the longest phase (numpy, one core): the host
+    # worker started in `main` runs it while the kernels build and the
+    # correctness phases run
 
     # 2. build
     t = time.perf_counter()
@@ -2105,14 +2654,16 @@ def main() -> int:
 
     # 16 (its legs off the full graph, while the host build above runs on):
     # a SIGKILL and resume through the CLI, and a checkpointed stream
-    emit({"phase": "crash-safety-side", "graph_built": "g" in built,
+    emit({"phase": "crash-safety-side", "graph_built": host.ready(),
           **crash_safety_side_legs(torch, np)})
+    # 17 (its small legs, in the same wait): card against CPU at WIKI 0.002,
+    # Spinner and restream on 8 shards at WIKI 0.1
+    emit({"phase": "sharded-side", "graph_built": host.ready(),
+          **sharded_side_legs(torch, np, ops)})
 
     # 8. graph: full-size WIKI, host build (started above) then device layout
     t = time.perf_counter()
-    graph_thread.join()
-    require("g" in built, "host graph build failed (traceback above)")
-    g, gen_s = built["g"], built["s"]
+    g, gen_s = host.graph()
     wait_s = time.perf_counter() - t
     t = time.perf_counter()
     dg = prepare_device_graph(g, n_blocks=N_BLOCKS, device="cuda")
@@ -2284,6 +2835,11 @@ def main() -> int:
           **crash_safety_phase(torch, np, ops, g, dg)})
     del dg
 
+    # 17. the sharded, halo and async schedules on the main path: 8 shards
+    # on the one card, 32 blocks
+    next_model(torch)
+    emit({"phase": "sharded-schedules", **sharded_phase(torch, np, ops, g)})
+
     # 11c. streaming repartitioning of phase 8's graph, through StreamRunner,
     # and 11d. the multilevel V-cycle on it. They run last: the card idles
     # through their host work (merges, coarsening), and after such idle
@@ -2296,7 +2852,7 @@ def main() -> int:
             emit({"phase": "stream-delta", "algo": algo, **row})
     emit({"phase": "stream", **stream})
     t = time.perf_counter()
-    emit({"phase": "vcycle", **vcycle_phase(torch, np, ops, g, flat),
+    emit({"phase": "vcycle", **vcycle_phase(torch, np, ops, g, flat, host),
           "seconds": time.perf_counter() - t})
     del g
 

@@ -1,7 +1,7 @@
 """Revolver core of the port: the superstep engine and its rules.
 
-Layering as in `repro.core`: `engine` owns the (sequential) superstep
-schedule, `registry` maps algorithm names to rule modules (`revolver`,
+Layering as in `repro.core`: `engine` owns the superstep schedules
+(sequential, and sharded / halo / async over a `BlocksMesh`), `registry` maps algorithm names to rule modules (`revolver`,
 `spinner`, `restream`, `static_partitioners`), and `runner` drives the
 convergence loop. `convert` carries `repro`'s layout and
 state across for the parity tests.
@@ -24,9 +24,12 @@ from repro_torch.core.metrics import (
 from repro_torch.core.device_graph import (
     CAPACITY_MODES,
     DeviceGraph,
+    ShardedDeviceGraph,
     capacity,
     capacity_device,
     prepare_device_graph,
+    prepare_sharded_device_graph,
+    shard_device_graph,
 )
 from repro_torch.core.engine import (
     Algorithm,
@@ -34,6 +37,8 @@ from repro_torch.core.engine import (
     ChunkUpdate,
     ShardContext,
     ShardUpdate,
+    async_superstep,
+    place_state,
     superstep,
 )
 from repro_torch.core.registry import (
@@ -84,14 +89,19 @@ __all__ = [
     "partition_loads",
     "CAPACITY_MODES",
     "DeviceGraph",
+    "ShardedDeviceGraph",
     "capacity",
     "capacity_device",
     "prepare_device_graph",
+    "prepare_sharded_device_graph",
+    "shard_device_graph",
     "Algorithm",
     "ChunkContext",
     "ChunkUpdate",
     "ShardContext",
     "ShardUpdate",
+    "async_superstep",
+    "place_state",
     "superstep",
     "StaticAlgorithm",
     "available_algorithms",

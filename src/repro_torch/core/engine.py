@@ -25,18 +25,54 @@ delta, which the engine adds to the loads.
 Replicated fields (restream's degree ranks) pass through every superstep
 untouched; rules read them from the context's ``repl``.
 
-What waits for later slices: the sharded, halo and async schedules and hub
-replication (ROADMAP queue 1 item 9).
+The sharded schedules (``cfg.chunk_schedule``) run on a
+`ShardedDeviceGraph` over a `BlocksMesh` (one process, a list of devices):
+
+  * ``"sharded"``: the Jacobi superstep. Every shard scans its own blocks
+    (asynchronous within the shard) against its own copy of the full
+    per-vertex vectors, gathered from the start-of-superstep state; then
+    the shards' slices go back into the state, their load deltas are
+    merged (exactly, in int64) and the scores summed. Shard 0 draws from
+    the state's generator, shard s > 0 from one derived from its state and
+    s (`repro_torch.parallel.collectives.shard_chain_key`), so one shard
+    repeats the sequential schedule bit for bit.
+  * ``"halo"``: the same superstep with the full gather replaced by the
+    layout's precomputed exchange (`repro_torch.core.halo`): each shard's
+    view is its own slice followed by the exchanged boundary blocks or
+    vertices, and its slabs' neighbor ids are rewritten into that buffer.
+    It is an exact optimization of ``"sharded"`` (bit-equal results).
+  * ``"async"``: the halo superstep with each shard's scan split: its
+    interior blocks (which read no exchanged vertex) scan while the exchange
+    runs, on a side CUDA stream, and its boundary blocks after it. With a
+    fresh exchange every superstep it is bit-equal to ``"halo"``; the
+    runner's ``staleness_bound`` lets a shard reuse an older exchanged tail.
+
+A shard rule (Spinner) calls the context's collectives mid-rule: on a mesh
+of several shards the engine runs each shard's rule in its own thread, one
+at a time in shard order, meeting at every collective (`_Lockstep`), so the
+launch order is the same every run.
+
+What waits for the next slice: hub replication (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+import threading
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.device_graph import DeviceGraph, SpanPlan, capacity_device, scalar_device
+from repro_torch import obs
+from repro_torch.core.device_graph import (
+    DeviceGraph,
+    ShardedDeviceGraph,
+    SpanPlan,
+    capacity_device,
+    scalar_device,
+)
 from repro_torch.core.metrics import bin_sums
+from repro_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -60,6 +96,9 @@ class Algorithm:
       replicated_fields: state fields the schedule passes through untouched
         (per-run constants, e.g. restream's degree ranks), available to
         rules via the context's ``repl``.
+      wire_int8_fields: vertex_fields whose values always lie in [0, k):
+        when ``cfg.k <= 127`` the per-vertex halo exchange moves them on an
+        int8 wire (an exact round trip, 4x fewer bytes).
       init: ``(dg, cfg, gen) -> state`` cold start.
       init_from_labels: ``(dg, cfg, gen, labels) -> state`` warm start
         (with ``probs=None, prob_sharpen=0.0`` keywords too when
@@ -77,6 +116,7 @@ class Algorithm:
     vertex_fields: Tuple[str, ...] = ("labels",)
     block_fields: Tuple[str, ...] = ()
     replicated_fields: Tuple[str, ...] = ()
+    wire_int8_fields: Tuple[str, ...] = ()
     init_from_labels: Optional[Callable] = None
     supports_probs: bool = False
     chunk_rule: Optional[Callable] = None
@@ -97,16 +137,24 @@ class Algorithm:
         missing = required - set(self.state_cls._fields)
         if missing:
             raise ValueError(f"{self.name}: state_cls lacks {sorted(missing)}")
+        stray = set(self.wire_int8_fields) - set(self.vertex_fields)
+        if stray:
+            raise ValueError(f"{self.name}: wire_int8_fields {sorted(stray)} are not "
+                             "vertex_fields")
 
 
 class ChunkContext(NamedTuple):
     """What a chunk rule sees for one vertex block.
 
-    ``v0`` is the block's offset into the per-vertex tensors and ``gv0`` its
-    global vertex offset, for slicing the replicated ``[n_pad]`` tensors in
-    ``repl`` (the two coincide on the sequential schedule). ``n_shards`` is
-    the number of shards drifting concurrently (1 here) and ``loads0`` the
-    start-of-superstep loads; `shared_headroom` rations capacity with them.
+    ``v0`` is the block's offset into the drifting per-vertex view the rule
+    slices (the full ``[n_pad]`` vectors under the sequential and
+    full-gather schedules; the shard's ``local + halo`` buffer under
+    ``"halo"`` / ``"async"``, where the slab ids in ``e_dst`` are rewritten
+    into buffer space too) and ``gv0`` its global vertex offset, for slicing
+    the replicated ``[n_pad]`` tensors in ``repl``. ``blk_idx`` is the
+    global block index. ``n_shards`` is the number of shards drifting
+    concurrently (1 sequential) and ``loads0`` the start-of-superstep loads;
+    `shared_headroom` rations capacity with them.
     ``draws`` is the optional replay hook of `superstep`
     (``(step, blk_idx) -> draws``); None means the rule draws from the
     state's generator.
@@ -155,8 +203,11 @@ class ShardContext:
     """What a shard rule sees: its slice of the blocked layout plus
     collectives. The sequential schedule runs one shard spanning the whole
     graph (``v0 = 0``, ``local_n = n_pad``), where ``gather`` and ``psum``
-    are identities. ``draws`` is the optional replay hook of `superstep`
-    (``step -> draws``)."""
+    are identities. Under ``"halo"`` the slab ids in ``blk_dst`` are
+    rewritten into the shard's ``local + halo`` buffer space and ``gather``
+    returns that buffer, so rules that index the gather result through
+    ``blk_dst`` run unchanged under every schedule. ``draws`` is the
+    optional replay hook of `superstep` (``step -> draws``)."""
 
     n_pad: int              # global padded vertex count
     local_n: int            # vertices owned by this shard
@@ -174,15 +225,25 @@ class ShardContext:
     step: int
     repl: Dict[str, torch.Tensor]
     draws: Optional[Callable] = None
+    idx: int = 0            # shard index (0 sequential)
+    comm: Optional[Any] = None   # the superstep's `_ShardComm` (None sequential)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Make every vertex id in ``blk_dst`` resolvable (identity on the
-        sequential schedule)."""
-        return x
+        """Make every vertex id in ``blk_dst`` resolvable: the full
+        all-gather, or the shard's slice followed by the layout's halo tail
+        (identity on the sequential schedule). Rules gather label-valued
+        fields only, so the per-vertex exchange moves them on the int8 wire
+        when k <= 127."""
+        if self.comm is None:
+            return x
+        with obs.annotate("halo-exchange", kind=self.comm.kind):
+            return self.comm.gather(self.idx, x)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum a shard-local reduction across shards (identity here)."""
-        return x
+        """Sum a shard-local reduction across shards (identity sequential)."""
+        if self.comm is None:
+            return x
+        return self.comm.psum(self.idx, x)
 
     def local_rows(self) -> torch.Tensor:
         """[blocks * e_max] shard-local row ids for a flat slab histogram."""
@@ -255,8 +316,360 @@ def _shard_superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, cap, draws):
 _BODIES = {"chunk": _chunk_superstep, "shard": _shard_superstep}
 
 
-def superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, *, draws=None):
-    """One full superstep of ``algo`` under the sequential schedule.
+# ---------------------------------------------------------------------------
+# the sharded schedules: "sharded", "halo", "async"
+# ---------------------------------------------------------------------------
+def _to(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    return x if x.device == dev else x.to(dev, non_blocking=True)
+
+
+def _vertex_slices(sdg: ShardedDeviceGraph, t: torch.Tensor) -> List[torch.Tensor]:
+    """Shard s's slice of a storage-order per-vertex tensor, on its device
+    (a view on the home device)."""
+    ln = sdg.local_n
+    return [_to(t[s * ln:(s + 1) * ln], sh.device) for s, sh in enumerate(sdg.shards)]
+
+
+def _exchange_kind(sdg: ShardedDeviceGraph, halo: bool) -> str:
+    if not halo:
+        return "full-gather"
+    return "per-vertex" if sdg.halo.granularity == "vertex" else "halo"
+
+
+def _halo_tails(sdg: ShardedDeviceGraph, xs: List[torch.Tensor],
+                wire: Optional[torch.dtype]) -> List[torch.Tensor]:
+    """One field's exchanged tail per shard, by the layout's plan."""
+    spec = sdg.halo
+    if spec.granularity == "vertex":
+        return collectives.vertex_halo_exchange(
+            xs, [sh.send_ids for sh in sdg.shards], sdg.mesh, wire_dtype=wire)
+    if spec.b_max == 0:                  # no cross-shard reference at all
+        return [x.new_zeros((0,)) for x in xs]
+    return collectives.halo_exchange(xs, [sh.halo_rows for sh in sdg.shards], sdg.mesh,
+                                     sdg.blocks_per_shard, sdg.block_v)
+
+
+def _wire(algo: Algorithm, cfg, field: str) -> Optional[torch.dtype]:
+    return torch.int8 if cfg.k <= 127 and field in algo.wire_int8_fields else None
+
+
+def _exchange(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, xs: Dict[str, List[torch.Tensor]]):
+    """Every vertex field's halo tail per shard, from the start-of-superstep
+    slices ``xs``."""
+    return {f: _halo_tails(sdg, parts, _wire(algo, cfg, f)) for f, parts in xs.items()}
+
+
+_SIDE_STREAMS: Dict[torch.device, Any] = {}
+
+
+def _exchange_on_side_stream(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, xs):
+    """`_exchange` issued on a side stream of the home card (on the CPU,
+    in line). Returns ``(tails, event)``: the boundary scan waits on the
+    event. The side stream first waits for the state's last writes; the
+    state is written again only after the boundary scan, which waits on the
+    event, so the exchange's sources stay as read. Tails are marked as used
+    on the main stream, so their memory is not reused while it reads them."""
+    home = sdg.mesh.home
+    if home.type != "cuda":
+        return _exchange(algo, sdg, cfg, xs), None
+    main = torch.cuda.current_stream(home)
+    side = _SIDE_STREAMS.get(home)
+    if side is None:
+        side = _SIDE_STREAMS[home] = torch.cuda.Stream(device=home)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        tails = _exchange(algo, sdg, cfg, xs)
+    event = torch.cuda.Event()
+    event.record(side)
+    for parts in tails.values():
+        for t in parts:
+            if t.device == home:
+                t.record_stream(main)
+    return tails, event
+
+
+class _ShardScan:
+    """One shard's superstep state under a chunk schedule: its drifting
+    view (``vert``), its block tiles (``blocks``: views of the state on the
+    home device, else copies), loads, score and generator."""
+
+    def __init__(self, algo, sdg, cfg, state, s, gen, draws, halo):
+        sh = sdg.shards[s]
+        self.s, self.sh, self.dev = s, sh, sh.device
+        bps = sdg.blocks_per_shard
+        self.blocks = {f: _to(getattr(state, f)[s * bps:(s + 1) * bps], self.dev)
+                       for f in algo.block_fields}
+        self.loads0 = _to(state.loads, self.dev)
+        self.loads = self.loads0
+        self.score = torch.zeros((), dtype=torch.float32, device=self.dev)
+        self.cap = capacity_device(sdg.m, cfg.k, cfg.epsilon, cfg.capacity_mode, self.dev)
+        self.repl = {f: _to(getattr(state, f), self.dev) for f in algo.replicated_fields}
+        self.gen, self.draws, self.halo = gen, draws, halo
+        self.vert: Dict[str, torch.Tensor] = {}
+
+    def scan(self, algo, sdg, cfg, step, blocks):
+        """Run the chunk rule over local blocks ``blocks`` in order."""
+        sh, bv = self.sh, sdg.block_v
+        dst = sh.blk_dst_halo if self.halo else sh.blk_dst
+        for i in blocks:
+            b = self.s * sdg.blocks_per_shard + i
+            v0 = i * bv if self.halo else b * bv
+            lv = slice(i * bv, (i + 1) * bv)
+            ctx = ChunkContext(
+                blk_idx=b, v0=v0, gv0=b * bv, e_dst=dst[i], e_row=sh.blk_row[i],
+                e_w=sh.blk_w[i], row_ptr=sh.blk_row_ptr[i], spans=sh.blk_spans.block(i),
+                deg=sh.deg[lv], inv_wsum=sh.inv_wsum[lv], vmask=sh.vmask[lv], step=step,
+                n_shards=sdg.n_shards, loads0=self.loads0, repl=self.repl, draws=self.draws)
+            upd = algo.chunk_rule(cfg, ctx, self.vert,
+                                  {f: t[i] for f, t in self.blocks.items()},
+                                  self.loads, self.cap, self.gen)
+            for f, new in upd.vert.items():
+                self.vert[f][v0:v0 + bv] = new
+            for f, new in upd.block.items():
+                self.blocks[f][i] = new
+            self.loads = upd.loads
+            self.score = self.score + upd.score
+
+    def own(self, sdg, f: str) -> torch.Tensor:
+        """The shard's own slice of its drifting view of field ``f``."""
+        ln = sdg.local_n
+        return self.vert[f][:ln] if self.halo else self.vert[f][self.s * ln:(self.s + 1) * ln]
+
+
+def _merge(algo, sdg, state, runs, fields, block_fields):
+    """Write every shard's slices back into the state; return the merged
+    loads (exact int64 delta merge) and the summed score."""
+    ln, bps = sdg.local_n, sdg.blocks_per_shard
+    for r in runs:
+        for f in fields:
+            getattr(state, f)[r.s * ln:(r.s + 1) * ln].copy_(r.own(sdg, f))
+        for f in block_fields:
+            dst = getattr(state, f)[r.s * bps:(r.s + 1) * bps]
+            if dst.device != r.dev:
+                dst.copy_(r.blocks[f])
+    loads = collectives.psum_delta_merge(
+        state.loads, [r.loads - r.loads0 for r in runs], sdg.mesh)
+    home = state.loads.device
+    score = torch.stack([_to(r.score, home).to(torch.float64) for r in runs]).sum()
+    return loads, score.to(torch.float32)
+
+
+def _sharded_chunk_superstep(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, state, draws, *,
+                             halo: bool, split: Optional[int] = None, cache=None):
+    """The chunk rule's Jacobi superstep over the mesh; returns (loads,
+    score, the exchanged tails read). ``split`` runs the async form: each
+    shard's first ``split`` blocks scan against its own slice while the
+    exchange runs (or ``cache``, an earlier superstep's tails, is reused),
+    the rest against its ``local + tail`` buffer."""
+    fields = algo.vertex_fields
+    gens = collectives.shard_chain_key(state.gen, sdg.mesh)
+    xs = {f: _vertex_slices(sdg, getattr(state, f)) for f in fields}
+    runs = [_ShardScan(algo, sdg, cfg, state, s, gens[s], draws, halo)
+            for s in range(sdg.n_shards)]
+    kind = _exchange_kind(sdg, halo)
+    bps = sdg.blocks_per_shard
+    tails = None
+    if split is None:
+        with obs.annotate("halo-exchange", kind=kind, hubs=0, fields=len(fields)):
+            if halo:
+                tails = _exchange(algo, sdg, cfg, xs)
+                for r in runs:
+                    r.vert = {f: torch.cat([xs[f][r.s], tails[f][r.s]]) for f in fields}
+            else:
+                gathered = {f: collectives.gather_shards(xs[f], sdg.mesh) for f in fields}
+                for r in runs:
+                    r.vert = {f: gathered[f][r.s] for f in fields}
+        for r in runs:
+            r.scan(algo, sdg, cfg, state.step, range(bps))
+    else:
+        refresh = cache is None
+        event = None
+        # phase 1: interior blocks drift on the shard's own slice while the
+        # exchange is in flight (the nested spans are the overlap contract
+        # `tools/trace_report.py --validate` checks)
+        with obs.annotate("interior-scan", schedule="async", blocks=split, refresh=int(refresh)):
+            if refresh:
+                with obs.annotate("halo-exchange", kind=kind, hubs=0, fields=len(fields),
+                                  overlap=1):
+                    tails, event = _exchange_on_side_stream(algo, sdg, cfg, xs)
+            else:
+                tails = cache
+            for r in runs:
+                r.vert = {f: xs[f][r.s].clone() for f in fields}
+                r.scan(algo, sdg, cfg, state.step, range(split))
+        # phase 2: boundary blocks see the exchanged (or cached) tail
+        if event is not None:
+            torch.cuda.current_stream(sdg.mesh.home).wait_event(event)
+        for r in runs:
+            r.vert = {f: torch.cat([r.vert[f], tails[f][r.s]]) for f in fields}
+            r.scan(algo, sdg, cfg, state.step, range(split, bps))
+    loads, score = _merge(algo, sdg, state, runs, fields, algo.block_fields)
+    return loads, score, tails
+
+
+class _Lockstep:
+    """Run one callable per shard, each in its own thread but one at a time
+    in shard order, meeting at every collective: shard s runs until its
+    next collective and hands over to s + 1; the last shard combines what
+    all deposited and hands back to shard 0. The launch order is therefore
+    fixed, as if the shards ran phase by phase in one thread. A failure in
+    any shard stops them all and is raised by `run`."""
+
+    class _Aborted(Exception):
+        pass
+
+    def __init__(self, n: int):
+        self.n = n
+        self.cv = threading.Condition()
+        self.turn = 0
+        self.slots: List[Any] = [None] * n
+        self.results: List[Any] = []
+        self.failed = False
+
+    def _await(self, s: int) -> None:
+        self.cv.wait_for(lambda: self.turn == s or self.failed)
+        if self.failed:
+            raise self._Aborted()
+
+    def collective(self, s: int, x, combine: Callable):
+        with self.cv:
+            self.slots[s] = x
+            if s == self.n - 1:
+                try:
+                    self.results = combine(list(self.slots))
+                finally:
+                    self.slots = [None] * self.n
+                self.turn = 0
+            else:
+                self.turn = s + 1
+            self.cv.notify_all()
+            self._await(s)
+            return self.results[s]
+
+    def run(self, fns: List[Callable], devices) -> List[Any]:
+        if self.n == 1:
+            return [fns[0]()]
+        out: List[Any] = [None] * self.n
+        errors: List[BaseException] = []
+
+        def worker(s):
+            try:
+                with self.cv:
+                    self._await(s)
+                ctx = (torch.cuda.device(devices[s]) if devices[s].type == "cuda"
+                       else contextlib.nullcontext())
+                with ctx:
+                    out[s] = fns[s]()
+                with self.cv:
+                    self.turn = s + 1
+                    self.cv.notify_all()
+            except self._Aborted:
+                pass
+            except BaseException as e:   # re-raised below, in the caller's thread
+                with self.cv:
+                    errors.append(e)
+                    self.failed = True
+                    self.cv.notify_all()
+
+        threads = [threading.Thread(target=worker, args=(s,), daemon=True)
+                   for s in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+class _ShardComm:
+    """The collectives of one superstep of a shard rule over the mesh."""
+
+    def __init__(self, algo: Algorithm, sdg: ShardedDeviceGraph, cfg, halo: bool):
+        self.sdg, self.halo = sdg, halo
+        self.kind = _exchange_kind(sdg, halo)
+        self.wire = torch.int8 if algo.wire_int8_fields and cfg.k <= 127 else None
+        self.lockstep = _Lockstep(sdg.n_shards)
+
+    def _gather_all(self, xs):
+        if not self.halo:
+            return collectives.gather_shards(xs, self.sdg.mesh)
+        wire = self.wire if xs[0].dtype == torch.int32 else None
+        tails = _halo_tails(self.sdg, xs, wire)
+        return [torch.cat([x, t]) for x, t in zip(xs, tails)]
+
+    def gather(self, idx: int, x: torch.Tensor) -> torch.Tensor:
+        return self.lockstep.collective(idx, x, self._gather_all)
+
+    def psum(self, idx: int, x: torch.Tensor) -> torch.Tensor:
+        return self.lockstep.collective(idx, x, lambda xs: collectives.psum(xs, self.sdg.mesh))
+
+
+def _sharded_shard_superstep(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, state, draws, *,
+                             halo: bool):
+    """The shard rule once per shard, in lockstep; returns (loads, score).
+    Every shard draws what the state's generator draws (`repro`'s shard
+    rule splits one replicated key)."""
+    fields = algo.vertex_fields
+    gens = collectives.replicated_key(state.gen, sdg.mesh)
+    xs = {f: _vertex_slices(sdg, getattr(state, f)) for f in fields}
+    comm = _ShardComm(algo, sdg, cfg, halo)
+    ln, bps = sdg.local_n, sdg.blocks_per_shard
+
+    def run(s):
+        sh = sdg.shards[s]
+        dev = sh.device
+        ctx = ShardContext(
+            n_pad=sdg.n_pad, local_n=ln, block_v=sdg.block_v, blocks=bps, v0=s * ln,
+            blk_dst=sh.blk_dst_halo if halo else sh.blk_dst, blk_row=sh.blk_row,
+            blk_w=sh.blk_w, blk_row_ptr=sh.blk_row_ptr, blk_spans=sh.blk_spans, deg=sh.deg,
+            inv_wsum=sh.inv_wsum, vmask=sh.vmask, step=state.step,
+            repl={f: _to(getattr(state, f), dev) for f in algo.replicated_fields},
+            draws=draws, idx=s, comm=comm)
+        cap = capacity_device(sdg.m, cfg.k, cfg.epsilon, cfg.capacity_mode, dev)
+        return algo.shard_rule(cfg, ctx, {f: xs[f][s] for f in fields},
+                               _to(state.loads, dev), cap, gens[s])
+
+    upds = comm.lockstep.run([lambda s=s: run(s) for s in range(sdg.n_shards)],
+                             sdg.mesh.devices)
+    for s, upd in enumerate(upds):
+        for f, new in upd.vert.items():
+            getattr(state, f)[s * ln:(s + 1) * ln].copy_(new)
+    loads = collectives.psum_delta_merge(state.loads, [u.loads_delta for u in upds], sdg.mesh)
+    home = state.loads.device
+    score = torch.stack([_to(u.score, home).to(torch.float64) for u in upds]).sum()
+    return loads, score.to(torch.float32)
+
+
+def _check_sharded(dg, schedule: str) -> ShardedDeviceGraph:
+    if not isinstance(dg, ShardedDeviceGraph):
+        raise TypeError(
+            f"chunk_schedule={schedule!r} needs a ShardedDeviceGraph (see "
+            "prepare_sharded_device_graph); got a plain DeviceGraph")
+    if schedule in ("halo", "async") and dg.halo is None:
+        raise ValueError(
+            f"chunk_schedule={schedule!r} needs a halo-enabled layout: build it with "
+            "shard_device_graph(..., halo=True) / attach_halo, or let run_partitioner "
+            "build it")
+    return dg
+
+
+def _finish(sdg, state, loads, score):
+    state.loads.copy_(loads)
+    return state._replace(step=state.step + 1,
+                          score=score / scalar_device(sdg.n, state.loads.device))
+
+
+def superstep(algo: Algorithm, dg, cfg, state, *, draws=None):
+    """One full superstep of ``algo`` under ``cfg.chunk_schedule``.
+
+    "sequential" (the default, and the only schedule of a config without a
+    ``chunk_schedule``) runs on one device (a `ShardedDeviceGraph`'s whole
+    layout is used as it is); "sharded", "halo" and "async" run over the
+    `ShardedDeviceGraph`'s mesh (module docstring). A halo plan whose
+    coverage passed its threshold (``fallback``) runs the full gather,
+    bit-identically. "async" here always refreshes its exchange, the
+    ``staleness_bound=0`` semantics; `async_superstep` takes a cache.
 
     Updates the state's vertex fields, block fields and ``loads`` **in
     place** (where `repro` donates those buffers) and returns the state with
@@ -264,8 +677,21 @@ def superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, *, draws=None):
     real vertex count, divided on the device: see `scalar_device`). The
     generator is advanced in place; replicated fields pass through.
     ``draws`` replays external random draws (tests only; see the rule
-    modules).
+    modules: chunk rules take ``(step, global block index)``).
     """
+    schedule = getattr(cfg, "chunk_schedule", "sequential")
+    if schedule == "async":
+        return async_superstep(algo, dg, cfg, state, draws=draws)[0]
+    if schedule in ("sharded", "halo"):
+        sdg = _check_sharded(dg, schedule)
+        halo = schedule == "halo" and not sdg.halo.fallback
+        if algo.kind == "chunk":
+            loads, score, _ = _sharded_chunk_superstep(algo, sdg, cfg, state, draws, halo=halo)
+        else:
+            loads, score = _sharded_shard_superstep(algo, sdg, cfg, state, draws, halo=halo)
+        return _finish(sdg, state, loads, score)
+    if isinstance(dg, ShardedDeviceGraph):
+        dg = dg.dg
     cap = capacity_device(dg.m, cfg.k, cfg.epsilon, cfg.capacity_mode, dg.device)
     loads, score = _BODIES[algo.kind](algo, dg, cfg, state, cap, draws)
     state.loads.copy_(loads)
@@ -273,18 +699,61 @@ def superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, *, draws=None):
                           score=score / scalar_device(dg.n, dg.device))
 
 
+def async_superstep(algo: Algorithm, dg, cfg, state, cache=None, *, draws=None):
+    """One ``chunk_schedule="async"`` superstep; returns ``(state, cache)``.
+
+    The halo superstep with each shard's scan split at the layout's
+    ``halo.interior_split``: the interior blocks scan while the exchange
+    runs on a side stream, the boundary blocks after it, against the same
+    start-of-superstep tail — bit-identical to ``"halo"`` on the same
+    layout. ``cache=None`` refreshes the tail; passing the cache an earlier
+    call returned reuses that tail (the runner's ``staleness_bound`` policy
+    decides when). Under a fallback plan the full-gather superstep runs and
+    the cache is None. The state is updated in place, as by `superstep`.
+    """
+    if algo.kind != "chunk":
+        raise ValueError(
+            f"chunk_schedule='async' overlaps the interior *block scan* with the halo "
+            f"exchange; {algo.name} is kind={algo.kind!r} and has no block scan (use "
+            "'sharded' or 'halo')")
+    sdg = _check_sharded(dg, "async")
+    if sdg.halo.fallback:
+        loads, score, _ = _sharded_chunk_superstep(algo, sdg, cfg, state, draws, halo=False)
+        return _finish(sdg, state, loads, score), None
+    loads, score, tails = _sharded_chunk_superstep(
+        algo, sdg, cfg, state, draws, halo=True, split=sdg.halo.interior_split, cache=cache)
+    return _finish(sdg, state, loads, score), tails
+
+
+def place_state(algo: Algorithm, state, sdg: ShardedDeviceGraph):
+    """Commit a state to a sharded layout: every tensor field on the mesh's
+    home device, the vertex and block fields whole, in storage order — each
+    shard's slices are views of them there (copies for a shard on another
+    device, taken and written back every superstep)."""
+    home = sdg.mesh.home
+    return state._replace(**{
+        name: value.to(home) for name, value in state._asdict().items()
+        if isinstance(value, torch.Tensor)})
+
+
 def warm_labels(dg: DeviceGraph, k: int, gen: torch.Generator, labels) -> torch.Tensor:
     """Carried labels for surviving vertices, random draws for new ones.
 
-    ``labels`` covers up to ``len(labels)`` surviving vertices (clipped to
-    [0, k)); vertices beyond it draw a random label exactly like a cold init
-    would.
+    ``labels`` covers up to ``len(labels)`` surviving vertices **in original
+    vertex order** (clipped to [0, k)); vertices beyond it draw a random
+    label exactly like a cold init would. On a block-permuted sharded
+    layout the carried slice is scattered to each vertex's storage position
+    (``dg.o2s_t``).
     """
     lab = torch.randint(0, k, (dg.n_pad,), generator=gen, dtype=torch.int32,
                         device=dg.device)
     carried = torch.clamp(torch.as_tensor(labels).to(dg.device, torch.int32), 0, k - 1)
     m_keep = min(int(carried.shape[0]), dg.n_pad)
-    lab[:m_keep] = carried[:m_keep]
+    o2s = getattr(dg, "o2s_t", None)
+    if o2s is None:
+        lab[:m_keep] = carried[:m_keep]
+    else:
+        lab[o2s[:m_keep]] = carried[:m_keep]
     return torch.where(dg.vmask, lab, 0)
 
 

@@ -36,7 +36,7 @@ from repro_torch.core.metrics import bin_sums, moved_sums
 from repro_torch.core.registry import register
 from repro_torch.core.spinner import check_schedule
 
-# `repro`'s schedules; only the sequential one is ported
+# `repro`'s schedules of a chunk rule
 CHUNK_SCHEDULES = ("sequential", "sharded", "halo", "async")
 
 
@@ -54,6 +54,8 @@ class RestreamConfig:
                               # stream unlocks (1 = no prioritization)
     restream_budget: int = 32  # max re-decisions per vertex across the run
                                # (0 = unlimited)
+    staleness_bound: int = 0   # "async": supersteps a stale halo tail may be
+                               # reused (0 = refresh every superstep, exact)
 
     def __post_init__(self):
         if self.capacity_mode not in CAPACITY_MODES:
@@ -68,7 +70,8 @@ class RestreamConfig:
             raise ValueError(
                 f"RestreamConfig.restream_budget must be >= 0 "
                 f"(0 = unlimited), got {self.restream_budget}")
-        check_schedule("RestreamConfig", self.chunk_schedule, CHUNK_SCHEDULES)
+        check_schedule("RestreamConfig", self.chunk_schedule, CHUNK_SCHEDULES,
+                       self.staleness_bound)
 
 
 class RestreamState(NamedTuple):
@@ -196,6 +199,7 @@ RESTREAM = register(engine.Algorithm(
     state_cls=RestreamState,
     kind="chunk",
     vertex_fields=("labels",),
+    wire_int8_fields=("labels",),
     block_fields=("used",),
     replicated_fields=("rank",),
     init=restream_init,

@@ -2,7 +2,8 @@
 
 The port of `repro.core.revolver`: a **rule module** contributing Revolver's
 per-block local rule, its config/state and its warm-start path; the
-sequential block schedule lives in `repro_torch.core.engine`.
+schedules (sequential, sharded, halo, async) live in
+`repro_torch.core.engine`.
 
 Per chunk, the nine steps of Section IV-D:
   1. LA action selection (roulette wheel == Gumbel-max categorical sampling)
@@ -42,6 +43,9 @@ from repro_torch.core.la import split_weights_and_signals
 from repro_torch.core.lp import revolver_scores
 from repro_torch.core.metrics import bin_sums, moved_sums
 from repro_torch.core.registry import register
+from repro_torch.core.spinner import check_schedule
+
+CHUNK_SCHEDULES = ("sequential", "sharded", "halo", "async")
 
 # valid values per config knob
 _VALID_CHOICES = {
@@ -68,6 +72,19 @@ class RevolverConfig:
     #   "self_lambda":     the literal LHS w(v, lambda(v)).
     #   "neighbor_lambda": slot lambda(u).
     weight_mode: str = "self_lambda"
+    # superstep execution schedule (`repro_torch.core.engine`):
+    #   "sequential": one device, the block loop of DESIGN.md §3;
+    #   "sharded":    the Jacobi superstep over a BlocksMesh — each shard
+    #                 scans its own blocks, the per-vertex fields are
+    #                 gathered and the load deltas merged once a superstep;
+    #   "halo":       "sharded" with the full gather replaced by the
+    #                 layout's precomputed exchange (exact);
+    #   "async":      "halo" with the exchange overlapped onto the interior
+    #                 block scan; staleness_bound=0 is bit-identical to it.
+    chunk_schedule: str = "sequential"
+    # supersteps a shard may run against a stale halo tail before the
+    # runner refreshes it ("async" only; 0 = refresh every superstep)
+    staleness_bound: int = 0
 
     def __post_init__(self):
         for name, valid in _VALID_CHOICES.items():
@@ -75,6 +92,8 @@ class RevolverConfig:
             if value not in valid:
                 raise ValueError(
                     f"RevolverConfig.{name}={value!r} is not one of {valid}")
+        check_schedule("RevolverConfig", self.chunk_schedule, CHUNK_SCHEDULES,
+                       self.staleness_bound)
 
 
 class RevolverState(NamedTuple):
@@ -130,7 +149,8 @@ def revolver_init_from_labels(
     probability tensor of a previous state ([n_blocks', block_v', k]);
     surviving vertices keep their automata, new vertices start at the
     uniform 1/k. Loads are recomputed from the degree vector. Both are
-    indexed by vertex id (row v = vertex v).
+    indexed by original vertex id (row v = vertex v); on a block-permuted
+    sharded layout they are scattered to each vertex's storage position.
 
     `prob_sharpen` in [0, 1) blends every automaton toward a one-hot on its
     carried label: p <- (1-s) p + s onehot(label).
@@ -149,7 +169,11 @@ def revolver_init_from_labels(
                 f"carried probs have k={p.shape[-1]}, config expects k={cfg.k}")
         p = p.reshape(-1, cfg.k)
         p_keep = min(int(p.shape[0]), dg.n_pad)
-        flat[:p_keep] = p[:p_keep]
+        o2s = getattr(dg, "o2s_t", None)
+        if o2s is None:
+            flat[:p_keep] = p[:p_keep]
+        else:   # carried rows are in original order: scatter to storage rows
+            flat[o2s[:p_keep]] = p[:p_keep]
     if prob_sharpen > 0.0:
         onehot = torch.nn.functional.one_hot(lab.long(), cfg.k).to(torch.float32)
         flat = (1.0 - prob_sharpen) * flat + prob_sharpen * onehot
@@ -270,6 +294,7 @@ REVOLVER = register(engine.Algorithm(
     state_cls=RevolverState,
     kind="chunk",
     vertex_fields=("labels", "lam"),
+    wire_int8_fields=("labels", "lam"),   # both in [0, k)
     block_fields=("probs",),
     init=revolver_init,
     init_from_labels=revolver_init_from_labels,

@@ -20,9 +20,17 @@ blocking fetches as with them off.
 
 ``mode="vcycle"`` runs the multilevel V-cycle (`repro_torch.core.multilevel`).
 
-What waits for later slices, and raises NotImplementedError when asked
-for: mesh / halo / hub / assignment knobs and non-sequential schedules
-(ROADMAP queue 1 item 9).
+``chunk_schedule="sharded" | "halo" | "async"`` (a config knob) runs the
+superstep over a `BlocksMesh` (`repro_torch.launch.mesh`): the runner lays
+the graph out over it (assignment, halo plan, the async schedule's
+interior-first order), records the plan's counters when tracing, drives the
+async schedule's staleness bound, and returns labels and probabilities in
+original vertex order whatever the assignment; checkpoints are taken in
+original order too and resume at an unchanged shard count.
+
+What waits for the next slice, and raises NotImplementedError when asked
+for: hub replication, and the schedule knobs of ``mode="vcycle"`` (ROADMAP
+queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -37,7 +45,17 @@ import torch
 from repro_torch import faults, obs
 from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.core import engine
-from repro_torch.core.device_graph import DeviceGraph, prepare_device_graph, resolve_device
+from repro_torch.core.device_graph import (
+    DeviceGraph,
+    ShardedDeviceGraph,
+    attach_halo,
+    prepare_device_graph,
+    prepare_sharded_device_graph,
+    resolve_device,
+    shard_device_graph,
+    vertices_to_original,
+)
+from repro_torch.core.halo import DEFAULT_HALO_THRESHOLD
 from repro_torch.core.metrics import local_edges, max_normalized_load
 from repro_torch.core.registry import StaticAlgorithm, get_algorithm
 from repro_torch.core.revolver import make_generator
@@ -49,16 +67,11 @@ _ITEM9 = "queue 1 item 9 (multi-GPU schedules)"
 # run_partitioner keywords of `repro` that are not ported yet:
 # name -> (the value that means "off", the ROADMAP queue item that ports it)
 _UNPORTED = {
-    "chunk_schedule": ("sequential", _ITEM9),
-    "mesh": (None, _ITEM9),
-    "assignment": ("contiguous", _ITEM9),
-    "halo_threshold": (None, _ITEM9),
-    "halo_granularity": ("auto", _ITEM9),
     "hub_replication": (False, _ITEM9),
     "hub_quantile": (0.0, _ITEM9),
     "hub_target_coverage": (None, _ITEM9),
-    "staleness_bound": (0, _ITEM9),
 }
+_SHARDED_SCHEDULES = ("sharded", "halo", "async")
 
 
 def reject_unported(kwargs: dict, unported: dict, where: str) -> None:
@@ -245,28 +258,52 @@ def _run_static(algorithm: StaticAlgorithm, graph: Graph, k: int,
 # ---------------------------------------------------------------------------
 # crash safety: checkpointed resume (`repro`'s docs/fault-tolerance.md)
 # ---------------------------------------------------------------------------
-def _state_to_original(state) -> dict:
-    """Checkpoint view of a state: every field by name. The port's layout
-    is contiguous, so original vertex order is storage order and the
-    per-vertex and per-block fields are taken as they are. The generator
-    is state too: its ``get_state()`` bytes (CPU ``uint8``; 16 bytes for a
-    CUDA generator, whose Philox offset advances when a draw is enqueued,
-    so the bytes taken at a window drain match the draws already
-    enqueued), and the step a 0-dim int64."""
-    out = {name: getattr(state, name) for name in state._fields}
+def _is_vertex_field(algo, dg, name, value) -> bool:
+    return ((name in algo.vertex_fields or name in algo.replicated_fields)
+            and value.ndim >= 1 and value.shape[0] == dg.n_pad)
+
+
+def _reindex(algo, dg, name, value, index):
+    """``value`` reindexed along its vertex axis by ``index`` (per-block
+    fields through their flat ``[n_pad, ...]`` view), or as it is."""
+    if name in algo.block_fields:
+        flat = value.reshape((dg.n_pad,) + tuple(value.shape[2:]))
+        return flat.index_select(0, index.to(value.device)).reshape(value.shape)
+    if _is_vertex_field(algo, dg, name, value):
+        return value.index_select(0, index.to(value.device))
+    return value
+
+
+def _state_to_original(algo, state, dg) -> dict:
+    """Checkpoint view of a state: every field by name, the per-vertex and
+    per-block fields in original vertex order (a device gather on a
+    block-permuted sharded layout, else the tensors as they are), so a
+    checkpoint does not depend on the layout. The generator is state too:
+    its ``get_state()`` bytes (CPU ``uint8``; 16 bytes for a CUDA
+    generator, whose Philox offset advances when a draw is enqueued, so the
+    bytes taken at a window drain match the draws already enqueued), and
+    the step a 0-dim int64."""
+    o2s = getattr(dg, "o2s_t", None)
+    out = {name: getattr(state, name) for name in state._fields
+           if name not in ("gen", "step")}
+    if o2s is not None:
+        out = {name: _reindex(algo, dg, name, v, o2s) for name, v in out.items()}
     out["gen"] = state.gen.get_state()
     out["step"] = torch.tensor(state.step, dtype=torch.int64)
     return out
 
 
-def _state_from_original(algo, tree: dict, device):
-    """Inverse of `_state_to_original`: a state NamedTuple with a fresh
-    generator on ``device`` set to the saved bytes."""
-    out = dict(tree)
-    gen = torch.Generator(device=device)
-    gen.set_state(out["gen"])
+def _state_from_original(algo, tree: dict, dg):
+    """Inverse of `_state_to_original`: a state NamedTuple in the layout's
+    storage order with a fresh generator on the layout's device set to the
+    saved bytes."""
+    s2o = getattr(dg, "s2o_t", None)
+    out = {name: (_reindex(algo, dg, name, v, s2o) if s2o is not None else v)
+           for name, v in tree.items() if name not in ("gen", "step")}
+    gen = torch.Generator(device=dg.device)
+    gen.set_state(tree["gen"])
     out["gen"] = gen
-    out["step"] = int(out["step"])
+    out["step"] = int(tree["step"])
     return algo.state_cls(**out)
 
 
@@ -320,7 +357,7 @@ class _CheckpointManager:
         return self.every > 0 and global_steps - self.last_saved >= self.every
 
     def snapshot(self, state) -> ckpt_store.Snapshot:
-        return ckpt_store.Snapshot(_state_to_original(state))
+        return ckpt_store.Snapshot(_state_to_original(self.algorithm, state, self.dg))
 
     def save(self, global_steps: int, snap, prev_score, stall):
         meta = dict(self.meta, steps=global_steps,
@@ -344,7 +381,10 @@ class _CheckpointManager:
     def restore_latest(self, like_state):
         """Restore the newest usable checkpoint, falling back past corrupt
         or incompatible ones. Returns ``(state, steps, prev_score, stall,
-        converged)`` or None when no checkpoint is usable."""
+        converged)`` or None when no checkpoint is usable. Saves still in
+        flight are waited for first: the newest clean state may be one the
+        writer has not yet renamed into place."""
+        self._reap(block=True)
         for step in reversed(ckpt_store.all_steps(self.dir)):
             try:
                 return self._restore(step, like_state)
@@ -371,10 +411,16 @@ class _CheckpointManager:
                 f"checkpoint step {step} was written by a different run: "
                 f"device_type={meta.get('device_type')!r} vs this run's "
                 f"{self.meta['device_type']!r}")
-        like = _state_to_original(like_state)
+        saved, here = int(meta.get("n_shards", 1)), int(self.meta.get("n_shards", 1))
+        if saved != here:
+            raise NotImplementedError(
+                f"checkpoint step {step} in {self.dir} was written on {saved} shard(s), "
+                f"this run has {here}: restore onto another shard count comes with "
+                f"ROADMAP {_ITEM9}")
+        like = _state_to_original(self.algorithm, like_state, self.dg)
         with self.tracer.span("checkpoint-restore", step=step):
             tree = ckpt_store.restore_checkpoint(self.dir, step, like)
-            state = _state_from_original(self.algorithm, tree, self.dg.device)
+            state = _state_from_original(self.algorithm, tree, self.dg)
         if self.tracer.enabled:
             self.tracer.instant("resumed", step=step)
         return (state, int(meta.get("steps", step)),
@@ -420,6 +466,10 @@ def run_partitioner(
     max_steps: Optional[int] = None,
     track_history: bool = True,
     dg: Optional[DeviceGraph] = None,
+    mesh=None,
+    assignment="contiguous",
+    halo_threshold: float = DEFAULT_HALO_THRESHOLD,
+    halo_granularity: str = "auto",
     sync_every: int = 1,
     init_labels: Optional[np.ndarray] = None,
     init_probs: Optional[np.ndarray] = None,
@@ -443,12 +493,30 @@ def run_partitioner(
     ``device`` (default CUDA; raises when it is unavailable — pass
     ``device="cpu"`` for the plain PyTorch path).
 
-    The flat, sequential path of `repro.core.runner.run_partitioner`: extra
-    kwargs flow into the algorithm's config dataclass (unknown keys raise
-    TypeError; `repro` options that are not ported yet raise
+    The flat path of `repro.core.runner.run_partitioner`: extra kwargs flow
+    into the algorithm's config dataclass (unknown keys raise TypeError;
+    `repro`'s hub replication options, not ported yet, raise
     NotImplementedError unless they carry their "off" value). `dg` reuses a
     prepared layout on the same device. `sync_every` batches device->host
-    score fetches. `init_labels` (and `init_probs` / `init_sharpen`)
+    score fetches.
+
+    ``chunk_schedule="sharded"`` (a config knob of every superstep
+    algorithm) runs the Jacobi superstep over a `BlocksMesh` — ``mesh``
+    selects it (default `make_blocks_mesh` on ``device``: one shard per
+    visible CUDA device, or one CPU shard; ``BlocksMesh([dev] * n)`` runs n
+    shards on one device); a passed plain `DeviceGraph` is laid out over
+    it, a `ShardedDeviceGraph` is used as it is. ``"halo"`` replaces the
+    full gather with the layout's precomputed exchange
+    (`repro_torch.core.halo`; ``halo_threshold`` is the coverage above
+    which it falls back to the full gather, ``halo_granularity``
+    "auto" | "block" | "vertex" the exchange unit). ``assignment`` maps
+    blocks to shards ("contiguous" | "locality" | "vcycle" | an explicit
+    permutation). ``"async"`` (chunk rules only) overlaps the exchange with
+    each shard's interior blocks, on a layout ordered interior-first;
+    ``staleness_bound=0`` (config) refreshes the exchange every superstep
+    and is bit-identical to "halo", ``s > 0`` reuses a tail up to s
+    supersteps old (refreshed at every checkpoint window, so resume stays
+    bit-identical). Labels and probs come back in original vertex order. `init_labels` (and `init_probs` / `init_sharpen`)
     warm-start the state from a previous assignment; `keep_probs=True`
     returns the final LA probability tensor. `draws` replays external random
     draws into every superstep (tests only; each rule module states its
@@ -508,9 +576,9 @@ def run_partitioner(
         raise ValueError("checkpoint_every/resume need a checkpoint_dir")
     if guard == "rollback" and checkpoint_dir is None:
         raise ValueError("guard='rollback' needs a checkpoint_dir")
-    # chunk_schedule is a config kwarg in `repro`, the other unported
-    # options are run_partitioner keywords
-    config_keys = set(cfg_kwargs) - (set(_UNPORTED) - {"chunk_schedule"})
+    # the hub options are run_partitioner keywords in `repro`, the schedule
+    # knobs (chunk_schedule, staleness_bound) config kwargs
+    config_keys = set(cfg_kwargs) - set(_UNPORTED)
     if static and config_keys:
         raise TypeError(f"{algo!r} runs no supersteps; it takes no config "
                         f"kwargs (got {sorted(config_keys)})")
@@ -525,11 +593,20 @@ def run_partitioner(
         raise ValueError(
             "coarse_n/level_decay/vcycle_sharpen are only meaningful with "
             "mode='vcycle'")
+    schedule = cfg_kwargs.get("chunk_schedule", "sequential")
+    sharded = schedule in _SHARDED_SCHEDULES
+    _check_schedule_args(sharded, schedule, mesh, assignment, halo_granularity)
     if mode == "vcycle":
         _check_vcycle_args(algo, static, dg, init_labels, init_probs,
                            init_sharpen, draws, checkpoint_dir, resume, guard)
+        if sharded or halo_threshold != DEFAULT_HALO_THRESHOLD:
+            raise NotImplementedError(
+                "run_partitioner(mode='vcycle') runs its finest level on the sequential "
+                f"schedule only; its schedule knobs come with ROADMAP {_ITEM9}")
     reject_unported(cfg_kwargs, _UNPORTED, "run_partitioner")
     dev = resolve_device(device)
+    if mesh is not None and mesh.home.type != dev.type:
+        raise ValueError(f"mesh {mesh} is not on device={device!r}")
     if mode == "vcycle":
         from repro_torch.core import multilevel
 
@@ -541,12 +618,14 @@ def run_partitioner(
             cfg_kwargs=cfg_kwargs)
     tracer = trace if trace is not None else obs.NULL_TRACER
     with obs.use(tracer), \
-            tracer.span("run-partitioner", algo=algo, k=k, schedule="sequential",
+            tracer.span("run-partitioner", algo=algo, k=k, schedule=schedule,
                         n=graph.n, m=graph.m):
         result = _run_partitioner_traced(
-            tracer, algorithm, static, algo, graph, k, t0, dev,
+            tracer, algorithm, static, schedule, algo, graph, k, t0, dev,
             seed=seed, n_blocks=n_blocks, max_steps=max_steps,
-            track_history=track_history, dg=dg, sync_every=sync_every,
+            track_history=track_history, dg=dg, mesh=mesh, assignment=assignment,
+            halo_threshold=halo_threshold, halo_granularity=halo_granularity,
+            sync_every=sync_every,
             init_labels=init_labels, init_probs=init_probs,
             init_sharpen=init_sharpen, keep_probs=keep_probs, draws=draws,
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
@@ -557,16 +636,95 @@ def run_partitioner(
         # per executed step against this (resumed steps ran in an earlier
         # process — only the steps executed here have spans)
         tracer.meta.setdefault("runs", []).append({
-            "algo": algo, "k": k, "schedule": "sequential",
+            "algo": algo, "k": k, "schedule": schedule,
             "steps": result.steps - result.resumed_from})
     return result
 
 
+def _check_schedule_args(sharded, schedule, mesh, assignment, halo_granularity) -> None:
+    """`repro`'s argument errors of the schedule knobs."""
+    if mesh is not None and not sharded:
+        raise ValueError("mesh is only meaningful with chunk_schedule='sharded'/'halo'/"
+                         "'async'")
+    if not sharded and not (isinstance(assignment, str) and assignment == "contiguous"):
+        raise ValueError("assignment is only meaningful with chunk_schedule="
+                         "'sharded'/'halo'/'async'")
+    if halo_granularity not in ("auto", "block", "vertex"):
+        raise ValueError(f"halo_granularity={halo_granularity!r} is not one of "
+                         "('auto', 'block', 'vertex')")
+    if halo_granularity != "auto" and schedule not in ("halo", "async"):
+        raise ValueError("halo_granularity is only meaningful with chunk_schedule="
+                         "'halo'/'async'")
+
+
+def _prepare_layout(graph, schedule, dev, *, dg, mesh, n_blocks, assignment, halo_threshold,
+                    halo_granularity):
+    """The run's layout: a `ShardedDeviceGraph` for the sharded schedules
+    (built, laid out from a passed `DeviceGraph`, or a passed one with a
+    halo plan attached where it lacks one), else a `DeviceGraph`."""
+    if schedule not in _SHARDED_SCHEDULES:
+        if dg is None:
+            return prepare_device_graph(graph, n_blocks=n_blocks, device=dev)
+        if dg.device.type != dev.type:
+            raise ValueError(f"dg lives on {dg.device}, but device={dev.type!r}")
+        return dg
+    halo = schedule in ("halo", "async")
+    if mesh is None and isinstance(dg, ShardedDeviceGraph):
+        mesh = dg.mesh
+    if mesh is None:
+        from repro_torch.launch.mesh import make_blocks_mesh
+
+        mesh = make_blocks_mesh(device=dev)
+    knobs = dict(assignment=assignment, halo=halo, halo_threshold=halo_threshold,
+                 halo_granularity=halo_granularity, interior_first=schedule == "async")
+    if dg is None:
+        return prepare_sharded_device_graph(graph, mesh, n_blocks=n_blocks, **knobs)
+    if not isinstance(dg, ShardedDeviceGraph):
+        return shard_device_graph(dg, mesh, **knobs)
+    if not (isinstance(assignment, str) and assignment == "contiguous"):
+        # a laid-out layout's assignment is its storage order
+        raise ValueError(
+            "assignment cannot be applied to a pre-built ShardedDeviceGraph; pass "
+            "assignment= to shard_device_graph / prepare_sharded_device_graph")
+    if dg.mesh != mesh:
+        raise ValueError(f"dg is laid out over {dg.mesh}, not the mesh passed ({mesh})")
+    if halo and dg.halo is None:
+        dg = attach_halo(dg, halo_threshold, halo_granularity=halo_granularity)
+    return dg
+
+
+def _plan_counters(tracer, algorithm, schedule, sdg, k) -> None:
+    """The halo plan's static per-run gauges (what each superstep's
+    exchange moves), without touching the device."""
+    n_fields = len(algorithm.vertex_fields)
+    spec = sdg.halo
+    if spec is None:
+        per_dev = (sdg.n_shards - 1) * sdg.blocks_per_shard * sdg.block_v
+        tracer.counter("gathered_bytes_full", per_dev * 4 * n_fields)
+        return
+    wire_sum = sum(spec.wire_bytes_per_elem(k, f in algorithm.wire_int8_fields)
+                   for f in algorithm.vertex_fields)
+    tracer.counter("halo_b_max", spec.b_max)
+    tracer.counter("halo_h_max", spec.h_max)
+    tracer.counter("halo_coverage", spec.coverage)
+    if schedule == "async":
+        # trace_report --validate requires the overlap span pair for async
+        # runs unless the plan fell back to the full gather
+        if spec.fallback:
+            tracer.meta["async_fallback"] = True
+        tracer.counter("interior_split", spec.interior_split)
+    tracer.counter("gathered_bytes_halo", spec.gathered_elems_per_device() * wire_sum)
+    tracer.counter("gathered_bytes_full", spec.full_gather_elems_per_device() * 4 * n_fields)
+    if spec.granularity == "vertex" and not spec.fallback:
+        tracer.counter("pervertex_halo_bytes", spec.gathered_elems_per_device() * wire_sum)
+    tracer.counter("hub_count", spec.n_hubs)
+
+
 def _run_partitioner_traced(
-    tracer, algorithm, static, algo: str, graph: Graph, k: int, t0: float, dev,
-    *, seed, n_blocks, max_steps, track_history, dg, sync_every, init_labels,
-    init_probs, init_sharpen, keep_probs, draws, checkpoint_dir,
-    checkpoint_every, resume, keep_checkpoints, guard, cfg_kwargs,
+    tracer, algorithm, static, schedule, algo: str, graph: Graph, k: int, t0: float, dev,
+    *, seed, n_blocks, max_steps, track_history, dg, mesh, assignment, halo_threshold,
+    halo_granularity, sync_every, init_labels, init_probs, init_sharpen, keep_probs, draws,
+    checkpoint_dir, checkpoint_every, resume, keep_checkpoints, guard, cfg_kwargs,
 ) -> PartitionResult:
     """Body of `run_partitioner`, running under `obs.use(tracer)` inside the
     root span (split out so the traced scope covers every early return)."""
@@ -574,11 +732,13 @@ def _run_partitioner_traced(
         cfg = _make_cfg(algorithm.config_cls, k, max_steps, cfg_kwargs)
     elif init_labels is not None or init_probs is not None or init_sharpen:
         raise TypeError(f"{algo!r} is stateless; warm-start args are meaningless")
-    with tracer.span("prepare-layout", schedule="sequential"):
-        if dg is None:
-            dg = prepare_device_graph(graph, n_blocks=n_blocks, device=dev)
-        elif dg.device.type != dev.type:
-            raise ValueError(f"dg lives on {dg.device}, but device={dev.type!r}")
+    with tracer.span("prepare-layout", schedule=schedule):
+        dg = _prepare_layout(graph, schedule, dev, dg=dg, mesh=mesh, n_blocks=n_blocks,
+                             assignment=assignment, halo_threshold=halo_threshold,
+                             halo_granularity=halo_granularity)
+    sharded = isinstance(dg, ShardedDeviceGraph) and schedule in _SHARDED_SCHEDULES
+    if tracer.enabled and sharded:
+        _plan_counters(tracer, algorithm, schedule, dg, k)
     if static:
         return _run_static(algorithm, graph, k, dg, t0, tracer)
 
@@ -601,14 +761,17 @@ def _run_partitioner_traced(
         if init_sharpen:
             raise TypeError("init_sharpen requires init_labels")
         state = algorithm.init(dg, cfg, gen)
+    if sharded:
+        state = engine.place_state(algorithm, state, dg)
 
     # ---- crash safety: checkpoint manager + resume -----------------------
     ckpt = None
     if checkpoint_dir is not None:
         run_meta = {"kind": "partition", "algo": algo, "k": k, "n": graph.n,
-                    "m": graph.m, "schedule": "sequential", "seed": seed,
+                    "m": graph.m, "schedule": schedule, "seed": seed,
                     "sync_every": sync_every, "patience": cfg.patience,
-                    "device_type": dg.device.type}
+                    "device_type": dg.device.type,
+                    "n_shards": dg.n_shards if sharded else 1}
         ckpt = _CheckpointManager(checkpoint_dir, checkpoint_every,
                                   keep_checkpoints, algorithm, dg, run_meta,
                                   tracer)
@@ -634,8 +797,37 @@ def _run_partitioner_traced(
                                  # superstep that produced them
     drained = [start_step]       # global index of the next drained step
 
-    def base_step(s):
-        return engine.superstep(algorithm, dg, cfg, s, draws=draws)
+    # async staleness policy: the engine only distinguishes a fresh exchange
+    # (cache None) from a reused tail; the policy lives here. Refresh when
+    # the bound expires (g % (s+1) == 0 keeps any tail at most
+    # staleness_bound supersteps old) and on every checkpoint window (g %
+    # sync_every == 0), so a snapshot is always taken downstream of a fresh
+    # exchange and a resumed run (which starts with no cache: a refresh)
+    # replays bit-identically even at s >= 1
+    async_box = {"cache": None, "g": None, "last_refresh": 0}
+    if schedule == "async":
+        staleness = cfg.staleness_bound
+        ckpt_windows = checkpoint_dir is not None and checkpoint_every > 0
+
+        def base_step(s):
+            if async_box["g"] is None:      # first call: resume-aware origin
+                async_box["g"] = async_box["last_refresh"] = start_step
+            g = async_box["g"]
+            refresh = (async_box["cache"] is None or staleness == 0
+                       or g % (staleness + 1) == 0
+                       or (ckpt_windows and g % sync_every == 0))
+            if refresh:
+                async_box["cache"] = None
+                async_box["last_refresh"] = g
+            s2, async_box["cache"] = engine.async_superstep(
+                algorithm, dg, cfg, s, cache=async_box["cache"], draws=draws)
+            if tracer.enabled:
+                tracer.counter("halo_staleness", float(g - async_box["last_refresh"]), step=g)
+            async_box["g"] = g + 1
+            return s2
+    else:
+        def base_step(s):
+            return engine.superstep(algorithm, dg, cfg, s, draws=draws)
 
     if tracer.enabled:
         def step_fn(s):
@@ -729,7 +921,9 @@ def _run_partitioner_traced(
             tracer.instant("rollback", from_step=gsteps, to_step=r_step)
             _log.warning("rolled back to checkpoint step %d", r_step)
             # loop step counting continues forward; only the halting state
-            # and the state (its generator included) rewind
+            # and the state (its generator included) rewind; a cached halo
+            # tail was read from the discarded trajectory
+            async_box["cache"] = None
             return {"state": r_state, "prev_score": r_prev, "stall": r_stall}
         # reinit-affected-vertices: repair on the device — clamp labels into
         # range, rebuild loads from the repaired labels, and reset any
@@ -744,6 +938,7 @@ def _run_partitioner_traced(
             fix["probs"] = torch.where(row_ok, flat, uniform).reshape(s.probs.shape)
         tracer.instant("reinit", step=gsteps)
         _log.warning("reinitialized affected vertices at step %d", gsteps)
+        async_box["cache"] = None    # the tail may carry the corrupt labels
         return {"state": s._replace(**fix), "prev_score": -np.inf, "stall": 0}
 
     # the reinit path needs the loop's current state object (drain_metrics
@@ -787,10 +982,13 @@ def _run_partitioner_traced(
         else:
             le = float(local_edges(state.labels, dg.dir_src, dg.dir_dst))
             ml = float(max_normalized_load(state.labels, dg.deg_out, k))
+        # labels and probs cross the API boundary in original vertex order
+        # (the identity on an unpermuted layout)
         probs = None
         if keep_probs and algorithm.supports_probs:
-            probs = state.probs.cpu().numpy()
-        labels = state.labels[: graph.n].cpu().numpy()
+            flat = state.probs.reshape(dg.n_pad, cfg.k)
+            probs = vertices_to_original(dg, flat).reshape(state.probs.shape).cpu().numpy()
+        labels = vertices_to_original(dg, state.labels)[: graph.n].cpu().numpy()
     return PartitionResult(
         algo=algo, k=k, labels=labels, steps=steps, converged=converged,
         local_edges=le, max_norm_load=ml, history=history,

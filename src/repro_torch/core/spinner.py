@@ -30,20 +30,25 @@ from repro_torch.core.lp import spinner_scores
 from repro_torch.core.metrics import bin_sums, moved_sums
 from repro_torch.core.registry import register
 
-# `repro`'s schedules; only the sequential one is ported
+# `repro`'s schedules of a shard rule ("async" splits a block scan, which
+# a shard rule has not)
 CHUNK_SCHEDULES = ("sequential", "sharded", "halo")
 
 
-def check_schedule(cls_name: str, schedule: str, valid: tuple) -> None:
-    """ValueError for a schedule `repro` does not have, NotImplementedError
-    for one the port does not have yet."""
+def check_schedule(cls_name: str, schedule: str, valid: tuple,
+                   staleness_bound: int = 0) -> None:
+    """`repro`'s checks of a config's ``chunk_schedule`` (one of
+    ``valid``) and ``staleness_bound`` (an int >= 0, above 0 only for
+    ``"async"``); ValueError otherwise."""
     if schedule not in valid:
         raise ValueError(f"{cls_name}.chunk_schedule={schedule!r} is not one "
                          f"of {valid}")
-    if schedule != "sequential":
-        raise NotImplementedError(
-            f"{cls_name}.chunk_schedule={schedule!r} is not ported yet; it "
-            "comes with ROADMAP queue 1 item 9 (multi-GPU schedules)")
+    if not isinstance(staleness_bound, int) or staleness_bound < 0:
+        raise ValueError(f"{cls_name}.staleness_bound={staleness_bound!r} must be "
+                         "an int >= 0")
+    if staleness_bound > 0 and schedule != "async":
+        raise ValueError("staleness_bound > 0 only applies to chunk_schedule='async' "
+                         f"(got chunk_schedule={schedule!r})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +154,7 @@ SPINNER = register(engine.Algorithm(
     state_cls=SpinnerState,
     kind="shard",
     vertex_fields=("labels",),
+    wire_int8_fields=("labels",),
     init=spinner_init,
     init_from_labels=spinner_init_from_labels,
     shard_rule=_spinner_shard_rule,

@@ -4,9 +4,14 @@
       --scale 0.002 --k 8 --algo revolver --algo spinner --algo restream \
       --algo hash --algo range [--device cpu]
 
-Runs each `--algo` (repeatable; default: every registered algorithm) with
-the sequential schedule and prints the rows `repro.launch.partition`
-prints, one per algorithm. The superstep-only knobs (--epsilon, --sync-every,
+Runs each `--algo` (repeatable; default: every registered algorithm) and
+prints the rows `repro.launch.partition` prints, one per algorithm.
+``--chunk-schedule sharded|halo|async`` runs the superstep over a mesh:
+``--shards N`` shards on ``--device`` (the device repeated N times; default
+one shard per visible CUDA device, or one CPU shard), with
+``--assignment``, ``--halo-granularity`` and ``--staleness-bound`` as in
+`repro`; ``--hub-replication`` / ``--hub-quantile`` parse and raise
+NotImplementedError (ROADMAP queue 1 item 9). The superstep-only knobs (--epsilon, --sync-every,
 --mode vcycle with --coarse-n and --level-decay, --checkpoint-dir,
 --checkpoint-every, --resume, --guard) go to the engine-driven algorithms
 only; the static baselines (hash, range) take none and run flat.
@@ -30,6 +35,7 @@ import numpy as np
 from repro_torch.core import run_partitioner
 from repro_torch.core.registry import StaticAlgorithm, available_algorithms, get_algorithm
 from repro_torch.graphs import DATASETS, load_dataset
+from repro_torch.launch.mesh import BlocksMesh
 from repro_torch.obs import Tracer
 
 
@@ -45,6 +51,27 @@ def main(argv=None):
     ap.add_argument("--max-steps", type=int, default=290)
     ap.add_argument("--epsilon", type=float, default=0.05)
     ap.add_argument("--n-blocks", type=int, default=8)
+    ap.add_argument("--chunk-schedule", default="sequential",
+                    choices=["sequential", "sharded", "halo", "async"])
+    ap.add_argument("--shards", type=int, default=None,
+                    help="sharded schedules: this many shards, all on --device "
+                         "(default: one per visible CUDA device, or one CPU shard)")
+    ap.add_argument("--assignment", default="contiguous",
+                    choices=["contiguous", "locality", "vcycle"],
+                    help="block->shard mapping for the sharded schedules")
+    ap.add_argument("--halo-granularity", default="auto",
+                    choices=["auto", "block", "vertex"],
+                    help="halo exchange unit (halo/async schedules): whole boundary "
+                         "blocks or per-vertex need lists on an int8 wire; auto takes "
+                         "whichever moves fewer elements")
+    ap.add_argument("--staleness-bound", type=int, default=0,
+                    help="async schedule: supersteps a shard may run against a stale "
+                         "halo before a forced refresh (0 = refresh every superstep, "
+                         "bit-identical to the halo schedule on the same layout)")
+    ap.add_argument("--hub-replication", action="store_true",
+                    help="not ported yet (ROADMAP queue 1 item 9)")
+    ap.add_argument("--hub-quantile", type=float, default=0.0,
+                    help="not ported yet (ROADMAP queue 1 item 9)")
     ap.add_argument("--mode", default="flat", choices=["flat", "vcycle"],
                     help="flat = refine at full resolution from superstep 0; "
                          "vcycle = coarsen, partition the coarsest graph, "
@@ -90,7 +117,7 @@ def main(argv=None):
     if args.trace:
         tracer = Tracer()
         tracer.meta["cli"] = {"dataset": args.dataset, "scale": args.scale,
-                              "k": args.k, "chunk_schedule": "sequential",
+                              "k": args.k, "chunk_schedule": args.chunk_schedule,
                               "device": args.device}
 
     g = load_dataset(args.dataset, scale=args.scale, seed=args.seed)
@@ -100,7 +127,17 @@ def main(argv=None):
         kwargs = {}
         if not isinstance(get_algorithm(algo), StaticAlgorithm):
             kwargs = dict(epsilon=args.epsilon, sync_every=args.sync_every,
-                          guard=args.guard)
+                          guard=args.guard, chunk_schedule=args.chunk_schedule)
+            if args.chunk_schedule != "sequential":
+                kwargs["assignment"] = args.assignment
+                if args.shards is not None:
+                    kwargs["mesh"] = BlocksMesh([args.device] * args.shards)
+            if args.chunk_schedule in ("halo", "async"):
+                kwargs["halo_granularity"] = args.halo_granularity
+            if args.chunk_schedule == "async":
+                kwargs["staleness_bound"] = args.staleness_bound
+            if args.hub_replication:
+                kwargs.update(hub_replication=True, hub_quantile=args.hub_quantile)
             if args.mode != "flat":
                 kwargs.update(mode=args.mode, coarse_n=args.coarse_n,
                               level_decay=args.level_decay)

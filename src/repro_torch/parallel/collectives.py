@@ -1,0 +1,155 @@
+"""The sharded partitioner superstep's collectives, in one process.
+
+The port of `repro.parallel.collectives`' partitioner primitives
+(``gather_shards``, ``psum_delta_merge``, ``vertex_halo_exchange``,
+``hub_gather``, ``shard_chain_key``). `repro` runs them inside ``shard_map``
+as XLA collectives; the port's mesh is a list of devices driven by one
+process (`repro_torch.launch.mesh`), so each collective is a function of
+the per-shard tensor list (shard s's tensor on ``mesh.device_of(s)``) and
+the mesh, made of concatenations, indexed gathers and
+``.to(dst, non_blocking=True)`` copies. Results come back as per-shard
+lists in shard order; shards on one device may share a read-only result.
+"""
+from __future__ import annotations
+
+import hashlib
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+
+def _per_device(mesh, make):
+    """``[make(dev) for each shard's device]``, computed once per distinct
+    device (shards on one device share the result)."""
+    cache: Dict[torch.device, torch.Tensor] = {}
+    out = []
+    for dev in mesh.devices:
+        if dev not in cache:
+            cache[dev] = make(dev)
+        out.append(cache[dev])
+    return out
+
+
+def _to(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    return x if x.device == dev else x.to(dev, non_blocking=True)
+
+
+def gather_shards(xs: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """All-gather per-shard slices back to the global vector: shard t gets
+    ``cat(xs)`` on its device, a fresh tensor of its own (the sharded
+    schedule drifts each shard's copy independently)."""
+    return [torch.cat([_to(x, dev) for x in xs]) for dev in mesh.devices]
+
+
+def psum(xs: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Sum per-shard tensors across shards; every shard gets the sum on its
+    device. Floating values are accumulated in f64 in shard order and
+    rounded once, so integer-valued sums (degree demands) are exact below
+    2^53, in any order, and equal `repro`'s f32 psum below 2^24."""
+    home = xs[0].device
+
+    def acc_dtype(x):
+        return torch.float64 if x.is_floating_point() else torch.int64
+
+    total = torch.stack([_to(x, home).to(acc_dtype(x)) for x in xs]).sum(0).to(xs[0].dtype)
+    return _per_device(mesh, lambda dev: _to(total, dev))
+
+
+def psum_delta_merge(base: torch.Tensor, deltas: Sequence[torch.Tensor], mesh) -> torch.Tensor:
+    """``base + psum(deltas)`` on ``base``'s device — merge the shards'
+    load deltas. The deltas are integer-valued f32 (degree sums); they are
+    summed in int64 with the integer base and rounded to f32 once, so the
+    merge is exact past 2^24 (ROADMAP item 19), and equal to `repro`'s f32
+    psum below it. On one shard it is ``base + delta``."""
+    dev = base.device
+    total = torch.stack([_to(d, dev).to(torch.float64) for d in deltas]).sum(0)
+    return (base.to(torch.int64) + total.round().to(torch.int64)).to(base.dtype)
+
+
+def halo_exchange(xs: Sequence[torch.Tensor], rows: Sequence[torch.Tensor], mesh,
+                  blocks_per_shard: int, block_v: int) -> List[torch.Tensor]:
+    """Boundary-block halo sync: shard t contributes the ``[b_max]`` blocks
+    of its slice that remote slabs reference (``rows[t]``, int64 on t's
+    device — `repro.core.halo`'s ``boundary_rows[t]``), and every shard gets
+    all contributions ``[S * b_max * block_v]`` in shard order: the tail its
+    rewritten slab ids point into. The values are the start-of-superstep
+    snapshots the full gather would deliver."""
+    contrib = [x.view(blocks_per_shard, block_v).index_select(0, r)
+               for x, r in zip(xs, rows)]
+    return _per_device(mesh, lambda dev: torch.cat([_to(c, dev) for c in contrib]).view(-1))
+
+
+def vertex_halo_exchange(xs: Sequence[torch.Tensor], send_ids: Sequence[torch.Tensor], mesh,
+                         wire_dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+    """Per-vertex halo sync, `repro`'s ragged all-to-all: ``send_ids[s]``
+    ([S, h_max] int64 on s's device, `repro.core.halo`'s ``send_ids[s]``)
+    lists the local rows shard s sends to each shard t, 0-padded. Shard t's
+    tail ``[S * h_max]`` holds at ``s * h_max + p`` the p-th vertex it needs
+    from shard s. ``wire_dtype`` (int8 for label fields when k <= 127)
+    narrows what moves and is restored after: exact for in-range values.
+    Tensors on one device skip the copy, not the cast."""
+    n_shards = mesh.n_shards
+    h_max = send_ids[0].shape[1] if send_ids else 0
+    dtype = xs[0].dtype
+    if h_max == 0:
+        return [x.new_zeros((0,)) for x in xs]
+    contrib = []
+    for x, ids in zip(xs, send_ids):
+        c = x.index_select(0, ids.view(-1))
+        contrib.append(c.to(wire_dtype) if wire_dtype is not None else c)
+    return [torch.cat([_to(contrib[s].view(n_shards, h_max)[t], dev) for s in range(n_shards)])
+            .to(dtype) for t, dev in enumerate(mesh.devices)]
+
+
+def hub_gather(xs: Sequence[torch.Tensor], hub_owner: torch.Tensor, hub_local: torch.Tensor,
+               mesh) -> List[torch.Tensor]:
+    """Assemble `repro`'s replicated hub region from the owners' slices:
+    each shard masks the slots it does not own to zero and the masked
+    vectors are summed (one contributor per slot, so the sum is an exact
+    broadcast). ``hub_owner`` / ``hub_local`` are [hub_pad] int on shard 0's
+    device. Not wired into a schedule yet: hub replication comes with
+    ROADMAP queue 1 item 9's second half."""
+    vals = []
+    for s, x in enumerate(xs):
+        owner = _to(hub_owner, x.device)
+        v = x.index_select(0, torch.clamp_min(_to(hub_local, x.device), 0).long())
+        vals.append(torch.where(owner == s, v, torch.zeros_like(v)))
+    return psum(vals, mesh)
+
+
+def _derived_seed(gen: torch.Generator, s: int) -> int:
+    """A 63-bit seed from the generator's state bytes and ``s``. Reading a
+    CUDA generator's state reads its host-side seed and offset: no sync."""
+    data = gen.get_state().numpy().tobytes() + int(s).to_bytes(8, "little")
+    return int.from_bytes(hashlib.blake2b(data, digest_size=8).digest(), "little") >> 1
+
+
+def shard_chain_key(gen: torch.Generator, mesh) -> List[torch.Generator]:
+    """Per-shard generators for a superstep, `repro`'s ``shard_chain_key``:
+    shard 0 draws from ``gen`` itself (so a 1-shard mesh repeats the
+    sequential schedule's draws), shard s > 0 from a generator on its device
+    seeded from ``gen``'s state and s, which consumes no draw of ``gen``.
+    Derive them before shard 0 draws. After the superstep the state's
+    generator is shard 0's chain, advanced in place: `repro`'s
+    ``replicated_chain_key``, with nothing to gather (a checkpoint still
+    carries one generator)."""
+    return [gen] + [torch.Generator(device=mesh.device_of(s)).manual_seed(_derived_seed(gen, s))
+                    for s in range(1, mesh.n_shards)]
+
+
+def replicated_key(gen: torch.Generator, mesh) -> List[torch.Generator]:
+    """Per-shard generators that all draw what ``gen`` would: shard 0 uses
+    ``gen``, every other shard a copy of its state on its own device — the
+    Spinner rule's semantics, where every shard draws from the same key and
+    slices the global draw."""
+    state = gen.get_state()
+    out = [gen]
+    for s in range(1, mesh.n_shards):
+        g = torch.Generator(device=mesh.device_of(s))
+        g.set_state(state)
+        out.append(g)
+    return out
+
+
+__all__ = ["gather_shards", "psum", "psum_delta_merge", "halo_exchange",
+           "vertex_halo_exchange", "hub_gather", "shard_chain_key", "replicated_key"]

@@ -63,11 +63,27 @@ from repro_torch.core import engine
 from repro_torch.core.metrics import local_edges, max_normalized_load
 from repro_torch.core.registry import Algorithm, get_algorithm
 from repro_torch.core.revolver import make_generator
-from repro_torch.core.runner import _UNPORTED, reject_unported, run_convergence_loop
+from repro_torch.core.runner import reject_unported, run_convergence_loop
 from repro_torch.streaming.delta_graph import IncrementalDeviceGraph
 from repro_torch.streaming.stream import EdgeDelta
 
 _log = logging.getLogger("repro_torch.streaming")
+
+_ITEM9 = "queue 1 item 9 (multi-GPU schedules)"
+# StreamRunner options of `repro` that are not ported yet (the stream's
+# sharded, halo and locality layouts come with item 9's second half):
+# name -> (the value that means "off", the ROADMAP queue item that ports it)
+_UNPORTED = {
+    "chunk_schedule": ("sequential", _ITEM9),
+    "mesh": (None, _ITEM9),
+    "assignment": ("contiguous", _ITEM9),
+    "halo_threshold": (None, _ITEM9),
+    "halo_granularity": ("auto", _ITEM9),
+    "hub_replication": (False, _ITEM9),
+    "hub_quantile": (0.0, _ITEM9),
+    "hub_target_coverage": (None, _ITEM9),
+    "staleness_bound": (0, _ITEM9),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,6 +9,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -284,6 +285,29 @@ def test_guard_rollback_recovers_and_rollback_without_ckpt_escalates():
     # run ends at step 16
     short = _run("revolver", **dict(common, max_steps=16))
     np.testing.assert_array_equal(res.labels, short.labels)
+
+
+def test_guard_rollback_waits_for_inflight_save(monkeypatch):
+    """The only clean checkpoint is still being written when the guard
+    trips: the rollback waits for it instead of finding none."""
+    from repro_torch.checkpoint import store as ckpt_store
+
+    real = ckpt_store._write_npz
+
+    def slow(f, arrays):
+        time.sleep(1.0)
+        real(f, arrays)
+
+    common = dict(seed=3, max_steps=20, sync_every=4, track_history=False)
+    plain = _run("revolver", **dict(common, max_steps=16))
+    monkeypatch.setattr(ckpt_store, "_write_npz", slow)
+    with tempfile.TemporaryDirectory() as td:
+        with faults.use_plan("nan@superstep=5"):
+            res = _run("revolver", checkpoint_dir=td, checkpoint_every=4, guard="rollback",
+                       **common)
+    # rolled back from the window of steps 4-7 to the save at 4, so 4 of
+    # the 20 loop steps were replayed
+    np.testing.assert_array_equal(res.labels, plain.labels)
 
 
 class _Recorder:

@@ -154,3 +154,28 @@ def test_check_integer_weights_holds_the_span_kernels_contract():
     with pytest.raises(ValueError, match="2\\^31"):
         blocking.check_integer_weights(np.array([[2.0 ** 30, 2.0 ** 30, 1, 1, 0, 0]],
                                                 np.float32), ptr)
+
+
+@pytest.mark.parametrize("name,n_blocks,n_shards", [
+    ("WIKI", 32, 8), ("LJ", 16, 4), ("USA", 32, 4), ("SO", 24, 8)])
+def test_block_orders_match_reference(name, n_blocks, n_shards):
+    """The block-level structure the sharded layouts assign by: the
+    edge-cut matrix (summed by bincount in the port), the greedy locality
+    order, the V-cycle order and the two criteria they rank by."""
+    g = datasets.load_dataset(name, scale=0.002)
+    bv = -(-g.n // n_blocks)
+    be = blocking.block_edges(g, block_v=bv)
+    pad = (-be.n_blocks) % n_shards
+    dst = np.concatenate([be.edge_dst, np.zeros((pad, be.e_max), np.int32)])
+    w = np.concatenate([be.edge_w, np.zeros((pad, be.e_max), np.float32)])
+    adj = blocking.block_adjacency(dst, w, bv)
+    want = jax_blocking.block_adjacency(dst, w, bv)
+    assert adj.dtype == want.dtype
+    np.testing.assert_array_equal(adj, want)
+    for fn in ("locality_block_order", "vcycle_block_order"):
+        np.testing.assert_array_equal(getattr(blocking, fn)(adj, n_shards),
+                                      getattr(jax_blocking, fn)(want, n_shards), err_msg=fn)
+    perm = np.random.default_rng(0).permutation(adj.shape[0])
+    bps = adj.shape[0] // n_shards
+    assert blocking._cross_weight(adj, perm, bps) == jax_blocking._cross_weight(adj, perm, bps)
+    assert blocking._worst_boundary(adj, perm, bps) == jax_blocking._worst_boundary(adj, perm, bps)

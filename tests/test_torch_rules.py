@@ -299,8 +299,11 @@ def test_config_validation():
             cls(k=4, chunk_schedule="bsp")
         with pytest.raises(ValueError, match="capacity_mode"):
             cls(k=4, capacity_mode="bogus")
+        # the sharded schedules are ported; hub replication is not
+        assert cls(k=4, chunk_schedule="sharded").chunk_schedule == "sharded"
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            cls(k=4, chunk_schedule="sharded")
+            run_partitioner(cls.__name__[:-6].lower(), load_dataset("WIKI", scale=0.0005), 4,
+                            device="cpu", chunk_schedule="halo", hub_replication=True)
 
 
 def test_register_out_of_tree_shard_rule(cliques):

@@ -17,6 +17,7 @@ from repro.graphs import load_dataset as jax_load_dataset
 from repro_torch.core import run_partitioner
 from repro_torch.graphs import load_dataset
 from repro_torch.launch import partition as cli
+from repro_torch.launch.mesh import BlocksMesh
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -121,18 +122,34 @@ def test_entry_points_default_to_cuda(monkeypatch):
         cli.main(["--dataset", "WIKI", "--scale", "0.0005", "--json"])
 
 
+_CPU2 = BlocksMesh([torch.device("cpu")] * 2)
+
+
+# the ids these cases had while all six raised
 @pytest.mark.parametrize("kwargs", [
     {"chunk_schedule": "sharded"},
     {"chunk_schedule": "async"},
-    {"mesh": object()},
-    {"assignment": "locality"},
+    {"mesh": _CPU2, "chunk_schedule": "sharded"},
+    {"assignment": "locality", "chunk_schedule": "sharded", "mesh": _CPU2},
     {"hub_replication": True},
-    {"staleness_bound": 1},
-], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values())))[:12])
+    {"staleness_bound": 1, "chunk_schedule": "async", "mesh": _CPU2},
+], ids=["chunk_schedule=sharded", "chunk_schedule=async", "mesh=<object obje",
+        "assignment=locality", "hub_replication=True", "staleness_bound=1"])
 def test_unported_options_raise(kwargs):
+    """ROADMAP queue 1 item 9's options: hub replication is not ported and
+    raises; the schedules, the mesh, the assignment and the staleness bound
+    run (a 1-shard sharded run is the sequential one, bit for bit)."""
     g = load_dataset("WIKI", scale=0.0005)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        run_partitioner("revolver", g, 4, device="cpu", max_steps=1, **kwargs)
+    if "hub_replication" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+            run_partitioner("revolver", g, 4, device="cpu", max_steps=1, **kwargs)
+        return
+    res = run_partitioner("revolver", g, 4, device="cpu", max_steps=3, n_blocks=4, **kwargs)
+    assert res.steps == 3 and res.labels.shape == (g.n,)
+    assert 0.0 < res.local_edges <= 1.0 and res.max_norm_load >= 1.0
+    if kwargs == {"chunk_schedule": "sharded"}:
+        seq = run_partitioner("revolver", g, 4, device="cpu", max_steps=3, n_blocks=4)
+        np.testing.assert_array_equal(res.labels, seq.labels)
 
 
 @pytest.mark.parametrize("option", ["trace", "checkpoint_dir", "guard", "resume"])

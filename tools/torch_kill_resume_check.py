@@ -1,4 +1,4 @@
-"""Kill-and-resume exactness check of the PyTorch port (sequential schedule).
+"""Kill-and-resume exactness check of the PyTorch port.
 
 Runs ``python -m repro_torch.launch.partition`` three times against the same
 dataset and seed, on ``--device`` (cpu or cuda):
@@ -20,8 +20,20 @@ resumed run did resume (``resumed_from`` > 0).
   python tools/torch_kill_resume_check.py --device cuda --scale 0.01 \
       --max-steps 30 --kill-at 12 --checkpoint-every 4 --sync-every 4
 
-Exit status 0 iff every assertion holds. The multi-device and elastic legs
-of `tools/kill_resume_check.py` wait for the port's multi-GPU schedules.
+``--chunk-schedule sharded|halo|async`` runs every phase on a mesh of
+``--shards N`` shards, all on ``--device`` (the launcher's ``--shards``), at
+an unchanged shard count; ``--halo-granularity`` and ``--staleness-bound``
+are forwarded. The reference checkpoints too (into its own directory):
+under the async schedule a checkpoint window forces a fresh exchange, so
+the reference follows the victim's refresh policy at any staleness bound.
+
+  python tools/torch_kill_resume_check.py --device cpu --scale 0.005 \
+      --max-steps 20 --kill-at 9 --chunk-schedule async --staleness-bound 1 \
+      --shards 4
+
+Exit status 0 iff every assertion holds. The elastic legs of
+`tools/kill_resume_check.py` (``--devices`` / ``--resume-devices``) wait
+for ROADMAP queue 1 item 9's second half.
 """
 from __future__ import annotations
 
@@ -71,6 +83,14 @@ def main(argv=None) -> int:
     ap.add_argument("--checkpoint-every", type=int, default=4)
     ap.add_argument("--kill-at", type=int, default=14,
                     help="superstep at which the victim run SIGKILLs itself")
+    ap.add_argument("--chunk-schedule", default="sequential",
+                    choices=["sequential", "sharded", "halo", "async"])
+    ap.add_argument("--shards", type=int, default=4,
+                    help="shards of the sharded schedules, all on --device")
+    ap.add_argument("--halo-granularity", default="auto",
+                    choices=["auto", "block", "vertex"])
+    ap.add_argument("--staleness-bound", type=int, default=0,
+                    help="async schedule: forwarded to the launcher")
     args = ap.parse_args(argv)
 
     work = tempfile.mkdtemp(prefix="torch_kill_resume_")
@@ -78,11 +98,21 @@ def main(argv=None) -> int:
     base = ["--device", args.device, "--dataset", args.dataset,
             "--scale", str(args.scale), "--k", str(args.k), "--algo", args.algo,
             "--seed", str(args.seed), "--max-steps", str(args.max_steps),
-            "--sync-every", str(args.sync_every)]
+            "--sync-every", str(args.sync_every),
+            "--chunk-schedule", args.chunk_schedule]
+    if args.chunk_schedule != "sequential":
+        base += ["--shards", str(args.shards)]
+    if args.chunk_schedule in ("halo", "async"):
+        base += ["--halo-granularity", args.halo_granularity]
+    if args.chunk_schedule == "async":
+        base += ["--staleness-bound", str(args.staleness_bound)]
     try:
-        # 1. reference (uninterrupted)
+        # 1. reference (uninterrupted; checkpointed like the victim, into a
+        # directory of its own, so both refresh the async exchange alike)
         ref_path = os.path.join(work, "ref.npz")
-        run_launcher(base + ["--labels-out", ref_path])
+        run_launcher(base + ["--labels-out", ref_path,
+                             "--checkpoint-dir", os.path.join(work, "ref_ckpt"),
+                             "--checkpoint-every", str(args.checkpoint_every)])
         ref = load_labels(ref_path, args.algo)
         print(f"reference: n={ref.size} labels")
 
@@ -117,7 +147,7 @@ def main(argv=None) -> int:
         ok = bool(np.array_equal(ref, resumed))
         diff = 0 if ok else int((ref != resumed).sum())
         print(f"resume (from step {rows[0]['resumed_from']}, device "
-              f"{args.device}): bit-identical={ok}"
+              f"{args.device}, schedule {args.chunk_schedule}): bit-identical={ok}"
               + ("" if ok else f" ({diff} differ)"))
         print("PASS" if ok else "FAIL")
         return 0 if ok else 1
