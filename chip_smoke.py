@@ -191,6 +191,29 @@ failure raises and the script exits non-zero without printing a result:
               sharded with K3 8 times a Spinner superstep and once a
               restream block, and K1/K3 on shard 3 of a block-permuted
               halo layout at WIKI 0.1
+ 17h. hub-schedules  (after 17) hub replication on Revolver's main path:
+              phase 17's cell with hubs at outdegree quantile 0.95 (the
+              8-shard per-vertex halo plan and the 1-shard plan built by
+              the host worker while phases 9-17 run): a 1-shard halo hub
+              run equals the sequential hub oracle (every state field over
+              2 windows of 5); 8 shards under halo, then async at
+              staleness 1, through ``run_partitioner`` at phase 17's
+              sequential step budget keep >= 0.90 of its 8-shard sharded
+              run's local edges with max_norm_load <= 1.30, K1 and K2 32
+              times and H1 (the hub reconcile kernel) once a superstep;
+              H1 against its plain version at the state of 10 hub
+              supersteps (winners and loads bit-equal, two calls
+              bit-equal), then timed as in phase 9 beside its bound (pass
+              1's bytes plus a shared-memory round trip per flagged slot),
+              with its slot and flagged counts; a checkpoint written by
+              the 8-shard hub run at superstep 20 restored onto 4 shards
+              and onto 1, bit-equal there (elastic restore). Hub count,
+              the vote traffic, the exchange bytes, rates and peak memory
+              printed. Its legs off the full graph run in the host
+              build's wait: H1 on a synthetic 90,000-slot table (ties,
+              slots without votes, pad slots, refused moves), and the
+              V-cycle at WIKI 0.1, sequential and with its finest level on
+              8 shards under halo with hubs, quality side by side
 
 Each model phase starts after the previous model is deleted and the
 allocator's cache emptied, with the peak memory statistics reset.
@@ -223,6 +246,11 @@ N_BLOCKS = 8
 SEED = 0
 SHARDS = 8                    # phase 17: shards on the one card
 SHARD_BLOCKS = 32             # phase 17: 4 blocks a shard
+HUB_QUANTILE = 0.95           # phase 17h: hubs at or above this outdegree quantile
+# H1's serial bound: one dependent shared-memory load per flagged slot,
+# ~30 cycles on Hopper (published microbenchmarks of the H100/H800 measure
+# 29-33 cycles), at the card's maximum SM clock (nvidia-smi)
+SMEM_ROUND_TRIP_CYCLES = 30
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
@@ -1374,17 +1402,19 @@ def states_equal(torch, a, b, fields) -> dict:
 
 
 def lockstep(torch, engine, runs: dict, steps: int, window: int, what: str) -> dict:
-    """Drive each ``{name: (algo, layout, cfg, state)}`` through ``steps``
-    supersteps side by side and require every state field (loads, block
-    fields and the generator's state included) bit-equal across them after
-    every ``window``. Returns {"windows": n, "supersteps": steps}."""
+    """Drive each ``{name: (algo, layout, cfg, state[, halo])}`` through
+    ``steps`` supersteps side by side (``halo``: the sequential schedule's
+    hub plan) and require every state field (loads, block fields and the
+    generator's state included) bit-equal across them after every
+    ``window``. Returns {"windows": n, "supersteps": steps}."""
     names = list(runs)
     states = {n: runs[n][3] for n in names}
     windows = 0
     for step in range(steps):
         for n in names:
-            algo, layout, cfg, _ = runs[n]
-            states[n] = engine.superstep(algo, layout, cfg, states[n])
+            algo, layout, cfg = runs[n][:3]
+            halo = runs[n][4] if len(runs[n]) > 4 else None
+            states[n] = engine.superstep(algo, layout, cfg, states[n], halo=halo)
         if (step + 1) % window == 0 or step + 1 == steps:
             windows += 1
             ref = states[names[0]]
@@ -1735,6 +1765,343 @@ def sharded_phase(torch, np, ops, g, dev: str = "cuda") -> dict:
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 17h: hub replication, elastic restore, the V-cycle's fine level
+# --------------------------------------------------------------------------
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), for H1's serial bound."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def h1_state_inputs(torch, sdg, state):
+    """H1's inputs at ``state`` of a hub layout, as the engine assembles
+    them after a superstep: the merged votes of the shards' label slices,
+    the current hub labels, the plan's degrees and owners, a copy of the
+    loads and the capacity."""
+    from repro_torch.core.device_graph import capacity_device
+    from repro_torch.parallel import collectives
+
+    hubs = [sh.hub for sh in sdg.shards]
+    h, ln = hubs[0], sdg.local_n
+    parts = [state.labels[s * ln:(s + 1) * ln] for s in range(sdg.n_shards)]
+    cur = collectives.hub_gather(parts, h.owner, h.local, sdg.mesh)[0]
+    votes = collectives.hub_votes(parts, [x.src for x in hubs], [x.slot for x in hubs],
+                                  [x.w for x in hubs], h.hub_pad, K, h.owner.device)
+    cap = capacity_device(sdg.m, K, 0.05, "spinner", h.owner.device)
+    return votes, cur, h.deg, h.owner, state.loads.clone(), cap
+
+
+def h1_synthetic(torch, np, dev, hub_pad: int, seed: int):
+    """A reconcile input of ``hub_pad`` slots, k 8: a tenth of the slots
+    pad (owner -1, given votes all the same), a fifth with no votes, a
+    tenth an exact tie between two labels, the rest random votes; degrees
+    1-2,000 and loads within ~6,000 of the capacity, so moves are taken and
+    refused."""
+    rng = np.random.default_rng(seed)
+    votes = rng.integers(0, 50, (hub_pad, K)).astype(np.int32)
+    kind = rng.random(hub_pad)
+    votes[kind < 0.2] = 0
+    tie = (kind >= 0.2) & (kind < 0.3)
+    ab = np.stack([rng.permutation(K)[:2] for _ in range(int(tie.sum()))])
+    votes[tie] = 0
+    votes[np.flatnonzero(tie), ab[:, 0]] = 60
+    votes[np.flatnonzero(tie), ab[:, 1]] = 60
+    owner = rng.integers(0, SHARDS, hub_pad).astype(np.int32)
+    owner[-(hub_pad // 10):] = -1
+    cur = rng.integers(0, K, hub_pad).astype(np.int32)
+    deg = rng.integers(1, 2001, hub_pad).astype(np.float32)
+    cap = np.float32(4.0e6)
+    loads = (cap - rng.integers(0, 6000, K)).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (votes, cur, deg, owner, loads)]
+    return (*t, torch.tensor(cap, device=dev))
+
+
+def check_h1(torch, inputs, what: str) -> dict:
+    """H1 against its plain version on ``inputs`` (winners and loads
+    bit-equal), and two H1 calls bit-equal. Returns the check's row."""
+    from repro_torch.kernels import hub_reconcile as h1
+
+    votes, cur, deg, owner, loads, cap = inputs
+    runs = []
+    for fn in (h1.hub_reconcile_cuda, h1.hub_reconcile_cuda, h1.hub_reconcile_plain):
+        ld = loads.clone()
+        runs.append((fn(votes, cur, deg, owner, ld, cap), ld))
+    torch.cuda.synchronize()
+    (wa, la), (wb, lb), (wp, lp) = runs
+    require(torch.equal(wa, wp) and torch.equal(la, lp),
+            f"H1 ({what}) differs from its plain version: winners equal "
+            f"{torch.equal(wa, wp)}, loads {la.tolist()} vs {lp.tolist()}")
+    require(torch.equal(wa, wb) and torch.equal(la, lb), f"H1 ({what}): two calls differ")
+    _, flagged = h1.hub_candidates(votes, cur, owner)
+    n_flagged, moved = int(flagged.sum()), int((wa != cur).sum())
+    top2 = votes.topk(2, dim=1).values
+    return {"what": what, "slots": int(votes.shape[0]), "hubs": int((owner >= 0).sum()),
+            "flagged": n_flagged, "moved": moved, "refused": n_flagged - moved,
+            "zero_vote_slots": int((votes.sum(1) == 0).sum()),
+            "tied_slots": int(((top2[:, 0] == top2[:, 1]) & (top2[:, 0] > 0)).sum()),
+            "bit_equal": True, "two_calls_bit_equal": True}
+
+
+def h1_record(torch, inputs, flush, launches: int) -> dict:
+    """H1's entry of the ``kernels`` line on ``inputs``: eager (as the
+    engine calls it) and CUDA-graph-replayed device time, median of 30 with
+    the L2 flushed, each call on a fresh copy of the loads (a [k] copy);
+    the plain version's time (3 calls: a host loop); the bound: pass 1's
+    bytes at the HBM rate plus one dependent shared-memory round trip per
+    flagged slot at the card's maximum SM clock."""
+    from repro_torch.kernels import hub_reconcile as h1
+
+    votes, cur, deg, owner, loads, cap = inputs
+    ld = loads.clone()
+
+    def kernel():
+        ld.copy_(loads)
+        return h1.hub_reconcile_cuda(votes, cur, deg, owner, ld, cap)
+
+    def plain():
+        ld.copy_(loads)
+        return h1.hub_reconcile_plain(votes, cur, deg, owner, ld, cap)
+
+    hub_pad, k = votes.shape
+    flagged = int(h1.hub_candidates(votes, cur, owner)[1].sum())
+    nbytes = hub_pad * (4 * k + 16) + 8 * k
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    clock = max_sm_clock_hz()
+    t_serial = flagged * SMEM_ROUND_TRIP_CYCLES / clock
+    return {"name": "hub_reconcile", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hub_reconcile.cu",
+            "replaces": "src/repro/core/engine.py:373",
+            "launches": launches, "max_abs_err": 0.0,
+            "ms": time_ms(torch, kernel, flush), "graph_ms": graph_ms(torch, kernel, flush),
+            "plain_ms": time_ms(torch, plain, flush, reps=3, warmup=1),
+            "bound_ms": max(t_bytes, t_serial) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_serial else "operations",
+            "library_ms": None, "slots": hub_pad, "flagged": flagged, "bytes": nbytes,
+            "bytes_ms": t_bytes * 1e3, "serial_ms": t_serial * 1e3, "max_sm_clock_hz": clock}
+
+
+def hub_side_legs(torch, np, ops, dev: str = "cuda") -> dict:
+    """Phase 17h's legs off the full graph (run in the host build's wait).
+    (1) H1 on a synthetic table of 90,000 slots (ties, slots without votes,
+    pad slots, moves refused for capacity) against its plain version, two
+    calls bit-equal. (2) The V-cycle at WIKI 0.1, k 8, 8 blocks: the
+    sequential one, then one whose finest level runs halo with hubs
+    (quantile 0.95) on 8 shards of the card, both through
+    ``run_partitioner(mode="vcycle")`` on one level stack (built once here,
+    answering both runs' ``build_level_stack`` call), every launch counter
+    set to 0 just before each run and read just after: K1 and K2 once a
+    block and superstep over the levels, H1 once a fine-level superstep;
+    quality printed side by side, max_norm_load <= 1.30. ``dev`` names the
+    card."""
+    from repro_torch.core import multilevel, run_partitioner
+    from repro_torch.graphs import load_dataset
+    from repro_torch.launch.mesh import BlocksMesh
+
+    t0 = time.perf_counter()
+    cuda = torch.device(dev, 0 if dev == "cuda" else None)
+    out = {"h1_synthetic": check_h1(torch, h1_synthetic(torch, np, cuda, 90_000, SEED + 21),
+                                    "synthetic")}
+    gs = load_dataset("WIKI", scale=0.1, seed=SEED)
+    t = time.perf_counter()
+    stack = multilevel.build_level_stack(gs, multilevel.DEFAULT_COARSE_N)
+    coarsen_s = time.perf_counter() - t
+    build_level_stack = multilevel.build_level_stack
+
+    def kept(graph, coarse_n, *args, **kwargs):
+        require(graph is gs and coarse_n == multilevel.DEFAULT_COARSE_N,
+                f"vcycle: build_level_stack(n={graph.n}, coarse_n={coarse_n})")
+        return stack
+
+    runs = {}
+    multilevel.build_level_stack = kept
+    try:
+        for name, kw in (("sequential", {}),
+                         ("fine_halo_hubs_8", dict(
+                             mesh=BlocksMesh([cuda] * SHARDS), chunk_schedule="halo",
+                             halo_threshold=2.0, hub_replication=True,
+                             hub_quantile=HUB_QUANTILE))):
+            res, wall, counts = timed_run(torch, ops, run_partitioner, gs, mode="vcycle",
+                                          n_blocks=N_BLOCKS, device=dev, **kw)
+            vc = res.vcycle
+            launches = sum(b * s for b, s in zip(vc["level_n_blocks"], vc["steps_per_level"]))
+            want = {n: launches for n in PARTITIONER_KERNELS}
+            if kw:
+                want["hub_reconcile"] = vc["steps_per_level"][0]
+            expect_launches(counts, want, f"vcycle ({name})")
+            host_metrics(np, gs, res)
+            require(res.max_norm_load <= 1.30,
+                    f"vcycle ({name}): max_norm_load {res.max_norm_load} > 1.30")
+            runs[name] = {"local_edges": res.local_edges, "max_norm_load": res.max_norm_load,
+                          "fine_steps": res.steps, "steps_per_level": vc["steps_per_level"],
+                          "level_n_blocks": vc["level_n_blocks"], "wall_s": wall,
+                          "launches": counts}
+    finally:
+        multilevel.build_level_stack = build_level_stack
+    require(runs["fine_halo_hubs_8"]["steps_per_level"][1:]
+            == runs["sequential"]["steps_per_level"][1:],
+            "vcycle: the coarse levels of the two runs differ")
+    out["vcycle"] = {"scale": 0.1, "n": gs.n, "levels": len(stack[0]),
+                     "coarsen_s": coarsen_s, **runs,
+                     "quality_ratio": (runs["fine_halo_hubs_8"]["local_edges"]
+                                       / runs["sequential"]["local_edges"])}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def hub_plans(g):
+    """Phase 17h's two host plans of full WIKI in 32 blocks, hubs at
+    quantile 0.95: the 8-shard per-vertex halo plan and the 1-shard plan of
+    the sequential hub oracle (the host worker builds them; `hub_phase`
+    without a worker calls this)."""
+    from repro_torch.core.device_graph import graph_host_arrays, plan_layout
+    from repro_torch.core.halo import HubConfig
+
+    arrays = graph_host_arrays(g, SHARD_BLOCKS)
+    hubs = HubConfig(quantile=HUB_QUANTILE)
+    spec8 = plan_layout(arrays, SHARDS, halo=True, halo_threshold=2.0,
+                        halo_granularity="vertex", hubs=hubs)[2]
+    spec1 = plan_layout(arrays, 1, halo=True, halo_threshold=2.0, hubs=hubs)[2]
+    return spec8, spec1
+
+
+def hub_phase(torch, np, ops, g, *, seq_steps: int, sharded_le: float, host=None,
+              dev: str = "cuda") -> tuple[dict, dict]:
+    """Phase 17h: hub replication on Revolver's main path, full WIKI in 32
+    blocks, k 8, sync_every 5, hubs at outdegree quantile 0.95 (the host
+    plans from the worker, built while phases 9-17 ran). (1) A 1-shard halo
+    hub run equals the sequential hub oracle, every state field over 2
+    windows of 5 supersteps. (2) 8 shards on the card, halo (per-vertex
+    plan) with hubs, through ``run_partitioner`` at phase 17's sequential
+    step budget (``seq_steps``): local_edges >= 0.90x phase 17's 8-shard
+    sharded run (``sharded_le``), max_norm_load <= 1.30, K1 and K2 32 times
+    and H1 once a superstep. (3) The same under async at staleness 1. (4)
+    H1 against its plain version at the state 10 hub supersteps give, two
+    calls bit-equal, then timed (`h1_record`). (5) Elastic restore: a
+    checkpoint written by the 8-shard hub run at superstep 20, restored
+    onto 4 shards (sharded) and onto 1 (sequential), each capped at 20:
+    labels and probabilities bit-equal. Returns (the phase's row, H1's
+    ``kernels`` record)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import engine, run_partitioner
+    from repro_torch.core.device_graph import (
+        device_graph_from_numpy,
+        graph_host_arrays,
+        hub_oracle_slabs,
+        shard_device_graph,
+        sharded_layout,
+    )
+    from repro_torch.core.registry import get_algorithm
+    from repro_torch.launch.mesh import BlocksMesh
+
+    t0 = time.perf_counter()
+    cuda = torch.device(dev, 0 if dev == "cuda" else None)
+    nb, window = SHARD_BLOCKS, 5
+    revolver = get_algorithm("revolver")
+    mesh8 = BlocksMesh([cuda] * SHARDS)
+    common = dict(n_blocks=nb, sync_every=window, device=dev)
+    hub_kw = dict(halo_threshold=2.0, hub_replication=True, hub_quantile=HUB_QUANTILE)
+    out, rates, build = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    t = time.perf_counter()
+    arrays = graph_host_arrays(g, nb)
+    build["host_arrays_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if host is None:
+        spec8, spec1 = hub_plans(g)
+    else:
+        spec8, spec1, build["worker_plan_s"] = host.hub_plans()
+    build["plan_wait_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dg = device_graph_from_numpy(arrays, cuda)
+    del arrays
+    sdg8 = sharded_layout(dg, mesh8, None, spec8)
+    sdg1 = sharded_layout(dg, BlocksMesh([cuda]), None, spec1)
+    oracle = hub_oracle_slabs(dg, spec1)
+    torch.cuda.synchronize()
+    build["upload_s"] = time.perf_counter() - t
+    xb = exchange_bytes(sdg8, revolver)
+    vote_bytes = spec8.hub_sync_elems_per_device(K, len(revolver.vertex_fields)) * 4
+    out["plan"] = {**plan_row(sdg8), "hub_count": spec8.n_hubs, "hub_pad": spec8.hub_pad,
+                   "he_max": spec8.he_max, "replica_vote_bytes": vote_bytes,
+                   "exchange_bytes": xb,
+                   "per_device_bytes_with_hubs": xb["per_device"] + vote_bytes}
+
+    # 1. one shard is the sequential hub oracle, every state field
+    cfg_seq, cfg_halo = revolver.config_cls(k=K), revolver.config_cls(k=K, chunk_schedule="halo")
+    init = revolver.init(dg, cfg_seq, torch.Generator(device=cuda).manual_seed(SEED))
+    out["one_shard_vs_oracle"] = lockstep(torch, engine, {
+        "sequential-hub-oracle": (revolver, dg, cfg_seq, clone_state(torch, init), oracle),
+        "halo-1-shard": (revolver, sdg1, cfg_halo, clone_state(torch, init))},
+        2 * window, window, "1-shard hub vs the sequential hub oracle")
+    del sdg1, oracle
+
+    # 2. and 3. 8 shards, halo then async (staleness 1), through the entry
+    # point at phase 17's step budget
+    h1_launches = 0
+    for sched, extra in (("halo", {}), ("async", {"staleness_bound": 1})):
+        res, wall, counts = timed_run(torch, ops, run_partitioner, g, dg=sdg8, mesh=mesh8,
+                                      chunk_schedule=sched, max_steps=seq_steps,
+                                      patience=10_000, **extra, **hub_kw, **common)
+        expect_launches(counts, {**{n: nb * res.steps for n in PARTITIONER_KERNELS},
+                                 "hub_reconcile": res.steps}, f"8-shard {sched} hub run")
+        host_metrics(np, g, res)
+        require(res.local_edges >= 0.90 * sharded_le,
+                f"8-shard {sched} hubs: local_edges {res.local_edges} < 0.90 x sharded "
+                f"{sharded_le}")
+        require(res.max_norm_load <= 1.30,
+                f"8-shard {sched} hubs: max_norm_load {res.max_norm_load} > 1.30")
+        rates[f"{sched}_hubs"] = res.steps / wall
+        if sched == "halo":
+            h1_launches = counts["hub_reconcile"]
+        out[sched] = {"steps": res.steps, "local_edges": res.local_edges,
+                      "quality_vs_sharded": res.local_edges / sharded_le,
+                      "max_norm_load": res.max_norm_load, "wall_s": wall,
+                      "launches": counts, **extra}
+
+    # 4. H1 at a mid-run state of the 8-shard hub layout
+    st = engine.place_state(revolver, revolver.init(
+        sdg8, cfg_halo, torch.Generator(device=cuda).manual_seed(SEED)), sdg8)
+    for _ in range(10):
+        st = engine.superstep(revolver, sdg8, cfg_halo, st)
+    inputs = h1_state_inputs(torch, sdg8, st)
+    out["h1_mid_run"] = check_h1(torch, inputs, "full WIKI after 10 hub supersteps")
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=cuda)
+    record = h1_record(torch, inputs, flush, h1_launches)
+    del flush, inputs, st
+
+    # 5. elastic restore: written on 8 shards at 20, restored onto 4 and 1
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    ck = dict(checkpoint_dir=str(work), checkpoint_every=10, keep_probs=True, max_steps=20,
+              patience=10_000)
+    cut = run_partitioner("revolver", g, K, seed=SEED, dg=sdg8, mesh=mesh8,
+                          chunk_schedule="halo", **hub_kw, **ck, **common)
+    elastic = {}
+    mesh4 = BlocksMesh([cuda] * 4)
+    for name, kw in (("4_shards", dict(dg=shard_device_graph(dg, mesh4), mesh=mesh4,
+                                       chunk_schedule="sharded")),
+                     ("1_shard", dict(dg=dg))):
+        r = run_partitioner("revolver", g, K, seed=SEED, resume=True, **kw, **ck, **common)
+        require(r.resumed_from == 20 and r.steps == 20
+                and np.array_equal(r.labels, cut.labels) and np.array_equal(r.probs, cut.probs),
+                f"elastic restore 8 -> {name}: from {r.resumed_from}, labels equal "
+                f"{np.array_equal(r.labels, cut.labels)}")
+        elastic[name] = {"resumed_from": r.resumed_from, "bit_equal": True}
+    shutil.rmtree(work, ignore_errors=True)
+    out["elastic_restore"] = {"written_on": SHARDS, "step": 20, **elastic}
+    out["supersteps_per_s"] = rates
+    out["build_s"] = build
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t0
+    return out, record
+
 
 def k3_timed(torch, dg, flush, seed: int) -> dict:
     """K3 at the main path's two shapes, Spinner's launch over all blocks
@@ -2448,11 +2815,15 @@ def recv_raw(conn):
 
 
 def host_worker(conn, seed: int) -> None:
-    """Builds WIKI at full size and sends it, then coarsens it as the
-    V-cycle does (`build_level_stack(g, DEFAULT_COARSE_N)`) and sends the
-    levels one at a time. Numpy on one core, in a process of its own, so it
-    shares no interpreter lock with the phases that issue the launches. A
-    failure is sent as its traceback."""
+    """Builds WIKI at full size and sends it; then builds phase 17h's host
+    hub plans (`hub_plans`), writes them to a file and sends its path (a
+    small message: the pipe does not block until phase 17h reads it);
+    then coarsens the graph as the V-cycle does
+    (`build_level_stack(g, DEFAULT_COARSE_N)`) and sends the levels one at
+    a time. Numpy on one core, in a process of its own, so it shares no
+    interpreter lock with the phases that issue the launches. A failure is
+    sent as its traceback."""
+    import tempfile
     import traceback
 
     try:
@@ -2463,6 +2834,13 @@ def host_worker(conn, seed: int) -> None:
         t = time.perf_counter()
         g = load_dataset("WIKI", scale=1.0, seed=seed)
         send_raw(conn, ("graph", g, time.perf_counter() - t))
+        t = time.perf_counter()
+        plans = hub_plans(g)
+        path = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_hubplan_")) / "plans.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(plans, f, protocol=5)
+        del plans
+        send_raw(conn, ("hubplan", str(path), time.perf_counter() - t))
         t = time.perf_counter()
         graphs, cmaps = multilevel.build_level_stack(g, multilevel.DEFAULT_COARSE_N)
         send_raw(conn, ("levels", len(cmaps), time.perf_counter() - t))
@@ -2505,6 +2883,17 @@ class HostWorker:
         """(the full WIKI graph, the worker's seconds building it)."""
         return self._recv("graph")
 
+    def hub_plans(self):
+        """(phase 17h's 8-shard and 1-shard hub plans, the worker's seconds
+        building them); the file they came in is removed."""
+        path, seconds = self._recv("hubplan")
+        path = pathlib.Path(path)
+        with open(path, "rb") as f:
+            spec8, spec1 = pickle.load(f)
+        path.unlink()
+        path.parent.rmdir()
+        return spec8, spec1, seconds
+
     def level_stack(self):
         """(levels 1 and up, their coarse maps, the worker's seconds
         coarsening) as `build_level_stack` returns them, level 0 left out."""
@@ -2546,7 +2935,7 @@ def main() -> int:
 
 
 def run_phases(torch, host: HostWorker, t_start: float) -> int:
-    """Phases 1-17 in the order of the module docstring; every check
+    """Phases 1-17h in the order of the module docstring; every check
     raises."""
     import numpy as np
 
@@ -2660,6 +3049,10 @@ def run_phases(torch, host: HostWorker, t_start: float) -> int:
     # Spinner and restream on 8 shards at WIKI 0.1
     emit({"phase": "sharded-side", "graph_built": host.ready(),
           **sharded_side_legs(torch, np, ops)})
+    # 17h (its legs off the full graph, in the same wait): H1 on a synthetic
+    # table, the V-cycle with a sharded hub finest level at WIKI 0.1
+    emit({"phase": "hub-side", "graph_built": host.ready(),
+          **hub_side_legs(torch, np, ops)})
 
     # 8. graph: full-size WIKI, host build (started above) then device layout
     t = time.perf_counter()
@@ -2838,7 +3231,17 @@ def run_phases(torch, host: HostWorker, t_start: float) -> int:
     # 17. the sharded, halo and async schedules on the main path: 8 shards
     # on the one card, 32 blocks
     next_model(torch)
-    emit({"phase": "sharded-schedules", **sharded_phase(torch, np, ops, g)})
+    sharded = sharded_phase(torch, np, ops, g)
+    emit({"phase": "sharded-schedules", **sharded})
+
+    # 17h. hub replication on the main path (8 shards, the host plans from
+    # the worker), H1 against its plain version and timed, elastic restore
+    next_model(torch)
+    hub_row, records["hub_reconcile"] = hub_phase(
+        torch, np, ops, g, seq_steps=sharded["one_shard"]["steps"],
+        sharded_le=sharded["main"]["local_edges"], host=host)
+    emit({"phase": "hub-schedules", **hub_row})
+    emit(records["hub_reconcile"])
 
     # 11c. streaming repartitioning of phase 8's graph, through StreamRunner,
     # and 11d. the multilevel V-cycle on it. They run last: the card idles

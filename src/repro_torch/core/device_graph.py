@@ -21,8 +21,10 @@ The sharded layout (`ShardedDeviceGraph`, `shard_device_graph`,
 `prepare_sharded_device_graph`) is `repro`'s over the port's single-process
 mesh (`repro_torch.launch.mesh`): the whole layout stays on the mesh's home
 device, and each shard's slabs, span plan and halo plan sit on its own
-device. Layout transforms (alignment, block permutation, the halo plan) run
-on the host copy and upload once.
+device. Layout transforms (alignment, block permutation, the halo plan and
+its hub replication plan) run on the host copy and upload once; each
+shard's part of the hub plan is a `HubSlabs`. `hub_oracle_slabs` uploads a
+1-shard plan for the sequential hub schedule.
 """
 from __future__ import annotations
 
@@ -371,15 +373,37 @@ def resolve_assignment(arrays: dict, n_shards: int, assignment):
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class HubSlabs:
+    """One shard's part of a halo plan's hub replication, on the shard's
+    device: the plan vectors (replicated on every shard's device), the
+    shard's vote slab and its vertex mask with the hubs cleared."""
+
+    owner: torch.Tensor          # [hub_pad] int32 owner shard (-1 pad)
+    local: torch.Tensor          # [hub_pad] int64 row in the owner's slice (0 pad)
+    deg: torch.Tensor            # [hub_pad] f32 outdegree (0 pad)
+    ids: torch.Tensor            # [n_hubs] int64 the hubs' storage ids
+    src: torch.Tensor            # [he_max] int64 local row of each vote (0 pad)
+    slot: torch.Tensor           # [he_max] int64 hub slot it votes for (0 pad)
+    w: torch.Tensor              # [he_max] int32 its weight (0 pad)
+    vmask_nonhub: torch.Tensor   # [local_n] bool real, non-hub vertices
+
+    @property
+    def hub_pad(self) -> int:
+        return self.owner.shape[0]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class ShardSlabs:
     """One shard's slice of a sharded layout, on the shard's device.
 
     On the layout's home device these are views of the whole layout's
     tensors; on another device, copies. ``blk_dst`` holds global (storage)
     vertex ids, ``blk_dst_halo`` the same slabs rewritten into the shard's
-    ``local + halo`` buffer space (halo layouts only). The span plan was
-    derived from the shard's own row pointers (`SpanPlan.from_row_ptr`); the
-    halo rewrite changes ids, not rows, so both slabs share it.
+    ``local + halo + hub`` buffer space (halo layouts only). The span plan
+    was derived from the shard's own row pointers (`SpanPlan.from_row_ptr`);
+    the halo rewrite changes ids, not rows, so both slabs share it. ``hub``
+    is the shard's part of the hub plan (halo layouts with hubs only); the
+    halo and async schedules then scan with its ``vmask_nonhub``.
     """
 
     device: torch.device
@@ -394,6 +418,7 @@ class ShardSlabs:
     blk_dst_halo: Optional[torch.Tensor] = None   # [bps, e_max] int32 buffer ids
     halo_rows: Optional[torch.Tensor] = None      # [b_max] int64 own blocks sent
     send_ids: Optional[torch.Tensor] = None       # [S, h_max] int64 rows sent to each shard
+    hub: Optional[HubSlabs] = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -415,6 +440,7 @@ class ShardedDeviceGraph:
 
     **Halo exchange**: ``halo`` is the numpy `HaloSpec` of the
     ``"halo"`` / ``"async"`` schedules (None: only the full gather runs).
+    A spec with hubs (``hubs_on``) gives every shard its `HubSlabs`.
     """
 
     dg: DeviceGraph
@@ -438,6 +464,11 @@ class ShardedDeviceGraph:
     def local_n(self) -> int:
         return self.blocks_per_shard * self.dg.block_v
 
+    @property
+    def hubs_on(self) -> bool:
+        """Whether the halo and async schedules replicate hubs here."""
+        return self.shards[0].hub is not None
+
 
 def vertices_to_original(sdg, x: torch.Tensor) -> torch.Tensor:
     """Reindex a storage-order per-vertex tensor into original vertex order
@@ -453,15 +484,12 @@ def plan_layout(arrays: dict, n_shards: int, *, assignment="contiguous", halo: b
                 hubs: Optional[HubConfig] = None, interior_first: bool = False):
     """The host half of a sharded layout: align ``arrays`` (`host_arrays`)
     to ``n_shards``, resolve and apply the assignment, and build the halo
-    plan. ``interior_first`` composes `interior_first_order` on top (the
-    async schedule's layout: each shard's interior blocks first) and plans
-    again. Returns ``(arrays, perm, spec)``: storage-order arrays, the
-    block permutation (None: natural order) and the `HaloSpec` (None
-    without ``halo``)."""
-    if hubs is not None:
-        raise NotImplementedError(
-            "hub replication is not ported yet; it comes with ROADMAP queue 1 item 9 "
-            "(multi-GPU schedules, second half)")
+    plan, with hub replication when ``hubs`` is given (ignored without
+    ``halo``, as in `repro`). ``interior_first`` composes
+    `interior_first_order` on top (the async schedule's layout: each
+    shard's interior blocks first) and plans again. Returns ``(arrays,
+    perm, spec)``: storage-order arrays, the block permutation (None:
+    natural order) and the `HaloSpec` (None without ``halo``)."""
     aligned = _align_host(arrays, n_shards)
     perm = resolve_assignment(aligned, n_shards, assignment)
 
@@ -469,8 +497,7 @@ def plan_layout(arrays: dict, n_shards: int, *, assignment="contiguous", halo: b
         laid = _permute_host(aligned, perm) if perm is not None else aligned
         spec = None
         if halo:
-            spec = build_halo_spec(laid["blk_dst"], laid["blk_w"], n_shards, laid["block_v"],
-                                   threshold=halo_threshold, granularity=halo_granularity)
+            spec = _halo_spec(laid, n_shards, halo_threshold, halo_granularity, hubs)
         return laid, spec
 
     laid, spec = plan(perm)
@@ -482,9 +509,67 @@ def plan_layout(arrays: dict, n_shards: int, *, assignment="contiguous", halo: b
     return laid, perm, spec
 
 
+def _halo_spec(laid: dict, n_shards: int, threshold: float, granularity: str,
+               hubs: Optional[HubConfig]) -> HaloSpec:
+    """`build_halo_spec` of storage-order host arrays (with the per-vertex
+    arrays and row slabs the hub plan reads)."""
+    extra = {}
+    if hubs is not None:
+        extra = dict(hubs=hubs, deg=np.asarray(laid["deg_out"]),
+                     vmask=np.asarray(laid["vmask"]), blk_row=np.asarray(laid["blk_row"]))
+    return build_halo_spec(np.asarray(laid["blk_dst"]), np.asarray(laid["blk_w"]), n_shards,
+                           laid["block_v"], threshold=threshold, granularity=granularity,
+                           **extra)
+
+
+def device_halo_spec(dg: DeviceGraph, n_shards: int,
+                     threshold: float = DEFAULT_HALO_THRESHOLD, granularity: str = "auto",
+                     hubs: Optional[HubConfig] = None) -> HaloSpec:
+    """The halo plan, with ``hubs`` its hub plan, of ``dg``'s storage-order
+    slabs over ``n_shards`` shards (the arrays it reads downloaded once);
+    ``n_shards=1`` with hubs is the sequential hub oracle's plan."""
+    names = ("blk_dst", "blk_w") + (("blk_row", "deg_out", "vmask") if hubs is not None else ())
+    laid = {f: getattr(dg, f).cpu().numpy() for f in names}
+    return _halo_spec(dict(laid, block_v=dg.block_v), n_shards, threshold, granularity, hubs)
+
+
+def _check_vote_sums(spec: HaloSpec) -> None:
+    """The vote table's contract: the integer weights that vote for one hub
+    slot, over every shard, sum below 2^31 (the span kernels' check,
+    `check_integer_weights`, on each slot's sum), so the int32 table is
+    exact. Raises ValueError otherwise."""
+    sums = np.bincount(spec.hub_slot.reshape(-1), weights=spec.hub_w.reshape(-1),
+                       minlength=spec.hub_pad)
+    try:
+        check_integer_weights(sums[None, :], np.arange(spec.hub_pad + 1)[None, :])
+    except ValueError as e:
+        raise ValueError(f"the hub vote table's int32 sums: {e}") from e
+
+
+def _hub_slabs(spec: HaloSpec, s: int, dev: torch.device, repl: dict) -> HubSlabs:
+    """Shard ``s``'s `HubSlabs` on ``dev``; ``repl`` caches the replicated
+    plan vectors per device."""
+    if dev not in repl:
+        n, local_n = spec.n_hubs, spec.local_n
+        ids = (spec.hub_owner[:n].astype(np.int64) * local_n
+               + spec.hub_local[:n].astype(np.int64))
+        repl[dev] = dict(
+            owner=torch.from_numpy(spec.hub_owner.astype(np.int32)).to(dev),
+            local=torch.from_numpy(spec.hub_local.astype(np.int64)).to(dev),
+            deg=torch.from_numpy(spec.hub_deg.astype(np.float32)).to(dev),
+            ids=torch.from_numpy(ids).to(dev))
+    verts = slice(s * spec.local_n, (s + 1) * spec.local_n)
+    return HubSlabs(
+        **repl[dev],
+        src=torch.from_numpy(spec.hub_src[s].astype(np.int64)).to(dev),
+        slot=torch.from_numpy(spec.hub_slot[s].astype(np.int64)).to(dev),
+        w=torch.from_numpy(spec.hub_w[s].astype(np.int32)).to(dev),
+        vmask_nonhub=torch.from_numpy(np.ascontiguousarray(spec.vmask_nonhub[verts])).to(dev))
+
+
 def _upload_shards(dg: DeviceGraph, mesh, spec: Optional[HaloSpec]):
     """Each shard's `ShardSlabs` on its device (views of ``dg`` on the home
-    device), with the halo plan's slabs and exchange indices."""
+    device), with the halo plan's slabs, exchange indices and hub plan."""
     n_shards = mesh.n_shards
     bps = dg.n_blocks // n_shards
     bv = dg.block_v
@@ -492,6 +577,10 @@ def _upload_shards(dg: DeviceGraph, mesh, spec: Optional[HaloSpec]):
     row_ptr = dg.blk_row_ptr.cpu().numpy()
     halo_dst = {}
     use_halo = spec is not None and not spec.fallback
+    use_hubs = use_halo and spec.hub_owner is not None
+    if use_hubs:
+        _check_vote_sums(spec)
+    hub_repl: dict = {}
     shards = []
     for s, dev in enumerate(mesh.devices):
         blocks = slice(s * bps, (s + 1) * bps)
@@ -510,6 +599,8 @@ def _upload_shards(dg: DeviceGraph, mesh, spec: Optional[HaloSpec]):
             else:
                 extra["halo_rows"] = torch.from_numpy(
                     spec.boundary_rows[s].astype(np.int64)).to(dev)
+        if use_hubs:
+            extra["hub"] = _hub_slabs(spec, s, dev, hub_repl)
         shards.append(ShardSlabs(
             device=dev,
             blk_dst=place(dg.blk_dst[blocks]), blk_row=place(dg.blk_row[blocks]),
@@ -520,7 +611,34 @@ def _upload_shards(dg: DeviceGraph, mesh, spec: Optional[HaloSpec]):
     return tuple(shards)
 
 
-def _sharded(dg: DeviceGraph, mesh, perm, spec) -> ShardedDeviceGraph:
+def hub_oracle_slabs(dg: DeviceGraph, spec: HaloSpec) -> Optional[ShardSlabs]:
+    """The sequential hub schedule's layout (`repro`'s 1-shard hub oracle):
+    ``dg``'s slabs rewritten into the ``[n_pad | hub]`` buffer by the
+    1-shard ``spec``, with its `HubSlabs`, on ``dg``'s device (the other
+    fields are ``dg``'s own tensors). None when the plan carries no hubs or
+    fell back."""
+    if spec.n_shards != 1:
+        raise ValueError("the sequential schedule takes a 1-shard halo plan; got "
+                         f"n_shards={spec.n_shards}")
+    if spec.fallback or spec.hub_owner is None:
+        return None
+    _check_vote_sums(spec)
+    dev = dg.device
+    return ShardSlabs(
+        device=dev, blk_dst=dg.blk_dst, blk_row=dg.blk_row, blk_w=dg.blk_w,
+        blk_row_ptr=dg.blk_row_ptr, blk_spans=dg.blk_spans, deg=dg.deg_out,
+        inv_wsum=dg.inv_wsum, vmask=dg.vmask,
+        blk_dst_halo=torch.from_numpy(np.ascontiguousarray(spec.blk_dst_halo)).to(dev),
+        hub=_hub_slabs(spec, 0, dev, {}))
+
+
+def sharded_layout(dg: DeviceGraph, mesh, perm: Optional[np.ndarray] = None,
+                   spec: Optional[HaloSpec] = None) -> ShardedDeviceGraph:
+    """The `ShardedDeviceGraph` of a planned layout: ``dg`` holds
+    `plan_layout`'s storage-order arrays on the mesh's home device, ``perm``
+    and ``spec`` are its block permutation and halo plan (a plan made
+    elsewhere, e.g. in another process, is placed here without planning
+    again)."""
     o2s = s2o = o2s_t = s2o_t = None
     if perm is not None:
         o2s, s2o = block_vertex_perms(perm, dg.block_v)
@@ -553,7 +671,7 @@ def shard_device_graph(dg: DeviceGraph, mesh, *, assignment="contiguous", halo: 
         raise ValueError(f"dg lives on {dg.device}, the mesh's home device is {mesh.home}")
     if (assignment is None or (isinstance(assignment, str) and assignment == "contiguous")) \
             and not halo and hubs is None and dg.n_blocks % mesh.n_shards == 0:
-        return _sharded(dg, mesh, None, None)
+        return sharded_layout(dg, mesh)
     arrays = host_arrays(dg)
     laid, perm, spec = plan_layout(
         arrays, mesh.n_shards, assignment=assignment, halo=halo,
@@ -561,19 +679,16 @@ def shard_device_graph(dg: DeviceGraph, mesh, *, assignment="contiguous", halo: 
         interior_first=interior_first)
     if laid is not arrays:
         dg = device_graph_from_numpy(laid, mesh.home)
-    return _sharded(dg, mesh, perm, spec)
+    return sharded_layout(dg, mesh, perm, spec)
 
 
 def attach_halo(sdg: ShardedDeviceGraph, halo_threshold: float = DEFAULT_HALO_THRESHOLD, *,
                 halo_granularity: str = "auto",
                 hubs: Optional[HubConfig] = None) -> ShardedDeviceGraph:
-    """Build (or rebuild) the halo plan of an already laid-out sharded
-    layout, keeping its storage order."""
-    if hubs is not None:
-        plan_layout({}, 1, hubs=hubs)      # raises: not ported yet
-    spec = build_halo_spec(sdg.dg.blk_dst.cpu().numpy(), sdg.dg.blk_w.cpu().numpy(),
-                           sdg.n_shards, sdg.block_v, threshold=halo_threshold,
-                           granularity=halo_granularity)
+    """Build (or rebuild) the halo plan, and with ``hubs`` its hub
+    replication plan, of an already laid-out sharded layout, keeping its
+    storage order."""
+    spec = device_halo_spec(sdg.dg, sdg.n_shards, halo_threshold, halo_granularity, hubs)
     return dataclasses.replace(sdg, halo=spec,
                                shards=_upload_shards(sdg.dg, sdg.mesh, spec))
 
@@ -601,4 +716,4 @@ def shard_host_arrays(arrays: dict, mesh, **knobs) -> ShardedDeviceGraph:
     upload. Several layouts of one graph share its host arrays."""
     laid, perm, spec = plan_layout(arrays, mesh.n_shards, **knobs)
     dg = device_graph_from_numpy(laid, mesh.home)
-    return _sharded(dg, mesh, perm, spec)
+    return sharded_layout(dg, mesh, perm, spec)

@@ -52,7 +52,18 @@ of several shards the engine runs each shard's rule in its own thread, one
 at a time in shard order, meeting at every collective (`_Lockstep`), so the
 launch order is the same every run.
 
-What waits for the next slice: hub replication (ROADMAP queue 1 item 9).
+**Hub replication** (a halo layout whose plan carries hubs, `HubSlabs`):
+the hubs' labels are appended to every shard's view after its halo tail
+(the async schedule's cached tail carries them too), the hubs are frozen
+during the scan (the rules see ``vmask_nonhub``), and once a superstep,
+after the load merge, `repro`'s vote reconcile decides their labels: the
+shards' int32 vote tables are merged, the current hub labels assembled,
+and the capacity-gated walk over the hub slots (H1,
+`repro_torch.kernels.hub_reconcile`) runs once, on the mesh's home device
+(`repro` runs it on every shard, with the same result), its winners
+written into the owners' slices. ``superstep(..., halo=)`` with a 1-shard
+plan runs the same machinery on the sequential schedule: `repro`'s hub
+oracle, which a 1-shard hub run equals bit for bit.
 """
 from __future__ import annotations
 
@@ -66,11 +77,15 @@ import torch
 from repro_torch import obs
 from repro_torch.core.device_graph import (
     DeviceGraph,
+    HubSlabs,
     ShardedDeviceGraph,
+    ShardSlabs,
     SpanPlan,
     capacity_device,
+    hub_oracle_slabs,
     scalar_device,
 )
+from repro_torch.core.halo import HaloSpec
 from repro_torch.core.metrics import bin_sums
 from repro_torch.parallel import collectives
 
@@ -270,10 +285,36 @@ def score_sum(best: torch.Tensor, vmask: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.where(vmask, best, 0.0), dtype=torch.float64).to(torch.float32)
 
 
-def _chunk_superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, cap, draws):
-    """The sequential block loop; returns (loads, score sum)."""
+class _HubComm:
+    """The sequential hub schedule's collectives: one shard, whose gather
+    appends the hub region (`repro`'s ``hub_gather`` with ``axis=None``)."""
+
+    kind = "hub-assemble"
+
+    def __init__(self, hub: HubSlabs):
+        self.hub = hub
+
+    def gather(self, idx: int, x: torch.Tensor) -> torch.Tensor:
+        region = collectives.hub_gather([x], self.hub.owner, self.hub.local, None)[0]
+        return torch.cat([x, region])
+
+    def psum(self, idx: int, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def _chunk_superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, cap, draws,
+                     oracle: Optional[ShardSlabs] = None):
+    """The sequential block loop; returns (loads, score sum). With ``oracle``
+    (the sequential hub schedule) the blocks read the ``[n_pad | hub]``
+    buffer through its rewritten slabs, with the hubs frozen."""
     bv = dg.block_v
-    vert = {f: getattr(state, f) for f in algo.vertex_fields}
+    if oracle is None:
+        vert = {f: getattr(state, f) for f in algo.vertex_fields}
+        dst, vmask = dg.blk_dst, dg.vmask
+    else:
+        comm = _HubComm(oracle.hub)
+        vert = {f: comm.gather(0, getattr(state, f)) for f in algo.vertex_fields}
+        dst, vmask = oracle.blk_dst_halo, oracle.hub.vmask_nonhub
     blocks = {f: getattr(state, f) for f in algo.block_fields}
     repl = {f: getattr(state, f) for f in algo.replicated_fields}
     loads = state.loads     # rules return new load tensors
@@ -281,10 +322,10 @@ def _chunk_superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, cap, draws):
     for b in range(dg.n_blocks):
         v0 = b * bv
         ctx = ChunkContext(
-            blk_idx=b, v0=v0, gv0=v0, e_dst=dg.blk_dst[b], e_row=dg.blk_row[b],
+            blk_idx=b, v0=v0, gv0=v0, e_dst=dst[b], e_row=dg.blk_row[b],
             e_w=dg.blk_w[b], row_ptr=dg.blk_row_ptr[b], spans=dg.blk_spans.block(b),
             deg=dg.deg_out[v0:v0 + bv], inv_wsum=dg.inv_wsum[v0:v0 + bv],
-            vmask=dg.vmask[v0:v0 + bv], step=state.step, n_shards=1,
+            vmask=vmask[v0:v0 + bv], step=state.step, n_shards=1,
             loads0=state.loads, repl=repl, draws=draws)
         upd = algo.chunk_rule(cfg, ctx, vert, {f: t[b] for f, t in blocks.items()},
                               loads, cap, state.gen)
@@ -294,18 +335,25 @@ def _chunk_superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, cap, draws):
             blocks[f][b] = new
         loads = upd.loads
         score = score + upd.score
+    if oracle is not None:
+        for f, v in vert.items():
+            getattr(state, f).copy_(v[:dg.n_pad])
     return loads, score
 
 
-def _shard_superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, cap, draws):
-    """The shard rule once over every slab; returns (loads, score sum)."""
+def _shard_superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, cap, draws,
+                     oracle: Optional[ShardSlabs] = None):
+    """The shard rule once over every slab; returns (loads, score sum).
+    With ``oracle`` the rule gathers the ``[n_pad | hub]`` buffer through the
+    rewritten slabs, with the hubs frozen."""
     ctx = ShardContext(
         n_pad=dg.n_pad, local_n=dg.n_pad, block_v=dg.block_v,
-        blocks=dg.n_blocks, v0=0, blk_dst=dg.blk_dst, blk_row=dg.blk_row,
-        blk_w=dg.blk_w, blk_row_ptr=dg.blk_row_ptr, blk_spans=dg.blk_spans,
-        deg=dg.deg_out, inv_wsum=dg.inv_wsum, vmask=dg.vmask, step=state.step,
+        blocks=dg.n_blocks, v0=0, blk_dst=dg.blk_dst if oracle is None else oracle.blk_dst_halo,
+        blk_row=dg.blk_row, blk_w=dg.blk_w, blk_row_ptr=dg.blk_row_ptr,
+        blk_spans=dg.blk_spans, deg=dg.deg_out, inv_wsum=dg.inv_wsum,
+        vmask=dg.vmask if oracle is None else oracle.hub.vmask_nonhub, step=state.step,
         repl={f: getattr(state, f) for f in algo.replicated_fields},
-        draws=draws)
+        draws=draws, comm=None if oracle is None else _HubComm(oracle.hub))
     local = {f: getattr(state, f) for f in algo.vertex_fields}
     upd = algo.shard_rule(cfg, ctx, local, state.loads, cap, state.gen)
     for f, new in upd.vert.items():
@@ -314,6 +362,28 @@ def _shard_superstep(algo: Algorithm, dg: DeviceGraph, cfg, state, cap, draws):
 
 
 _BODIES = {"chunk": _chunk_superstep, "shard": _shard_superstep}
+
+
+def _hub_reconcile(hubs: List[HubSlabs], parts: List[torch.Tensor], mesh, cfg, m: int,
+                   loads: torch.Tensor, labels: torch.Tensor) -> None:
+    """`repro`'s ``_hub_reconcile``, once, on the device of ``hubs[0]`` (the
+    home device): the shards' vote tables from their post-scan label slices
+    ``parts``, merged; the current hub labels assembled from the same
+    slices; H1's capacity-gated walk over the slots, which updates
+    ``loads`` in place; the winners written into ``labels`` (storage order,
+    whole, on the home device)."""
+    from repro_torch.kernels import ops
+
+    h = hubs[0]
+    dev = h.owner.device
+    with obs.annotate("halo-exchange", kind="hub-votes"):
+        cur = collectives.hub_gather(parts, h.owner, h.local, mesh)[0]
+        votes = collectives.hub_votes(parts, [x.src for x in hubs], [x.slot for x in hubs],
+                                      [x.w for x in hubs], h.hub_pad, cfg.k, dev)
+    cap = capacity_device(m, cfg.k, cfg.epsilon, cfg.capacity_mode, dev)
+    with obs.annotate("hub-reconcile", kernel="hub_reconcile", slots=h.hub_pad):
+        winners = ops.hub_reconcile(votes, cur, h.deg, h.owner, loads, cap)
+    labels.index_copy_(0, h.ids, winners[:h.ids.shape[0]])
 
 
 # ---------------------------------------------------------------------------
@@ -338,15 +408,22 @@ def _exchange_kind(sdg: ShardedDeviceGraph, halo: bool) -> str:
 
 def _halo_tails(sdg: ShardedDeviceGraph, xs: List[torch.Tensor],
                 wire: Optional[torch.dtype]) -> List[torch.Tensor]:
-    """One field's exchanged tail per shard, by the layout's plan."""
+    """One field's exchanged tail per shard, by the layout's plan, followed
+    by the hub region when the plan replicates hubs (at storage width)."""
     spec = sdg.halo
     if spec.granularity == "vertex":
-        return collectives.vertex_halo_exchange(
+        tails = collectives.vertex_halo_exchange(
             xs, [sh.send_ids for sh in sdg.shards], sdg.mesh, wire_dtype=wire)
-    if spec.b_max == 0:                  # no cross-shard reference at all
-        return [x.new_zeros((0,)) for x in xs]
-    return collectives.halo_exchange(xs, [sh.halo_rows for sh in sdg.shards], sdg.mesh,
-                                     sdg.blocks_per_shard, sdg.block_v)
+    elif spec.b_max == 0:                # no cross-shard reference at all
+        tails = [x.new_zeros((0,)) for x in xs]
+    else:
+        tails = collectives.halo_exchange(xs, [sh.halo_rows for sh in sdg.shards], sdg.mesh,
+                                          sdg.blocks_per_shard, sdg.block_v)
+    if sdg.hubs_on:
+        hub = sdg.shards[0].hub
+        region = collectives.hub_gather(xs, hub.owner, hub.local, sdg.mesh)
+        tails = [torch.cat([t, r]) for t, r in zip(tails, region)]
+    return tails
 
 
 def _wire(algo: Algorithm, cfg, field: str) -> Optional[torch.dtype]:
@@ -391,11 +468,13 @@ def _exchange_on_side_stream(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, xs):
 class _ShardScan:
     """One shard's superstep state under a chunk schedule: its drifting
     view (``vert``), its block tiles (``blocks``: views of the state on the
-    home device, else copies), loads, score and generator."""
+    home device, else copies), loads, score and generator. With hubs on the
+    scan reads the hub-frozen vertex mask."""
 
     def __init__(self, algo, sdg, cfg, state, s, gen, draws, halo):
         sh = sdg.shards[s]
         self.s, self.sh, self.dev = s, sh, sh.device
+        self.vmask = sh.hub.vmask_nonhub if halo and sh.hub is not None else sh.vmask
         bps = sdg.blocks_per_shard
         self.blocks = {f: _to(getattr(state, f)[s * bps:(s + 1) * bps], self.dev)
                        for f in algo.block_fields}
@@ -418,7 +497,7 @@ class _ShardScan:
             ctx = ChunkContext(
                 blk_idx=b, v0=v0, gv0=b * bv, e_dst=dst[i], e_row=sh.blk_row[i],
                 e_w=sh.blk_w[i], row_ptr=sh.blk_row_ptr[i], spans=sh.blk_spans.block(i),
-                deg=sh.deg[lv], inv_wsum=sh.inv_wsum[lv], vmask=sh.vmask[lv], step=step,
+                deg=sh.deg[lv], inv_wsum=sh.inv_wsum[lv], vmask=self.vmask[lv], step=step,
                 n_shards=sdg.n_shards, loads0=self.loads0, repl=self.repl, draws=self.draws)
             upd = algo.chunk_rule(cfg, ctx, self.vert,
                                   {f: t[i] for f, t in self.blocks.items()},
@@ -460,8 +539,10 @@ def _sharded_chunk_superstep(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, stat
     score, the exchanged tails read). ``split`` runs the async form: each
     shard's first ``split`` blocks scan against its own slice while the
     exchange runs (or ``cache``, an earlier superstep's tails, is reused),
-    the rest against its ``local + tail`` buffer."""
+    the rest against its ``local + tail`` buffer. A halo plan with hubs
+    reconciles them after the load merge."""
     fields = algo.vertex_fields
+    hubs = halo and sdg.hubs_on
     gens = collectives.shard_chain_key(state.gen, sdg.mesh)
     xs = {f: _vertex_slices(sdg, getattr(state, f)) for f in fields}
     runs = [_ShardScan(algo, sdg, cfg, state, s, gens[s], draws, halo)
@@ -470,7 +551,7 @@ def _sharded_chunk_superstep(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, stat
     bps = sdg.blocks_per_shard
     tails = None
     if split is None:
-        with obs.annotate("halo-exchange", kind=kind, hubs=0, fields=len(fields)):
+        with obs.annotate("halo-exchange", kind=kind, hubs=int(hubs), fields=len(fields)):
             if halo:
                 tails = _exchange(algo, sdg, cfg, xs)
                 for r in runs:
@@ -489,7 +570,7 @@ def _sharded_chunk_superstep(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, stat
         # `tools/trace_report.py --validate` checks)
         with obs.annotate("interior-scan", schedule="async", blocks=split, refresh=int(refresh)):
             if refresh:
-                with obs.annotate("halo-exchange", kind=kind, hubs=0, fields=len(fields),
+                with obs.annotate("halo-exchange", kind=kind, hubs=int(hubs), fields=len(fields),
                                   overlap=1):
                     tails, event = _exchange_on_side_stream(algo, sdg, cfg, xs)
             else:
@@ -504,6 +585,9 @@ def _sharded_chunk_superstep(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, stat
             r.vert = {f: torch.cat([r.vert[f], tails[f][r.s]]) for f in fields}
             r.scan(algo, sdg, cfg, state.step, range(split, bps))
     loads, score = _merge(algo, sdg, state, runs, fields, algo.block_fields)
+    if hubs:
+        _hub_reconcile([sh.hub for sh in sdg.shards], _vertex_slices(sdg, state.labels),
+                       sdg.mesh, cfg, sdg.m, loads, state.labels)
     return loads, score, tails
 
 
@@ -609,8 +693,10 @@ def _sharded_shard_superstep(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, stat
                              halo: bool):
     """The shard rule once per shard, in lockstep; returns (loads, score).
     Every shard draws what the state's generator draws (`repro`'s shard
-    rule splits one replicated key)."""
+    rule splits one replicated key). A halo plan with hubs runs the rule
+    with the hubs frozen and reconciles them after the load merge."""
     fields = algo.vertex_fields
+    hubs = halo and sdg.hubs_on
     gens = collectives.replicated_key(state.gen, sdg.mesh)
     xs = {f: _vertex_slices(sdg, getattr(state, f)) for f in fields}
     comm = _ShardComm(algo, sdg, cfg, halo)
@@ -623,7 +709,8 @@ def _sharded_shard_superstep(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, stat
             n_pad=sdg.n_pad, local_n=ln, block_v=sdg.block_v, blocks=bps, v0=s * ln,
             blk_dst=sh.blk_dst_halo if halo else sh.blk_dst, blk_row=sh.blk_row,
             blk_w=sh.blk_w, blk_row_ptr=sh.blk_row_ptr, blk_spans=sh.blk_spans, deg=sh.deg,
-            inv_wsum=sh.inv_wsum, vmask=sh.vmask, step=state.step,
+            inv_wsum=sh.inv_wsum, vmask=sh.hub.vmask_nonhub if hubs else sh.vmask,
+            step=state.step,
             repl={f: _to(getattr(state, f), dev) for f in algo.replicated_fields},
             draws=draws, idx=s, comm=comm)
         cap = capacity_device(sdg.m, cfg.k, cfg.epsilon, cfg.capacity_mode, dev)
@@ -636,6 +723,9 @@ def _sharded_shard_superstep(algo: Algorithm, sdg: ShardedDeviceGraph, cfg, stat
         for f, new in upd.vert.items():
             getattr(state, f)[s * ln:(s + 1) * ln].copy_(new)
     loads = collectives.psum_delta_merge(state.loads, [u.loads_delta for u in upds], sdg.mesh)
+    if hubs:
+        _hub_reconcile([sh.hub for sh in sdg.shards], _vertex_slices(sdg, state.labels),
+                       sdg.mesh, cfg, sdg.m, loads, state.labels)
     home = state.loads.device
     score = torch.stack([_to(u.score, home).to(torch.float64) for u in upds]).sum()
     return loads, score.to(torch.float32)
@@ -660,7 +750,7 @@ def _finish(sdg, state, loads, score):
                           score=score / scalar_device(sdg.n, state.loads.device))
 
 
-def superstep(algo: Algorithm, dg, cfg, state, *, draws=None):
+def superstep(algo: Algorithm, dg, cfg, state, *, draws=None, halo=None):
     """One full superstep of ``algo`` under ``cfg.chunk_schedule``.
 
     "sequential" (the default, and the only schedule of a config without a
@@ -668,8 +758,15 @@ def superstep(algo: Algorithm, dg, cfg, state, *, draws=None):
     layout is used as it is); "sharded", "halo" and "async" run over the
     `ShardedDeviceGraph`'s mesh (module docstring). A halo plan whose
     coverage passed its threshold (``fallback``) runs the full gather,
-    bit-identically. "async" here always refreshes its exchange, the
-    ``staleness_bound=0`` semantics; `async_superstep` takes a cache.
+    bit-identically, with hubs off. "async" here always refreshes its
+    exchange, the ``staleness_bound=0`` semantics; `async_superstep` takes
+    a cache.
+
+    ``halo`` gives the *sequential* schedule a 1-shard hub plan — a
+    `HaloSpec` with ``n_shards == 1``, or its upload `hub_oracle_slabs`
+    (what the runner passes, uploaded once): `repro`'s hub oracle, the same
+    rewritten slabs, frozen hubs and vote reconcile as a 1-shard hub run. A
+    plan without hubs changes nothing.
 
     Updates the state's vertex fields, block fields and ``loads`` **in
     place** (where `repro` donates those buffers) and returns the state with
@@ -692,8 +789,11 @@ def superstep(algo: Algorithm, dg, cfg, state, *, draws=None):
         return _finish(sdg, state, loads, score)
     if isinstance(dg, ShardedDeviceGraph):
         dg = dg.dg
+    oracle = hub_oracle_slabs(dg, halo) if isinstance(halo, HaloSpec) else halo
     cap = capacity_device(dg.m, cfg.k, cfg.epsilon, cfg.capacity_mode, dg.device)
-    loads, score = _BODIES[algo.kind](algo, dg, cfg, state, cap, draws)
+    loads, score = _BODIES[algo.kind](algo, dg, cfg, state, cap, draws, oracle)
+    if oracle is not None:
+        _hub_reconcile([oracle.hub], [state.labels], None, cfg, dg.m, loads, state.labels)
     state.loads.copy_(loads)
     return state._replace(step=state.step + 1,
                           score=score / scalar_device(dg.n, dg.device))

@@ -42,10 +42,9 @@ the scan a per-superstep psum over weighted one-hot label **votes**
 (O(hub_pad * k), never O(E)) reconciles each hub to a single winner label
 with a deterministic capacity-gated argmax (ties break to the lowest
 partition index). Hubs are frozen during the scan (``vmask_nonhub``), so
-every shard reads a consistent snapshot; see `repro`'s
-``engine._hub_reconcile``. The port plans hubs (`HubConfig`, `_select_hubs`)
-but does not run them yet: hub replication comes with ROADMAP queue 1
-item 9's second half.
+every shard reads a consistent snapshot. The port's engine runs the
+reconcile once, on the mesh's home device, with the vote table in int32
+(`repro_torch.core.engine`, kernel H1 in `repro_torch.kernels.hub_reconcile`).
 
 Exactness: without hubs, both halo granularities deliver the same
 start-of-superstep snapshots of remote vertices that the full gather would,

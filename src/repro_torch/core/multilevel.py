@@ -23,7 +23,9 @@ lands here:
      rules sharpen the carried labels into LA confidence
      (``vcycle_sharpen``).
 
-Every level runs the sequential schedule on one device. With ``trace=``
+The coarse levels run the sequential schedule on one device; the finest
+level takes the caller's schedule, mesh, assignment, halo and hub knobs (its
+layout laid out over the mesh by the runner), as in `repro`. With ``trace=``
 the V-cycle records `repro`'s spans ("coarsen", "coarse-solve",
 "uncoarsen-level-<l>", each level's run nested inside), the
 ``level_n_vertices`` counters and ``meta["vcycle"]``; the same level sizes,
@@ -116,6 +118,13 @@ def run_vcycle(
     n_blocks: int = 8,
     max_steps: Optional[int] = None,
     track_history: bool = True,
+    mesh=None,
+    assignment="contiguous",
+    halo_threshold: Optional[float] = None,
+    halo_granularity: str = "auto",
+    hub_replication: bool = False,
+    hub_quantile: float = 0.0,
+    hub_target_coverage: Optional[float] = None,
     sync_every: int = 1,
     keep_probs: bool = False,
     trace=None,
@@ -128,7 +137,10 @@ def run_vcycle(
     """Drive one V-cycle. Called by ``run_partitioner(mode="vcycle")``;
     returns the finest level's `PartitionResult` (its ``steps`` are the
     fine-level supersteps), with ``vcycle`` set to the level sizes, block
-    counts, budgets, steps per level and coarsening seconds."""
+    counts, budgets, steps per level and coarsening seconds. The schedule
+    knobs (``cfg_kwargs``' ``chunk_schedule`` and ``staleness_bound``,
+    ``mesh``, ``assignment``, the halo and hub options) apply to the finest
+    level only."""
     from repro_torch.core import runner  # lazy: runner imports us the same way
 
     cfg_kwargs = dict(cfg_kwargs or {})
@@ -165,14 +177,33 @@ def run_vcycle(
     if tracer.enabled:
         for lvl, g in enumerate(graphs):
             tracer.counter("level_n_vertices", g.n, step=lvl)
-    common = dict(seed=seed, sync_every=sync_every, device=device, trace=trace,
-                  **cfg_kwargs)
-    fine = dict(track_history=track_history, keep_probs=keep_probs)
+    # schedule knobs apply to the finest level only; the coarse levels run
+    # the sequential schedule
+    coarse_cfg = {f: v for f, v in cfg_kwargs.items()
+                  if f not in ("chunk_schedule", "staleness_bound")}
+    common = dict(seed=seed, sync_every=sync_every, device=device, trace=trace)
+    fine = dict(track_history=track_history, keep_probs=keep_probs, mesh=mesh,
+                assignment=assignment, halo_granularity=halo_granularity,
+                hub_replication=hub_replication, hub_quantile=hub_quantile,
+                hub_target_coverage=hub_target_coverage, **cfg_kwargs)
+    if halo_threshold is not None:
+        fine["halo_threshold"] = halo_threshold
+    n_shards = 1
+    if cfg_kwargs.get("chunk_schedule", "sequential") != "sequential":
+        if mesh is None:
+            from repro_torch.launch.mesh import make_blocks_mesh
+
+            mesh = fine["mesh"] = make_blocks_mesh(device=device)
+        n_shards = mesh.n_shards
     level_blocks = {}
 
     def layout(lvl: int):
-        dg = prepare_device_graph(graphs[lvl], n_blocks=n_blocks, device=device)
-        level_blocks[lvl] = dg.n_blocks
+        # the finest level's layout is laid out over the mesh by the runner:
+        # at least a block a shard, as `prepare_sharded_device_graph` asks
+        nb = max(n_blocks, n_shards) if lvl == 0 else n_blocks
+        dg = prepare_device_graph(graphs[lvl], n_blocks=nb, device=device)
+        aligned = -(-dg.n_blocks // n_shards) * n_shards if lvl == 0 else dg.n_blocks
+        level_blocks[lvl] = aligned
         return dg
 
     if n_levels == 1:
@@ -189,7 +220,7 @@ def run_vcycle(
                          budget=budgets[-1]):
             res = runner.run_partitioner(algo, graphs[-1], k, max_steps=budgets[-1],
                                          dg=layout(n_levels - 1), track_history=False,
-                                         **common)
+                                         **coarse_cfg, **common)
         steps = {n_levels - 1: res.steps}
         sharpen = vcycle_sharpen if algorithm.supports_probs else 0.0
         for lvl in range(n_levels - 2, -1, -1):
@@ -199,7 +230,8 @@ def run_vcycle(
                 res = runner.run_partitioner(
                     algo, graphs[lvl], k, max_steps=budgets[lvl], dg=layout(lvl),
                     init_labels=projected, init_sharpen=sharpen,
-                    **(fine if lvl == 0 else dict(track_history=False)), **common)
+                    **(fine if lvl == 0 else dict(track_history=False, **coarse_cfg)),
+                    **common)
             steps[lvl] = res.steps
     res.vcycle = {
         "level_n_vertices": [g.n for g in graphs],

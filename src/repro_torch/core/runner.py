@@ -22,15 +22,13 @@ blocking fetches as with them off.
 
 ``chunk_schedule="sharded" | "halo" | "async"`` (a config knob) runs the
 superstep over a `BlocksMesh` (`repro_torch.launch.mesh`): the runner lays
-the graph out over it (assignment, halo plan, the async schedule's
-interior-first order), records the plan's counters when tracing, drives the
-async schedule's staleness bound, and returns labels and probabilities in
-original vertex order whatever the assignment; checkpoints are taken in
-original order too and resume at an unchanged shard count.
-
-What waits for the next slice, and raises NotImplementedError when asked
-for: hub replication, and the schedule knobs of ``mode="vcycle"`` (ROADMAP
-queue 1 item 9).
+the graph out over it (assignment, halo plan with hub replication, the
+async schedule's interior-first order), records the plan's counters when
+tracing, drives the async schedule's staleness bound, and returns labels
+and probabilities in original vertex order whatever the assignment;
+checkpoints are taken in original order too, so a run resumes on any shard
+count (elastic restore). Hub replication on the sequential schedule runs
+`repro`'s 1-shard hub oracle.
 """
 from __future__ import annotations
 
@@ -49,13 +47,15 @@ from repro_torch.core.device_graph import (
     DeviceGraph,
     ShardedDeviceGraph,
     attach_halo,
+    device_halo_spec,
+    hub_oracle_slabs,
     prepare_device_graph,
     prepare_sharded_device_graph,
     resolve_device,
     shard_device_graph,
     vertices_to_original,
 )
-from repro_torch.core.halo import DEFAULT_HALO_THRESHOLD
+from repro_torch.core.halo import DEFAULT_HALO_THRESHOLD, HubConfig
 from repro_torch.core.metrics import local_edges, max_normalized_load
 from repro_torch.core.registry import StaticAlgorithm, get_algorithm
 from repro_torch.core.revolver import make_generator
@@ -63,14 +63,6 @@ from repro_torch.graphs.csr import Graph
 
 _log = logging.getLogger("repro_torch.core.runner")
 
-_ITEM9 = "queue 1 item 9 (multi-GPU schedules)"
-# run_partitioner keywords of `repro` that are not ported yet:
-# name -> (the value that means "off", the ROADMAP queue item that ports it)
-_UNPORTED = {
-    "hub_replication": (False, _ITEM9),
-    "hub_quantile": (0.0, _ITEM9),
-    "hub_target_coverage": (None, _ITEM9),
-}
 _SHARDED_SCHEDULES = ("sharded", "halo", "async")
 
 
@@ -320,6 +312,8 @@ class _CheckpointManager:
     """
 
     def __init__(self, ckpt_dir, every, keep, algorithm, dg, meta, tracer):
+        # dg: the run's layout; a `ShardedDeviceGraph`'s restores are placed
+        # onto it, whatever shard count wrote the checkpoint
         self.dir = ckpt_dir
         self.every = every
         self.keep = keep
@@ -411,16 +405,16 @@ class _CheckpointManager:
                 f"checkpoint step {step} was written by a different run: "
                 f"device_type={meta.get('device_type')!r} vs this run's "
                 f"{self.meta['device_type']!r}")
-        saved, here = int(meta.get("n_shards", 1)), int(self.meta.get("n_shards", 1))
-        if saved != here:
-            raise NotImplementedError(
-                f"checkpoint step {step} in {self.dir} was written on {saved} shard(s), "
-                f"this run has {here}: restore onto another shard count comes with "
-                f"ROADMAP {_ITEM9}")
+        # the checkpoint is in original vertex order, so it lands on this
+        # layout whatever shard count or assignment wrote it (elastic
+        # restore); the shapes must match (ValueError otherwise)
         like = _state_to_original(self.algorithm, like_state, self.dg)
-        with self.tracer.span("checkpoint-restore", step=step):
+        with self.tracer.span("checkpoint-restore", step=step,
+                              saved_shards=int(meta.get("n_shards", 1))):
             tree = ckpt_store.restore_checkpoint(self.dir, step, like)
             state = _state_from_original(self.algorithm, tree, self.dg)
+            if isinstance(self.dg, ShardedDeviceGraph):
+                state = engine.place_state(self.algorithm, state, self.dg)
         if self.tracer.enabled:
             self.tracer.instant("resumed", step=step)
         return (state, int(meta.get("steps", step)),
@@ -470,6 +464,9 @@ def run_partitioner(
     assignment="contiguous",
     halo_threshold: float = DEFAULT_HALO_THRESHOLD,
     halo_granularity: str = "auto",
+    hub_replication: bool = False,
+    hub_quantile: float = 0.0,
+    hub_target_coverage: Optional[float] = None,
     sync_every: int = 1,
     init_labels: Optional[np.ndarray] = None,
     init_probs: Optional[np.ndarray] = None,
@@ -493,11 +490,9 @@ def run_partitioner(
     ``device`` (default CUDA; raises when it is unavailable — pass
     ``device="cpu"`` for the plain PyTorch path).
 
-    The flat path of `repro.core.runner.run_partitioner`: extra kwargs flow
-    into the algorithm's config dataclass (unknown keys raise TypeError;
-    `repro`'s hub replication options, not ported yet, raise
-    NotImplementedError unless they carry their "off" value). `dg` reuses a
-    prepared layout on the same device. `sync_every` batches device->host
+    `repro.core.runner.run_partitioner`: extra kwargs flow into the
+    algorithm's config dataclass (unknown keys raise TypeError). `dg` reuses
+    a prepared layout on the same device. `sync_every` batches device->host
     score fetches.
 
     ``chunk_schedule="sharded"`` (a config knob of every superstep
@@ -523,6 +518,17 @@ def run_partitioner(
     hook's signature). A fixed seed reproduces the labels bit for
     bit on one device type.
 
+    ``hub_replication=True`` mirrors the top-degree vertices into every
+    shard's buffer and reconciles their labels each superstep by a global
+    weighted vote (``hub_quantile`` / ``hub_target_coverage`` size the hub
+    set, see `HubConfig`; the reconcile is the H1 kernel on CUDA). On the
+    halo and async schedules it rides the halo plan (a plan that falls back
+    to the full gather has no hubs); on the sequential schedule it runs the
+    same plan on one shard, `repro`'s oracle trajectory, which a 1-shard hub
+    run equals bit for bit. It is incompatible with
+    ``chunk_schedule="sharded"`` (the full gather already replicates every
+    vertex).
+
     The static baselines (``"hash"``, ``"range"``) run no supersteps: they
     take no config kwargs, no warm-start arguments and neither checkpoints
     nor the guard (TypeError).
@@ -543,7 +549,13 @@ def run_partitioner(
     (corrupt ones, and ones written by another run or on another device
     type, are skipped; none at all is a fresh run) and continues: a killed
     and resumed run is bit-identical to an uninterrupted one with the same
-    arguments on the same device type. `keep_checkpoints` bounds the
+    arguments on the same device type. A checkpoint is in original vertex
+    order, so it restores onto a layout of another shard count or
+    assignment (elastic restore; its shapes must match): the sequential
+    schedule then resumes bit-identically, while the sharded trajectory is
+    specific to the shard count, so there the restored state equals the
+    checkpointed one bit for bit and the run continues from it on the new
+    count. `keep_checkpoints` bounds the
     checkpoints on disk. `guard` checks state sanity (finite probs,
     in-range labels) at each drain window: "off" (default) | "raise" |
     "rollback"/"rollback-to-last-checkpoint" (the generator rewinds with
@@ -555,9 +567,11 @@ def run_partitioner(
     convergence, then uncoarsen level by level with `init_from_labels` warm
     starts under shrinking per-level superstep budgets (the finest level is
     capped at `level_decay * max_steps`; probs-carrying rules sharpen the
-    projected labels by `vcycle_sharpen`). It builds its own per-level
-    layouts, so it is incompatible with a passed `dg`, warm-start args,
-    checkpointing, the state guard and `draws`.
+    projected labels by `vcycle_sharpen`). The schedule, mesh, assignment,
+    halo and hub knobs apply to the finest level only; the coarser levels
+    run the sequential schedule. It builds its own per-level layouts, so it
+    is incompatible with a passed `dg`, warm-start args, checkpointing, the
+    state guard and `draws`.
     """
     t0 = time.time()
     algorithm = get_algorithm(algo)
@@ -576,12 +590,9 @@ def run_partitioner(
         raise ValueError("checkpoint_every/resume need a checkpoint_dir")
     if guard == "rollback" and checkpoint_dir is None:
         raise ValueError("guard='rollback' needs a checkpoint_dir")
-    # the hub options are run_partitioner keywords in `repro`, the schedule
-    # knobs (chunk_schedule, staleness_bound) config kwargs
-    config_keys = set(cfg_kwargs) - set(_UNPORTED)
-    if static and config_keys:
+    if static and cfg_kwargs:
         raise TypeError(f"{algo!r} runs no supersteps; it takes no config "
-                        f"kwargs (got {sorted(config_keys)})")
+                        f"kwargs (got {sorted(cfg_kwargs)})")
     if static and (checkpoint_dir is not None or guard != "off"):
         raise TypeError(
             f"{algo!r} runs no supersteps; checkpointing and the state guard "
@@ -596,14 +607,18 @@ def run_partitioner(
     schedule = cfg_kwargs.get("chunk_schedule", "sequential")
     sharded = schedule in _SHARDED_SCHEDULES
     _check_schedule_args(sharded, schedule, mesh, assignment, halo_granularity)
+    if not hub_replication and (hub_quantile or hub_target_coverage is not None):
+        raise ValueError("hub_quantile/hub_target_coverage need hub_replication=True")
+    if hub_replication and schedule == "sharded":
+        raise ValueError(
+            "hub_replication is incompatible with chunk_schedule='sharded' (the full "
+            "gather already replicates every vertex); use chunk_schedule='halo' or the "
+            "sequential schedule")
+    hubs = (HubConfig(quantile=hub_quantile, target_coverage=hub_target_coverage)
+            if hub_replication else None)
     if mode == "vcycle":
         _check_vcycle_args(algo, static, dg, init_labels, init_probs,
                            init_sharpen, draws, checkpoint_dir, resume, guard)
-        if sharded or halo_threshold != DEFAULT_HALO_THRESHOLD:
-            raise NotImplementedError(
-                "run_partitioner(mode='vcycle') runs its finest level on the sequential "
-                f"schedule only; its schedule knobs come with ROADMAP {_ITEM9}")
-    reject_unported(cfg_kwargs, _UNPORTED, "run_partitioner")
     dev = resolve_device(device)
     if mesh is not None and mesh.home.type != dev.type:
         raise ValueError(f"mesh {mesh} is not on device={device!r}")
@@ -612,7 +627,10 @@ def run_partitioner(
 
         return multilevel.run_vcycle(
             algo, graph, k, seed=seed, n_blocks=n_blocks, max_steps=max_steps,
-            track_history=track_history, sync_every=sync_every,
+            track_history=track_history, mesh=mesh, assignment=assignment,
+            halo_threshold=halo_threshold, halo_granularity=halo_granularity,
+            hub_replication=hub_replication, hub_quantile=hub_quantile,
+            hub_target_coverage=hub_target_coverage, sync_every=sync_every,
             keep_probs=keep_probs, trace=trace, device=dev, coarse_n=coarse_n,
             level_decay=level_decay, vcycle_sharpen=vcycle_sharpen,
             cfg_kwargs=cfg_kwargs)
@@ -624,7 +642,7 @@ def run_partitioner(
             tracer, algorithm, static, schedule, algo, graph, k, t0, dev,
             seed=seed, n_blocks=n_blocks, max_steps=max_steps,
             track_history=track_history, dg=dg, mesh=mesh, assignment=assignment,
-            halo_threshold=halo_threshold, halo_granularity=halo_granularity,
+            halo_threshold=halo_threshold, halo_granularity=halo_granularity, hubs=hubs,
             sync_every=sync_every,
             init_labels=init_labels, init_probs=init_probs,
             init_sharpen=init_sharpen, keep_probs=keep_probs, draws=draws,
@@ -658,10 +676,11 @@ def _check_schedule_args(sharded, schedule, mesh, assignment, halo_granularity) 
 
 
 def _prepare_layout(graph, schedule, dev, *, dg, mesh, n_blocks, assignment, halo_threshold,
-                    halo_granularity):
+                    halo_granularity, hubs):
     """The run's layout: a `ShardedDeviceGraph` for the sharded schedules
     (built, laid out from a passed `DeviceGraph`, or a passed one with a
-    halo plan attached where it lacks one), else a `DeviceGraph`."""
+    halo plan, and the hubs asked for, attached where it lacks one), else a
+    `DeviceGraph`."""
     if schedule not in _SHARDED_SCHEDULES:
         if dg is None:
             return prepare_device_graph(graph, n_blocks=n_blocks, device=dev)
@@ -676,7 +695,8 @@ def _prepare_layout(graph, schedule, dev, *, dg, mesh, n_blocks, assignment, hal
 
         mesh = make_blocks_mesh(device=dev)
     knobs = dict(assignment=assignment, halo=halo, halo_threshold=halo_threshold,
-                 halo_granularity=halo_granularity, interior_first=schedule == "async")
+                 halo_granularity=halo_granularity, hubs=hubs if halo else None,
+                 interior_first=schedule == "async")
     if dg is None:
         return prepare_sharded_device_graph(graph, mesh, n_blocks=n_blocks, **knobs)
     if not isinstance(dg, ShardedDeviceGraph):
@@ -689,7 +709,7 @@ def _prepare_layout(graph, schedule, dev, *, dg, mesh, n_blocks, assignment, hal
     if dg.mesh != mesh:
         raise ValueError(f"dg is laid out over {dg.mesh}, not the mesh passed ({mesh})")
     if halo and dg.halo is None:
-        dg = attach_halo(dg, halo_threshold, halo_granularity=halo_granularity)
+        dg = attach_halo(dg, halo_threshold, halo_granularity=halo_granularity, hubs=hubs)
     return dg
 
 
@@ -718,12 +738,14 @@ def _plan_counters(tracer, algorithm, schedule, sdg, k) -> None:
     if spec.granularity == "vertex" and not spec.fallback:
         tracer.counter("pervertex_halo_bytes", spec.gathered_elems_per_device() * wire_sum)
     tracer.counter("hub_count", spec.n_hubs)
+    if spec.n_hubs:
+        tracer.counter("replica_vote_bytes", spec.hub_sync_elems_per_device(k, n_fields) * 4)
 
 
 def _run_partitioner_traced(
     tracer, algorithm, static, schedule, algo: str, graph: Graph, k: int, t0: float, dev,
     *, seed, n_blocks, max_steps, track_history, dg, mesh, assignment, halo_threshold,
-    halo_granularity, sync_every, init_labels, init_probs, init_sharpen, keep_probs, draws,
+    halo_granularity, hubs, sync_every, init_labels, init_probs, init_sharpen, keep_probs, draws,
     checkpoint_dir, checkpoint_every, resume, keep_checkpoints, guard, cfg_kwargs,
 ) -> PartitionResult:
     """Body of `run_partitioner`, running under `obs.use(tracer)` inside the
@@ -735,7 +757,13 @@ def _run_partitioner_traced(
     with tracer.span("prepare-layout", schedule=schedule):
         dg = _prepare_layout(graph, schedule, dev, dg=dg, mesh=mesh, n_blocks=n_blocks,
                              assignment=assignment, halo_threshold=halo_threshold,
-                             halo_granularity=halo_granularity)
+                             halo_granularity=halo_granularity, hubs=hubs)
+        seq_hub = None
+        if hubs is not None and not static and schedule not in _SHARDED_SCHEDULES:
+            # `repro`'s sequential hub oracle: the same hub plan on one shard
+            # (quantile hub selection is shard-count independent), uploaded
+            # once
+            seq_hub = hub_oracle_slabs(dg, device_halo_spec(dg, 1, halo_threshold, hubs=hubs))
     sharded = isinstance(dg, ShardedDeviceGraph) and schedule in _SHARDED_SCHEDULES
     if tracer.enabled and sharded:
         _plan_counters(tracer, algorithm, schedule, dg, k)
@@ -827,7 +855,7 @@ def _run_partitioner_traced(
             return s2
     else:
         def base_step(s):
-            return engine.superstep(algorithm, dg, cfg, s, draws=draws)
+            return engine.superstep(algorithm, dg, cfg, s, draws=draws, halo=seq_hub)
 
     if tracer.enabled:
         def step_fn(s):

@@ -13,6 +13,9 @@
                     repro.kernels.decode_attention.decode_attention_pallas)
   wkv6              K6: the RWKV6 wkv recurrence (replaces
                     repro.kernels.wkv6.wkv6_pallas)
+  hub_reconcile     H1: the hub vote reconcile of hub replication (no TPU
+                    kernel: replaces repro.core.engine._hub_reconcile's
+                    lax.scan)
   ops               device-routed public wrappers and the launch counters
   _build            nvcc build at first use and the ctypes binding
 

@@ -30,11 +30,12 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# per-source extra flags: the LA update must not fuse multiply-adds, so its
-# rounding matches the plain version's separate tensor ops
+# per-source extra flags: the LA update and the hub reconcile must not fuse
+# multiply-adds, so their rounding matches the plain versions' separate
+# tensor ops
 _EXTRA_FLAGS = {"edge_phase": (), "la_update": ("-fmad=false",),
                 "edge_histogram": (), "flash_attention": (),
-                "decode_attention": (), "wkv6": ()}
+                "decode_attention": (), "wkv6": (), "hub_reconcile": ("-fmad=false",)}
 _VOID = ctypes.c_void_p
 _ARGTYPES = {
     # dst, w, row_ptr, spans, hubs, labels, lam, actions, feasible, hist,
@@ -58,6 +59,8 @@ _ARGTYPES = {
                          + [ctypes.c_float, ctypes.c_int, _VOID]),
     # r, k, v, logw, u, state, y, s_loc, r_eff, w_tot; b, s, h, n; stream
     "wkv6": [_VOID] * 10 + [ctypes.c_int] * 4 + [_VOID],
+    # votes, cur, deg, owner, loads, cap, winners, list; hub_pad, k; stream
+    "hub_reconcile": [_VOID] * 8 + [ctypes.c_int] * 2 + [_VOID],
 }
 KERNELS = tuple(_EXTRA_FLAGS)
 

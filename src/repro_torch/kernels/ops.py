@@ -12,6 +12,7 @@ from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import edge_histogram as _edge_histogram
 from repro_torch.kernels import edge_phase as _edge_phase
 from repro_torch.kernels import flash_attention as _flash_attention
+from repro_torch.kernels import hub_reconcile as _hub_reconcile
 from repro_torch.kernels import la_update as _la_update
 from repro_torch.kernels import wkv6 as _wkv6
 
@@ -23,6 +24,7 @@ LAUNCH_COUNTERS = {
     "flash_attention": _flash_attention.LAUNCHES,
     "decode_attention": _decode_attention.LAUNCHES,
     "wkv6": _wkv6.LAUNCHES,
+    "hub_reconcile": _hub_reconcile.LAUNCHES,
 }
 
 
@@ -143,3 +145,12 @@ def wkv6(r, k, v, logw, u, state0):
     if _route(r, "wkv6") == "cpu":
         return _wkv6.wkv6_plain(r, k, v, logw, u, state0)
     return _wkv6.wkv6_cuda(r, k, v, logw, u, state0)
+
+
+def hub_reconcile(votes, cur, hub_deg, hub_owner, loads, cap):
+    """The hub vote reconcile of hub replication: winners [hub_pad] int32
+    from the merged int32 votes [hub_pad, k], ``loads`` ([k] f32) updated in
+    place — see `repro_torch.kernels.hub_reconcile`."""
+    if _route(votes, "hub_reconcile") == "cpu":
+        return _hub_reconcile.hub_reconcile_plain(votes, cur, hub_deg, hub_owner, loads, cap)
+    return _hub_reconcile.hub_reconcile_cuda(votes, cur, hub_deg, hub_owner, loads, cap)

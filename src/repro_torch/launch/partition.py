@@ -9,9 +9,10 @@ prints the rows `repro.launch.partition` prints, one per algorithm.
 ``--chunk-schedule sharded|halo|async`` runs the superstep over a mesh:
 ``--shards N`` shards on ``--device`` (the device repeated N times; default
 one shard per visible CUDA device, or one CPU shard), with
-``--assignment``, ``--halo-granularity`` and ``--staleness-bound`` as in
-`repro`; ``--hub-replication`` / ``--hub-quantile`` parse and raise
-NotImplementedError (ROADMAP queue 1 item 9). The superstep-only knobs (--epsilon, --sync-every,
+``--assignment``, ``--halo-granularity``, ``--staleness-bound``,
+``--hub-replication`` and ``--hub-quantile`` as in `repro` (hubs on the
+sequential schedule run the 1-shard hub oracle). The superstep-only knobs
+(--epsilon, --sync-every,
 --mode vcycle with --coarse-n and --level-decay, --checkpoint-dir,
 --checkpoint-every, --resume, --guard) go to the engine-driven algorithms
 only; the static baselines (hash, range) take none and run flat.
@@ -69,9 +70,13 @@ def main(argv=None):
                          "halo before a forced refresh (0 = refresh every superstep, "
                          "bit-identical to the halo schedule on the same layout)")
     ap.add_argument("--hub-replication", action="store_true",
-                    help="not ported yet (ROADMAP queue 1 item 9)")
+                    help="mirror the top-degree vertices into every shard's buffer and "
+                         "reconcile their labels each superstep by a global weighted "
+                         "vote (halo/async schedules; on the sequential schedule the "
+                         "1-shard hub oracle)")
     ap.add_argument("--hub-quantile", type=float, default=0.0,
-                    help="not ported yet (ROADMAP queue 1 item 9)")
+                    help="with --hub-replication: replicate every vertex at or above "
+                         "this outdegree quantile (0 = size the hub set automatically)")
     ap.add_argument("--mode", default="flat", choices=["flat", "vcycle"],
                     help="flat = refine at full resolution from superstep 0; "
                          "vcycle = coarsen, partition the coarsest graph, "

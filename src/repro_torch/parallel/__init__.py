@@ -4,6 +4,7 @@ from repro_torch.parallel.collectives import (
     gather_shards,
     halo_exchange,
     hub_gather,
+    hub_votes,
     psum,
     psum_delta_merge,
     replicated_key,
@@ -11,6 +12,6 @@ from repro_torch.parallel.collectives import (
     vertex_halo_exchange,
 )
 
-__all__ = ["gather_shards", "halo_exchange", "hub_gather", "psum", "psum_delta_merge",
+__all__ = ["gather_shards", "halo_exchange", "hub_gather", "hub_votes", "psum", "psum_delta_merge",
            "replicated_key", "shard_chain_key",
            "vertex_halo_exchange"]

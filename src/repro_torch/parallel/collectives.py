@@ -2,7 +2,8 @@
 
 The port of `repro.parallel.collectives`' partitioner primitives
 (``gather_shards``, ``psum_delta_merge``, ``vertex_halo_exchange``,
-``hub_gather``, ``shard_chain_key``). `repro` runs them inside ``shard_map``
+``hub_gather``, ``shard_chain_key``) and the hub vote merge of `repro`'s
+reconcile (``hub_votes``). `repro` runs them inside ``shard_map``
 as XLA collectives; the port's mesh is a list of devices driven by one
 process (`repro_torch.launch.mesh`), so each collective is a function of
 the per-shard tensor list (shard s's tensor on ``mesh.device_of(s)``) and
@@ -43,15 +44,18 @@ def gather_shards(xs: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
 
 def psum(xs: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
     """Sum per-shard tensors across shards; every shard gets the sum on its
-    device. Floating values are accumulated in f64 in shard order and
-    rounded once, so integer-valued sums (degree demands) are exact below
-    2^53, in any order, and equal `repro`'s f32 psum below 2^24."""
+    device (``mesh=None``: one entry, on ``xs[0]``'s device). Floating
+    values are accumulated in f64 in shard order and rounded once, so
+    integer-valued sums (degree demands) are exact below 2^53, in any
+    order, and equal `repro`'s f32 psum below 2^24."""
     home = xs[0].device
 
     def acc_dtype(x):
         return torch.float64 if x.is_floating_point() else torch.int64
 
     total = torch.stack([_to(x, home).to(acc_dtype(x)) for x in xs]).sum(0).to(xs[0].dtype)
+    if mesh is None:
+        return [total]
     return _per_device(mesh, lambda dev: _to(total, dev))
 
 
@@ -106,15 +110,37 @@ def hub_gather(xs: Sequence[torch.Tensor], hub_owner: torch.Tensor, hub_local: t
     """Assemble `repro`'s replicated hub region from the owners' slices:
     each shard masks the slots it does not own to zero and the masked
     vectors are summed (one contributor per slot, so the sum is an exact
-    broadcast). ``hub_owner`` / ``hub_local`` are [hub_pad] int on shard 0's
-    device. Not wired into a schedule yet: hub replication comes with
-    ROADMAP queue 1 item 9's second half."""
+    broadcast; pad slots, owner -1, assemble to 0). ``hub_owner`` /
+    ``hub_local`` are [hub_pad] int tensors on any device. Every shard gets
+    the region on its device. The same assembly of the post-scan labels is
+    the reconcile's current hub labels (`repro`'s masked ``cur`` psum).
+    ``mesh=None`` is one shard on ``xs[0]``'s device (the sequential hub
+    schedule)."""
     vals = []
     for s, x in enumerate(xs):
         owner = _to(hub_owner, x.device)
         v = x.index_select(0, torch.clamp_min(_to(hub_local, x.device), 0).long())
         vals.append(torch.where(owner == s, v, torch.zeros_like(v)))
     return psum(vals, mesh)
+
+
+def hub_votes(labels: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
+              slots: Sequence[torch.Tensor], weights: Sequence[torch.Tensor], hub_pad: int,
+              k: int, home: torch.device) -> torch.Tensor:
+    """The merged hub vote table ``[hub_pad, k]`` int32 on ``home``: shard
+    s adds each of its vote slab's weights ``weights[s]`` (int32) at
+    ``(slots[s], labels[s][srcs[s]])`` into a table of its own (int32, on
+    its device; ``labels[s]`` is its local slice after the scan), and the
+    tables are summed in int64. Integer sums: exact and independent of the
+    order of the adds, shards included. The layout guarantees that every
+    slot's sum stays below 2^31 (`repro_torch.core.device_graph`)."""
+    total = None
+    for lab, src, slot, w in zip(labels, srcs, slots, weights):
+        flat = torch.zeros((hub_pad * k,), dtype=torch.int32, device=lab.device)
+        flat.index_add_(0, slot * k + lab.index_select(0, src).long(), w)
+        part = _to(flat, home).to(torch.int64)
+        total = part if total is None else total + part
+    return total.to(torch.int32).view(hub_pad, k)
 
 
 def _derived_seed(gen: torch.Generator, s: int) -> int:
@@ -152,4 +178,5 @@ def replicated_key(gen: torch.Generator, mesh) -> List[torch.Generator]:
 
 
 __all__ = ["gather_shards", "psum", "psum_delta_merge", "halo_exchange",
-           "vertex_halo_exchange", "hub_gather", "shard_chain_key", "replicated_key"]
+           "vertex_halo_exchange", "hub_gather", "hub_votes", "shard_chain_key",
+           "replicated_key"]

@@ -54,7 +54,7 @@ from repro_torch.graphs.csr import (
 )
 from repro_torch.streaming.stream import EdgeDelta
 
-_ITEM9 = "queue 1 item 9 (multi-GPU schedules)"
+_ITEM9 = "queue 1 item 9, slice B (the stream's sharded layouts)"
 
 
 @dataclasses.dataclass
@@ -211,7 +211,7 @@ class IncrementalDeviceGraph:
 
     Only the contiguous block assignment on one device is ported: `mesh=`,
     another `assignment` and `as_sharded` raise NotImplementedError (ROADMAP
-    queue 1 item 9).
+    queue 1 item 9, slice B).
     """
 
     def __init__(

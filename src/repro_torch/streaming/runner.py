@@ -43,9 +43,10 @@ the pass. (It requires a probs-carrying algorithm; with
 ``algo="restream"`` the degree-priority ramp is built into the rule
 itself.)
 
-What waits for later slices, and raises NotImplementedError when asked for:
-the mesh, assignment, halo and hub options and every schedule but the
-sequential one (ROADMAP queue 1 item 9).
+What waits for a later slice, and raises NotImplementedError when asked
+for: the mesh, assignment, halo and hub options and every schedule but the
+sequential one (ROADMAP queue 1 item 9, slice B: the stream's sharded
+layouts).
 """
 from __future__ import annotations
 
@@ -69,9 +70,9 @@ from repro_torch.streaming.stream import EdgeDelta
 
 _log = logging.getLogger("repro_torch.streaming")
 
-_ITEM9 = "queue 1 item 9 (multi-GPU schedules)"
+_ITEM9 = "queue 1 item 9, slice B (the stream's sharded layouts)"
 # StreamRunner options of `repro` that are not ported yet (the stream's
-# sharded, halo and locality layouts come with item 9's second half):
+# sharded, halo, locality and hub layouts come with item 9's slice B):
 # name -> (the value that means "off", the ROADMAP queue item that ports it)
 _UNPORTED = {
     "chunk_schedule": ("sequential", _ITEM9),

@@ -170,8 +170,8 @@ def test_align_and_permute_a_device_graph_as_repro_does():
 
 
 def test_hub_plan_matches_repro():
-    """Hub replication is not run by the port yet, but its plan is copied:
-    held equal to `repro`'s on a quantile hub set."""
+    """The hub replication plan is `repro`'s: held equal to it on a
+    quantile hub set."""
     g = load_dataset("WIKI", scale=0.002, seed=0)
     a = host_arrays(prepare_device_graph(g, n_blocks=16, device="cpu"))
     kw = dict(threshold=2.0, granularity="vertex", deg=a["deg_out"], vmask=a["vmask"],
@@ -187,3 +187,31 @@ def test_hub_plan_matches_repro():
                                       err_msg=f)
     for f in SPEC_VALUES:
         assert getattr(spec, f) == getattr(want, f), f
+
+
+def test_hub_slabs_upload_the_plan():
+    """Each shard's `HubSlabs` holds the plan's replicated vectors, its own
+    vote slab (the weights as int32) and its slice of ``vmask_nonhub``; the
+    layout's vmask stays the real-vertex mask."""
+    g = load_dataset("WIKI", scale=0.002, seed=0)
+    sdg = prepare_sharded_device_graph(g, BlocksMesh([CPU] * 4), n_blocks=16, halo=True,
+                                       halo_threshold=2.0, hubs=halo.HubConfig(quantile=0.95))
+    spec = sdg.halo
+    assert sdg.hubs_on and spec.n_hubs > 0
+    ln = sdg.local_n
+    for s, sh in enumerate(sdg.shards):
+        hub = sh.hub
+        np.testing.assert_array_equal(hub.owner.numpy(), spec.hub_owner)
+        np.testing.assert_array_equal(hub.local.numpy(), spec.hub_local)
+        np.testing.assert_array_equal(hub.deg.numpy(), spec.hub_deg)
+        np.testing.assert_array_equal(hub.ids.numpy(), np.asarray(spec.hub_ids))
+        np.testing.assert_array_equal(hub.src.numpy(), spec.hub_src[s])
+        np.testing.assert_array_equal(hub.slot.numpy(), spec.hub_slot[s])
+        assert hub.w.dtype == torch.int32
+        np.testing.assert_array_equal(hub.w.numpy(), spec.hub_w[s])
+        np.testing.assert_array_equal(hub.vmask_nonhub.numpy(),
+                                      spec.vmask_nonhub[s * ln:(s + 1) * ln])
+        np.testing.assert_array_equal(sh.vmask.numpy(), sdg.vmask[s * ln:(s + 1) * ln].numpy())
+    plain = prepare_sharded_device_graph(g, BlocksMesh([CPU] * 4), n_blocks=16, halo=True,
+                                         halo_threshold=2.0)
+    assert not plain.hubs_on and plain.shards[0].hub is None

@@ -299,11 +299,14 @@ def test_config_validation():
             cls(k=4, chunk_schedule="bsp")
         with pytest.raises(ValueError, match="capacity_mode"):
             cls(k=4, capacity_mode="bogus")
-        # the sharded schedules are ported; hub replication is not
+        # the sharded schedules and hub replication are ported: hubs on one
+        # halo shard equal the sequential hub oracle
         assert cls(k=4, chunk_schedule="sharded").chunk_schedule == "sharded"
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            run_partitioner(cls.__name__[:-6].lower(), load_dataset("WIKI", scale=0.0005), 4,
-                            device="cpu", chunk_schedule="halo", hub_replication=True)
+        kw = dict(device="cpu", max_steps=3, hub_replication=True, hub_quantile=0.9)
+        algo, g = cls.__name__[:-6].lower(), load_dataset("WIKI", scale=0.0005)
+        np.testing.assert_array_equal(
+            run_partitioner(algo, g, 4, chunk_schedule="halo", **kw).labels,
+            run_partitioner(algo, g, 4, **kw).labels)
 
 
 def test_register_out_of_tree_shard_rule(cliques):

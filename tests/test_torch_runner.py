@@ -136,13 +136,18 @@ _CPU2 = BlocksMesh([torch.device("cpu")] * 2)
 ], ids=["chunk_schedule=sharded", "chunk_schedule=async", "mesh=<object obje",
         "assignment=locality", "hub_replication=True", "staleness_bound=1"])
 def test_unported_options_raise(kwargs):
-    """ROADMAP queue 1 item 9's options: hub replication is not ported and
-    raises; the schedules, the mesh, the assignment and the staleness bound
-    run (a 1-shard sharded run is the sequential one, bit for bit)."""
+    """ROADMAP queue 1 item 9's options, all ported now: the schedules, the
+    mesh, the assignment, the staleness bound and hub replication run (a
+    1-shard sharded run is the sequential one, bit for bit; hubs on the
+    sequential schedule are the oracle a 1-shard halo hub run equals)."""
     g = load_dataset("WIKI", scale=0.0005)
     if "hub_replication" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            run_partitioner("revolver", g, 4, device="cpu", max_steps=1, **kwargs)
+        kw = dict(device="cpu", max_steps=3, n_blocks=4, hub_quantile=0.9, **kwargs)
+        res = run_partitioner("revolver", g, 4, **kw)
+        one = run_partitioner("revolver", g, 4, chunk_schedule="halo", halo_threshold=2.0,
+                              mesh=BlocksMesh([torch.device("cpu")]), **kw)
+        assert res.steps == 3 and res.labels.shape == (g.n,)
+        np.testing.assert_array_equal(res.labels, one.labels)
         return
     res = run_partitioner("revolver", g, 4, device="cpu", max_steps=3, n_blocks=4, **kwargs)
     assert res.steps == 3 and res.labels.shape == (g.n,)

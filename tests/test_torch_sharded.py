@@ -357,10 +357,16 @@ def test_resume_bit_identical_at_an_unchanged_shard_count(wiki, schedule):
         np.testing.assert_array_equal(ref.labels, res.labels)
         np.testing.assert_array_equal(ref.probs, res.probs)
         assert res.steps == ref.steps
-        # another shard count: not this slice's (elastic restore)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            run_partitioner("revolver", wiki, K, checkpoint_dir=td + "/cut", resume=True,
-                            **ckpt, **dict(kw, mesh=BlocksMesh([CPU] * 2)))
+        # another shard count (elastic restore): a 4-shard run's checkpoint
+        # of step 6 lands on 2 shards exactly — capped there, the labels
+        # and probs are that run's
+        at6 = run_partitioner("revolver", wiki, K, checkpoint_dir=td + "/at6", **ckpt,
+                              **dict(kw, max_steps=6))
+        moved = run_partitioner("revolver", wiki, K, checkpoint_dir=td + "/at6", resume=True,
+                                **ckpt, **dict(kw, mesh=BlocksMesh([CPU] * 2), max_steps=6))
+        assert moved.resumed_from == 6 and moved.steps == 6
+        np.testing.assert_array_equal(moved.labels, at6.labels)
+        np.testing.assert_array_equal(moved.probs, at6.probs)
 
 
 def test_results_are_in_original_vertex_order(wiki):
@@ -427,8 +433,13 @@ def test_cli_schedule_flags(capsys, tmp_path):
     cli.main(base + ["--chunk-schedule", "async", "--staleness-bound", "1"])
     assert json.loads(capsys.readouterr().out)[0]["steps"] == 5
     assert np.load(out)["revolver"].shape == (load_dataset("WIKI", scale=0.0005).n,)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        cli.main(base + ["--chunk-schedule", "halo", "--hub-replication"])
+    # hub replication: one shard under halo is the sequential hub oracle
+    hub = ["--hub-replication", "--hub-quantile", "0.9"]
+    cli.main(base[:-2] + ["--shards", "1", "--chunk-schedule", "halo"] + hub)
+    one = json.loads(capsys.readouterr().out)[0]
+    cli.main(base[:-2] + hub)
+    oracle = json.loads(capsys.readouterr().out)[0]
+    assert one == oracle and one["steps"] == 5
 
 
 def test_argument_errors(wiki):
@@ -447,12 +458,21 @@ def test_argument_errors(wiki):
         run_partitioner("spinner", wiki, K, device="cpu", chunk_schedule="async", mesh=mesh)
     with pytest.raises(ValueError, match="kind='shard'"):
         engine.async_superstep(get_algorithm("spinner"), None, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        run_partitioner("revolver", wiki, K, device="cpu", chunk_schedule="halo",
+    with pytest.raises(ValueError, match="hub_replication"):
+        run_partitioner("revolver", wiki, K, device="cpu", chunk_schedule="sharded",
                         hub_replication=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        run_partitioner("revolver", wiki, K, device="cpu", mode="vcycle",
-                        chunk_schedule="sharded")
+    # hub replication and the V-cycle's fine-level schedule run: on one
+    # shard they are their sequential oracles
+    common = dict(device="cpu", max_steps=4, track_history=False)
+    hub = run_partitioner("revolver", wiki, K, chunk_schedule="halo", hub_replication=True,
+                          mesh=BlocksMesh([CPU]), **common)
+    np.testing.assert_array_equal(
+        hub.labels, run_partitioner("revolver", wiki, K, hub_replication=True, **common).labels)
+    common = dict(device="cpu", max_steps=20, track_history=False, mode="vcycle")
+    vc = run_partitioner("revolver", wiki, K, chunk_schedule="sharded",
+                         mesh=BlocksMesh([CPU]), **common)
+    np.testing.assert_array_equal(vc.labels,
+                                  run_partitioner("revolver", wiki, K, **common).labels)
     with pytest.raises(ValueError, match="n_shards"):
         make_blocks_mesh(0, device="cpu")
     with pytest.raises(TypeError, match="ShardedDeviceGraph"):

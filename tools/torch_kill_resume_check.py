@@ -31,9 +31,20 @@ the reference follows the victim's refresh policy at any staleness bound.
       --max-steps 20 --kill-at 9 --chunk-schedule async --staleness-bound 1 \
       --shards 4
 
-Exit status 0 iff every assertion holds. The elastic legs of
-`tools/kill_resume_check.py` (``--devices`` / ``--resume-devices``) wait
-for ROADMAP queue 1 item 9's second half.
+``--resume-shards M`` resumes the victim's checkpoint on M shards instead
+(the port's counterpart of `tools/kill_resume_check.py`'s
+``--devices`` / ``--resume-devices`` legs). The sharded trajectory is
+specific to the shard count, so across a count change the gate is
+**transport exactness**: a run capped at the checkpoint's step on the
+original count, and the checkpoint restored onto M shards with the same
+cap (zero further supersteps), give the same labels bit for bit.
+``--hub-replication`` / ``--hub-quantile`` are forwarded.
+
+  python tools/torch_kill_resume_check.py --device cpu --scale 0.005 \
+      --max-steps 20 --kill-at 9 --chunk-schedule halo --shards 8 \
+      --resume-shards 4
+
+Exit status 0 iff every assertion holds.
 """
 from __future__ import annotations
 
@@ -91,7 +102,18 @@ def main(argv=None) -> int:
                     choices=["auto", "block", "vertex"])
     ap.add_argument("--staleness-bound", type=int, default=0,
                     help="async schedule: forwarded to the launcher")
+    ap.add_argument("--resume-shards", type=int, default=None,
+                    help="resume on this many shards (elastic restore; default "
+                         "--shards)")
+    ap.add_argument("--hub-replication", action="store_true",
+                    help="forwarded to the launcher (halo/async schedules)")
+    ap.add_argument("--hub-quantile", type=float, default=0.0,
+                    help="forwarded to the launcher with --hub-replication")
     args = ap.parse_args(argv)
+    if args.resume_shards is not None and args.chunk_schedule == "sequential":
+        ap.error("--resume-shards needs a sharded --chunk-schedule")
+    resume_shards = args.shards if args.resume_shards is None else args.resume_shards
+    count_change = resume_shards != args.shards
 
     work = tempfile.mkdtemp(prefix="torch_kill_resume_")
     ckpt = os.path.join(work, "ckpt")
@@ -106,15 +128,20 @@ def main(argv=None) -> int:
         base += ["--halo-granularity", args.halo_granularity]
     if args.chunk_schedule == "async":
         base += ["--staleness-bound", str(args.staleness_bound)]
+    if args.hub_replication:
+        base += ["--hub-replication", "--hub-quantile", str(args.hub_quantile)]
     try:
-        # 1. reference (uninterrupted; checkpointed like the victim, into a
-        # directory of its own, so both refresh the async exchange alike)
-        ref_path = os.path.join(work, "ref.npz")
-        run_launcher(base + ["--labels-out", ref_path,
-                             "--checkpoint-dir", os.path.join(work, "ref_ckpt"),
-                             "--checkpoint-every", str(args.checkpoint_every)])
-        ref = load_labels(ref_path, args.algo)
-        print(f"reference: n={ref.size} labels")
+        ref = None
+        if not count_change:
+            # 1. reference (uninterrupted; checkpointed like the victim, into
+            # a directory of its own, so both refresh the async exchange
+            # alike)
+            ref_path = os.path.join(work, "ref.npz")
+            run_launcher(base + ["--labels-out", ref_path,
+                                 "--checkpoint-dir", os.path.join(work, "ref_ckpt"),
+                                 "--checkpoint-every", str(args.checkpoint_every)])
+            ref = load_labels(ref_path, args.algo)
+            print(f"reference: n={ref.size} labels")
 
         # 2. victim: checkpointing on, killed mid-run by the fault plan
         ckpt_args = base + ["--checkpoint-dir", ckpt,
@@ -133,8 +160,41 @@ def main(argv=None) -> int:
         if not saved:
             print("FAIL: victim left no checkpoint before dying")
             return 1
+        saved_step = max(saved)
         print(f"victim: SIGKILLed at superstep {args.kill_at}, newest "
-              f"checkpoint at step {max(saved)}")
+              f"checkpoint at step {saved_step}")
+
+        if count_change:
+            # 3. transport exactness: the labels of a run capped at the
+            # checkpoint's step on the original count, against the
+            # checkpoint restored onto the new count with the same cap
+            def capped(shards):
+                out = base[:]
+                out[out.index("--max-steps") + 1] = str(saved_step)
+                out[out.index("--shards") + 1] = str(shards)
+                return out
+
+            cap_ref = os.path.join(work, "cap_ref.npz")
+            run_launcher(capped(args.shards) + [
+                "--labels-out", cap_ref, "--checkpoint-dir", os.path.join(work, "ref_ckpt"),
+                "--checkpoint-every", str(args.checkpoint_every)])
+            cap_out = os.path.join(work, "cap_resumed.npz")
+            proc = run_launcher(capped(resume_shards) + [
+                "--checkpoint-dir", ckpt, "--checkpoint-every", str(args.checkpoint_every),
+                "--resume", "--labels-out", cap_out])
+            rows = json.loads(proc.stdout.splitlines()[-1])
+            if rows[0].get("resumed_from") != saved_step:
+                print(f"FAIL: resume phase restored {rows[0].get('resumed_from')}, "
+                      f"expected step {saved_step}")
+                return 1
+            a, b = load_labels(cap_ref, args.algo), load_labels(cap_out, args.algo)
+            ok = bool(np.array_equal(a, b))
+            print(f"elastic transport ({args.shards}->{resume_shards} shards, capped at "
+                  f"step {saved_step}, device {args.device}, schedule "
+                  f"{args.chunk_schedule}): exact={ok}"
+                  + ("" if ok else f" ({int((a != b).sum())} differ)"))
+            print("PASS" if ok else "FAIL")
+            return 0 if ok else 1
 
         # 3. resume to completion; must equal the reference exactly
         out = os.path.join(work, "resumed.npz")
