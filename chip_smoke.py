@@ -117,6 +117,38 @@ failure raises and the script exits non-zero without printing a result:
               level 1, a middle level and the coarsest, bit-equal to the
               plain versions (summed in f64 where a row sum passes 2^24),
               two calls bit-equal
+ 11e. stream-sharded  (after 11c, before 11d) ``StreamRunner`` over a
+              mesh on phase 8's graph: phase 11c's stream settings on phase
+              17h's layout (32 blocks on ``BlocksMesh([cuda:0] * 8)``,
+              ``chunk_schedule="halo"``, the per-vertex plan with fallback
+              off, hubs at outdegree quantile 0.95) over the first 4 of
+              phase 11c's deltas (a cold start and re-pads; cut from 8 for
+              time), every launch counter set to 0 just before each delta
+              and read just after (K1 and K2 32 times a superstep, H1 once,
+              nothing else); each delta's local_edges >= 0.90x phase 11c's
+              at the same delta, max_norm_load <= 1.30 after the last
+              (where 11c gates; 8 shards' Jacobi moves overshoot within a
+              delta's 15 supersteps, so earlier deltas are printed), the metrics
+              recomputed on the host from the carried labels; per delta the
+              merge, plan and refine seconds, the bytes uploaded, b_max,
+              h_max, hub_pad, hub count, coverage, the exchange bytes a
+              device and the floors that grew. Its side legs, at WIKI 0.1
+              over the 8 insertion deltas and the 1 % deletion, run in four
+              processes of their own (started after phase 2, beside phases
+              3-7 and the other side legs, collected before phase 8): (a)
+              a 1-shard halo stream equals the sequential one (labels after
+              every delta, supersteps); (b) 8-shard async at staleness 0
+              equals 8-shard halo with hubs, and at staleness 1 meets the
+              main leg's gates against the sequential stream (balance
+              after the last insertion and the deletion); (c)
+              ``assignment="locality"`` decided once and kept, and an
+              explicitly permuted stream, their carried labels' host
+              metrics equal to the reported ones, quality >= 0.90x the
+              contiguous stream; (d) the halo hub stream checkpointed after
+              delta 3 and resumed in a new runner equals the uninterrupted
+              one, floors and hub set restored; (e) Spinner (K3 once a
+              shard) and restream (once a block) on the 8-shard halo
+              stream, H1 once a superstep, the balance gate
  12. serve    ``Engine.generate`` on tinyllama-1.1b (batch 8, 1024-token
               prompts, 128 new tokens, greedy), with every launch counter set
               to 0 just before and read just after: K4 once per layer, K5
@@ -891,13 +923,13 @@ def stream_delta(torch, ops, runner, delta, per_step: dict, what: str) -> dict:
     counts = ops.launch_counts()
     expect_launches(counts, {n: c * rep.steps for n, c in per_step.items()},
                     f"{what} delta {rep.delta_idx} ({rep.steps} supersteps)")
-    refine_s = rep.wall_s - rep.merge_s
+    refine_s = rep.wall_s - rep.merge_s - rep.plan_s
     return {"delta": rep.delta_idx, "m": rep.m, "added": rep.added, "deleted": rep.deleted,
             "dirty_blocks": rep.dirty_blocks, "repadded": rep.repadded,
             "e_max": runner.idg.e_max, "steps": rep.steps, "converged": rep.converged,
             "local_edges": rep.local_edges, "max_norm_load": rep.max_norm_load,
-            "merge_s": rep.merge_s, "refine_s": refine_s,
-            "supersteps_per_s": rep.steps / refine_s, "launches": counts}
+            "merge_s": rep.merge_s, "plan_s": rep.plan_s, "upload_bytes": rep.upload_bytes,
+            "refine_s": refine_s, "supersteps_per_s": rep.steps / refine_s, "launches": counts}
 
 
 def check_stream_layout(torch, np, g, dg) -> dict:
@@ -991,6 +1023,399 @@ def stream_phase(torch, np, ops, g, flat: dict) -> dict:
     out["launches"] = {n: sum(r["launches"][n] for r in rows) for n in rows[0]["launches"]}
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 11e: the stream over a mesh
+# --------------------------------------------------------------------------
+STREAM_SETTINGS = dict(k=K, refine_max_steps=15, refine_patience=3, sync_every=2)
+STREAM_SHARDED_DELTAS = 4     # phase 11e's main leg: the first 4 of 8 deltas
+
+
+def stream_halo_kw(cuda, shards: int = SHARDS, hubs: bool = True, **extra) -> dict:
+    """`StreamRunner` keywords of phase 11e's layout: ``shards`` shards on
+    the card, the per-vertex halo plan with fallback off (phase 17h's) and,
+    with ``hubs``, hubs at outdegree quantile 0.95."""
+    from repro_torch.launch.mesh import BlocksMesh
+
+    kw = dict(chunk_schedule="halo", mesh=BlocksMesh([cuda] * shards), halo_threshold=2.0,
+              halo_granularity="vertex")
+    kw.update(extra)
+    if hubs:
+        kw.update(hub_replication=True, hub_quantile=HUB_QUANTILE)
+    return kw
+
+
+def watch_plans(runner) -> list:
+    """A one-slot list holding the halo plan of the latest delta's layout,
+    as the runner's ``as_sharded`` builds it (the runner keeps no layout
+    between deltas; earlier plans are let go, each as large as the slabs)."""
+    plans, build = [], runner.idg.as_sharded
+
+    def as_sharded(**kw):
+        sdg = build(**kw)
+        plans[:] = [sdg.halo]
+        return sdg
+
+    runner.idg.as_sharded = as_sharded
+    return plans
+
+
+def sharded_stream_delta(torch, ops, runner, plans: list, delta, per_step: dict,
+                         what: str) -> dict:
+    """`stream_delta` on a runner over a mesh (``plans`` from
+    `watch_plans`), its row extended by the delta's plan: b_max, h_max,
+    hub_pad, hub count, coverage, the bytes a superstep's exchange moves a
+    device (the tail, and the hub votes), and the floors that grew (the
+    runner's recompile causes)."""
+    idg = runner.idg
+    before = (idg.b_max_floor, idg.h_max_floor, idg.hub_pad_floor)
+    row = stream_delta(torch, ops, runner, delta, per_step, what)
+    events = ["e_max-repad"] if row["repadded"] and row["delta"] > 0 else []
+    if 0 < before[2] < idg.hub_pad_floor:
+        events.append("hub-promote")
+    elif 0 < before[0] < idg.b_max_floor or 0 < before[1] < idg.h_max_floor:
+        events.append("halo-widen")
+    row["floor_events"] = events
+    spec = plans[-1] if plans else None
+    if spec is not None:
+        algo = runner.algo
+        wire = sum(spec.wire_bytes_per_elem(K, f in algo.wire_int8_fields)
+                   for f in algo.vertex_fields)
+        tail = spec.gathered_elems_per_device() * wire
+        votes = (spec.hub_sync_elems_per_device(K, len(algo.vertex_fields)) * 4
+                 if spec.n_hubs else 0)
+        row.update(b_max=spec.b_max, h_max=spec.h_max, hub_pad=spec.hub_pad,
+                   hub_count=spec.n_hubs, coverage=spec.coverage, tail_bytes=tail,
+                   vote_bytes=votes, exchange_bytes_per_device=tail + votes)
+    return row
+
+
+def stream_host_metrics(np, runner, row: dict, what: str) -> None:
+    """`host_metrics` of a stream's carried labels (original vertex order)
+    on the merged graph, against the delta's reported metrics."""
+    import types
+
+    host_metrics(np, runner.idg.graph, types.SimpleNamespace(
+        algo=what, labels=runner.labels, local_edges=row["local_edges"],
+        max_norm_load=row["max_norm_load"], history={"score": [0.0]}))
+
+
+def stream_sharded_phase(torch, np, ops, g, le_11c: list, dev: str = "cuda") -> dict:
+    """Phase 11e's main leg: `StreamRunner` over a mesh on full WIKI, phase
+    11c's stream settings (k 8, 15 supersteps and patience 3 a delta,
+    sync_every 2, warm_sharpen 0.5) on phase 17h's layout (32 blocks on
+    ``BlocksMesh([cuda:0] * 8)``, the per-vertex halo plan, hubs at
+    quantile 0.95), over the first 4 deltas of phase 11c's stream. Every
+    launch counter set to 0 just before each delta and read just after: K1
+    and K2 32 times a superstep and H1 once, nothing else; each delta's
+    local_edges >= 0.90x phase 11c's at the same delta (``le_11c``),
+    max_norm_load <= 1.30 after the last, metrics recomputed on the host
+    from the carried labels. Returns the phase's row."""
+    from repro_torch.streaming import StreamConfig, StreamRunner, stream_from_graph
+
+    t0 = time.perf_counter()
+    cuda = torch.device(dev, 0 if dev == "cuda" else None)
+    torch.cuda.reset_peak_memory_stats()
+    runner = StreamRunner(g.n, StreamConfig(**STREAM_SETTINGS, n_blocks=SHARD_BLOCKS,
+                                            warm_sharpen=0.5),
+                          seed=SEED, device=dev, **stream_halo_kw(cuda))
+    plans = watch_plans(runner)
+    per_step = {**{n: SHARD_BLOCKS for n in PARTITIONER_KERNELS}, "hub_reconcile": 1}
+    rows = []
+    for d in itertools.islice(stream_from_graph(g, 8, seed=SEED), STREAM_SHARDED_DELTAS):
+        row = sharded_stream_delta(torch, ops, runner, plans, d, per_step, "halo hub stream")
+        stream_host_metrics(np, runner, row, f"halo hub stream delta {row['delta']}")
+        ref = le_11c[row["delta"]]
+        row["local_edges_vs_11c"] = row["local_edges"] / ref
+        require(row["local_edges"] >= 0.90 * ref,
+                f"halo hub stream delta {row['delta']}: local_edges {row['local_edges']} "
+                f"< 0.90 x phase 11c's {ref}")
+        rows.append(row)
+        emit({"phase": "stream-sharded-delta", "leg": "main", **row})
+    # the balance gate after the leg's last delta, where phase 11c gates its
+    # stream: within a delta's 15 supersteps the Jacobi moves of 8 shards
+    # overshoot and swing back (`repro`'s 8-shard runs do too), so an
+    # earlier delta may end above it (1.3447 at delta 2 on an H100)
+    require(rows[-1]["max_norm_load"] <= 1.30,
+            f"halo hub stream delta {rows[-1]['delta']}: max_norm_load "
+            f"{rows[-1]['max_norm_load']} > 1.30")
+    require(any(r["repadded"] for r in rows[1:]), "halo hub stream: no re-pad after delta 0")
+    out = {"deltas": len(rows), "n_blocks": runner.idg.n_blocks, "shards": SHARDS,
+           "repads": [r["delta"] for r in rows if r["repadded"]],
+           "supersteps": sum(r["steps"] for r in rows),
+           "merge_s": sum(r["merge_s"] for r in rows), "plan_s": sum(r["plan_s"] for r in rows),
+           "refine_s": sum(r["refine_s"] for r in rows),
+           "upload_bytes": sum(r["upload_bytes"] for r in rows),
+           "launches": {n: sum(r["launches"][n] for r in rows) for n in rows[0]["launches"]},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# phase 11e's side legs: the runners of each group take every delta in turn
+# and are compared after it; each group runs in a process of its own
+SIDE_GROUPS = {
+    "a": ("sequential", "halo_1_shard", "async_1"),
+    "b": ("halo", "async_0"),          # and (d): "resumed" from delta 4 on
+    "c": ("locality", "permuted"),
+    "e": ("spinner", "restream"),
+}
+
+
+def side_stream(np, scale: float):
+    """(the graph, its deltas) of phase 11e's side legs: WIKI ``scale``,
+    the 8 insertion deltas of `stream_from_graph(g, 8, seed=0)`, then one
+    deleting 1 % of the directed edges (numpy seed 1), as phase 11c's."""
+    from repro_torch.graphs import load_dataset
+    from repro_torch.graphs.generators import edge_split
+    from repro_torch.streaming import EdgeDelta, stream_from_graph
+
+    gs = load_dataset("WIKI", scale=scale, seed=SEED)
+    src, dst = edge_split(gs)
+    gone = np.random.default_rng(1).choice(gs.m, gs.m // 100, replace=False)
+    empty = np.empty(0, np.int32)
+    return gs, list(stream_from_graph(gs, 8, seed=SEED)) + [
+        EdgeDelta(empty, empty, src[gone], dst[gone])]
+
+
+def side_runner(name: str, n: int, cuda, dev: str, work, **extra):
+    """(the `StreamRunner` of side leg ``name``, its launches a superstep):
+    the main leg's settings; "sequential" and "halo_1_shard" without hubs,
+    the others on 8 shards with them ("permuted" in a block order of order
+    32, since WIKI's locality order keeps the striping)."""
+    import numpy as np
+
+    from repro_torch.streaming import StreamConfig, StreamRunner
+
+    revolver = StreamConfig(**STREAM_SETTINGS, n_blocks=SHARD_BLOCKS, warm_sharpen=0.5)
+    other = StreamConfig(**STREAM_SETTINGS, n_blocks=SHARD_BLOCKS)
+    k12 = {n_: SHARD_BLOCKS for n_ in PARTITIONER_KERNELS}
+    hub12 = {**k12, "hub_reconcile": 1}
+    ckpt = dict(checkpoint_dir=str(work / "halo"), checkpoint_every=4)
+    spec = {
+        "sequential": (revolver, {}, k12),
+        "halo_1_shard": (revolver, stream_halo_kw(cuda, 1, hubs=False), k12),
+        "halo": (revolver, {**stream_halo_kw(cuda), **ckpt}, hub12),
+        "async_0": (revolver, stream_halo_kw(cuda, chunk_schedule="async"), hub12),
+        "async_1": (revolver, stream_halo_kw(cuda, chunk_schedule="async",
+                                             staleness_bound=1), hub12),
+        "locality": (revolver, stream_halo_kw(cuda, assignment="locality"), hub12),
+        # a block permutation of order 32 (WIKI's locality order keeps the
+        # striping): the carried state's vertex order on the card
+        "permuted": (revolver, stream_halo_kw(
+            cuda, assignment=np.roll(np.arange(SHARD_BLOCKS), 5)), hub12),
+        "spinner": (other, dict(algo="spinner", **stream_halo_kw(cuda)),
+                    {"edge_histogram": SHARDS, "hub_reconcile": 1}),
+        "restream": (other, dict(algo="restream", **stream_halo_kw(cuda)),
+                     {"edge_histogram": SHARD_BLOCKS, "hub_reconcile": 1}),
+    }
+    cfg, kw, per_step = spec[name]
+    return StreamRunner(n, cfg, seed=SEED, device=dev, **kw, **extra), per_step
+
+
+def stream_side_group(torch, np, ops, group: str, dev: str = "cuda",
+                      scale: float = 0.1) -> dict:
+    """Side-leg group ``group`` of phase 11e (`SIDE_GROUPS`) on the card,
+    each delta with every launch counter set to 0 just before and read just
+    after; the checks inside the group: (a) the 1-shard halo stream equals
+    the sequential one, labels after every delta and supersteps; (b) async
+    at staleness 0 equals halo, labels and probabilities; (d) the halo
+    stream checkpointed after delta 3 and resumed in a new runner equals the
+    uninterrupted one on the remaining deltas, its floors and hub set
+    restored; (c) the locality permutation is decided by delta 0 and kept,
+    and on it and on an explicitly permuted stream the carried labels' host
+    metrics (original vertex order) equal the reported ones. The quality
+    gates wait for every group's rows (`stream_sharded_side_legs`). Returns
+    each runner's rows."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    cuda = torch.device(dev, 0 if dev == "cuda" else None)
+    gs, deltas = side_stream(np, scale)
+    work = pathlib.Path(tempfile.mkdtemp(prefix=f"chip_smoke_side_{group}_"))
+    legs = {name: side_runner(name, gs.n, cuda, dev, work) for name in SIDE_GROUPS[group]}
+    plans = {name: watch_plans(r) for name, (r, _) in legs.items() if r.mesh is not None}
+    rows = {name: [] for name in legs}
+    perm = None
+
+    def same(a: str, b: str, what: str) -> None:
+        ra, rb = legs[a][0], legs[b][0]
+        xa, xb = rows[a][-1], rows[b][-1]
+        require(np.array_equal(ra.labels, rb.labels) and xa["steps"] == xb["steps"]
+                and (ra.probs is None or np.array_equal(ra.probs, rb.probs)),
+                f"{what}: {b} differs from {a} after delta {xa['delta']} "
+                f"(steps {xa['steps']} vs {xb['steps']})")
+
+    try:
+        for i, delta in enumerate(deltas):
+            for name, (runner, per_step) in legs.items():
+                what = f"WIKI {scale} {name} stream"
+                if name in plans:
+                    row = sharded_stream_delta(torch, ops, runner, plans[name], delta,
+                                               per_step, what)
+                else:
+                    row = stream_delta(torch, ops, runner, delta, per_step, what)
+                if group == "c":
+                    stream_host_metrics(np, runner, row, f"{what} delta {i}")
+                rows[name].append(row)
+            if group == "a":
+                same("sequential", "halo_1_shard", "(a) 1-shard halo")
+            elif group == "b":
+                same("halo", "async_0", "(b) async at staleness 0")
+                if "resumed" in legs:
+                    same("halo", "resumed", "(d) resumed halo hub stream")
+                elif i == 3:
+                    # a copy of the checkpoint written after delta 3; the
+                    # uninterrupted runner goes on writing its own
+                    halo = legs["halo"][0]
+                    halo.finish()
+                    shutil.copytree(work / "halo", work / "cut" / "halo")
+                    h = halo.idg
+                    floors = (h.b_max_floor, h.h_max_floor, h.hub_pad_floor, h.he_max_floor,
+                              h.hub_ids, h.e_max)
+                    resumed = side_runner("halo", gs.n, cuda, dev, work / "cut",
+                                          resume=True)
+                    r = resumed[0].idg
+                    require(resumed[0].delta_base == 4
+                            and (r.b_max_floor, r.h_max_floor, r.hub_pad_floor,
+                                 r.he_max_floor, r.hub_ids, r.e_max) == floors,
+                            f"(d) resume after delta 3: delta_base {resumed[0].delta_base}, "
+                            "its floors, hub set or e_max differ")
+                    legs["resumed"] = resumed
+                    plans["resumed"] = watch_plans(resumed[0])
+                    rows["resumed"] = []
+            elif group == "c":
+                require(legs["permuted"][0].idg.block_perm is not None,
+                        "(c) the permuted stream has no block permutation")
+                idg = legs["locality"][0].idg
+                if i == 0:
+                    require(idg.perm_decided, "(c) the locality assignment is undecided")
+                    perm = None if idg.block_perm is None else idg.block_perm.copy()
+                require((perm is None and idg.block_perm is None)
+                        or (perm is not None and np.array_equal(perm, idg.block_perm)),
+                        f"(c) the locality permutation changed at delta {i}")
+        for runner, _ in legs.values():
+            runner.finish()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"rows": rows, "seconds": time.perf_counter() - t0}
+    if group == "c":
+        out["locality_permuted"] = perm is not None
+    return out
+
+
+def side_group_worker(conn, group: str, scale: float) -> None:
+    """`stream_side_group` in a process of its own, its result (or its
+    traceback) sent back."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(SRC))
+        import numpy as np
+        import torch
+
+        from repro_torch.kernels import ops
+
+        torch.set_num_threads(1)
+        conn.send(("ok", stream_side_group(torch, np, ops, group, "cuda", scale)))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class SideLegs:
+    """Phase 11e's side-leg groups, one spawned process each, started once
+    the kernels are built: they share the card with phases 3-7 and the
+    other side legs while the host builds the graph, and are collected
+    before phase 8 (no timed phase runs beside them)."""
+
+    def __init__(self, scale: float = 0.1):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.t0 = time.perf_counter()
+        self._procs = {}
+        for group in SIDE_GROUPS:
+            conn, child = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=side_group_worker, args=(child, group, scale),
+                               daemon=True)
+            proc.start()
+            child.close()
+            self._procs[group] = (proc, conn)
+
+    def results(self) -> dict:
+        """{group: its result}; blocks until every group has ended, and
+        fails with a group's traceback."""
+        out = {}
+        for group, (proc, conn) in self._procs.items():
+            try:
+                got = conn.recv()
+            except EOFError:
+                proc.join(timeout=10)
+                got = ("error", f"exited with code {proc.exitcode}")
+            require(got[0] == "ok", f"phase 11e side legs, group {group}: {got[1]}")
+            out[group] = got[1]
+        out["wall_s"] = time.perf_counter() - self.t0
+        return out
+
+    def stop(self) -> None:
+        for proc, conn in self._procs.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+            conn.close()
+
+
+def stream_sharded_side_legs(np, results: dict, scale: float = 0.1) -> dict:
+    """Phase 11e's side legs at WIKI ``scale`` (`stream_side_group`'s
+    groups' ``results``; each group's checks already held), their rows
+    emitted, then the quality gates: (b) async at staleness 1 meets the
+    main leg's gates against the sequential stream (local_edges >= 0.90x
+    at every delta, max_norm_load <= 1.30 after the last insertion and
+    after the deletion); (c) the locality stream's
+    local_edges >= 0.90x the contiguous halo stream's after the last delta;
+    (e) Spinner and restream on the 8-shard halo stream, after the deletion:
+    max_norm_load <= 1.30 and local_edges above 1/k. Returns the legs'
+    row."""
+    rows = {name: r for group in SIDE_GROUPS for name, r in results[group]["rows"].items()}
+    for name, leg_rows in rows.items():
+        for row in leg_rows:
+            emit({"phase": "stream-sharded-delta", "leg": name, "scale": scale,
+                  **{k: v for k, v in row.items() if k != "launches"},
+                  "launches": {k: v for k, v in row["launches"].items() if v}})
+    # the balance gate after the last insertion and after the deletion, as
+    # the main leg's and phase 11c's: 8 shards' moves overshoot within a
+    # delta's 15 supersteps (every 8-shard stream here ends deltas 0 and 1
+    # above 1.30)
+    for seq, stale in zip(rows["sequential"], rows["async_1"]):
+        require(stale["local_edges"] >= 0.90 * seq["local_edges"]
+                and (stale["delta"] < 7 or stale["max_norm_load"] <= 1.30),
+                f"(b) async at staleness 1, delta {stale['delta']}: local_edges "
+                f"{stale['local_edges']} (sequential {seq['local_edges']}), max_norm_load "
+                f"{stale['max_norm_load']}")
+    contiguous, locality = rows["halo"][-1]["local_edges"], rows["locality"][-1]["local_edges"]
+    require(locality >= 0.90 * contiguous,
+            f"(c) locality local_edges {locality} < 0.90 x contiguous {contiguous}")
+    for algo in ("spinner", "restream"):
+        last = rows[algo][-1]
+        require(1 / K < last["local_edges"] <= 1 and last["max_norm_load"] <= 1.30,
+                f"(e) {algo} on the 8-shard halo stream: {last}")
+    launches = collections.Counter()
+    for leg_rows in rows.values():
+        for row in leg_rows:
+            launches.update(row["launches"])
+    return {"scale": scale, "deltas": len(rows["sequential"]),
+            "locality_permuted": results["c"]["locality_permuted"],
+            "quality_locality_vs_contiguous": locality / contiguous,
+            "quality_permuted_vs_contiguous": rows["permuted"][-1]["local_edges"] / contiguous,
+            "quality_async_1_vs_sequential": (rows["async_1"][-1]["local_edges"]
+                                              / rows["sequential"][-1]["local_edges"]),
+            "resumed_deltas": len(rows["resumed"]), "launches": dict(launches),
+            "group_seconds": {g: results[g]["seconds"] for g in SIDE_GROUPS},
+            "wall_s": results["wall_s"]}
 
 
 def level_weights(np, lg) -> tuple[float, float]:
@@ -2928,15 +3353,18 @@ def main() -> int:
     # phase 8's graph build and 11d's coarsening run in a process of their
     # own from here on, overlapping phases 2-7 and 9-17 and 11c
     host = HostWorker(SEED)
+    spawned: list = []       # phase 11e's side-leg processes, once started
     try:
-        return run_phases(torch, host, t_start)
+        return run_phases(torch, host, spawned, t_start)
     finally:
+        for proc in spawned:
+            proc.stop()
         host.stop()
 
 
-def run_phases(torch, host: HostWorker, t_start: float) -> int:
+def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
     """Phases 1-17h in the order of the module docstring; every check
-    raises."""
+    raises. Processes started here are appended to ``spawned``."""
     import numpy as np
 
     # f32 references in full f32 (the defaults, stated)
@@ -2971,6 +3399,10 @@ def run_phases(torch, host: HostWorker, t_start: float) -> int:
     require(k4_sass["HGMMA"] > 0, f"K4's library holds no HGMMA instruction: {k4_sass}")
     emit({"phase": "build", "seconds": build_s, "built": sorted(reports),
           "flash_attention_sass": k4_sass})
+    # 11e's side legs (WIKI 0.1), one process a group, on the built kernels,
+    # beside phases 3-7 and the other side legs while the host build runs
+    side = SideLegs()
+    spawned.append(side)
 
     # 3. small kernel checks and superstep parity, before anything large:
     # the kernels on the card against the plain versions on the CPU
@@ -3053,6 +3485,16 @@ def run_phases(torch, host: HostWorker, t_start: float) -> int:
     # table, the V-cycle with a sharded hub finest level at WIKI 0.1
     emit({"phase": "hub-side", "graph_built": host.ready(),
           **hub_side_legs(torch, np, ops)})
+
+    # 11e (its side legs, started after phase 2): collected before any timed
+    # phase runs
+    t = time.perf_counter()
+    side_results = side.results()
+    emit({"phase": "stream-sharded-side", "graph_built": host.ready(),
+          "collect_wait_s": time.perf_counter() - t,
+          **stream_sharded_side_legs(np, side_results)})
+    side.stop()
+    spawned.remove(side)
 
     # 8. graph: full-size WIKI, host build (started above) then device layout
     t = time.perf_counter()
@@ -3250,10 +3692,14 @@ def run_phases(torch, host: HostWorker, t_start: float) -> int:
     # phases 13 and 15 count
     next_model(torch)
     stream = stream_phase(torch, np, ops, g, flat)
+    le_11c = [row["local_edges"] for row in stream["revolver"]]
     for algo in ("revolver", "spinner", "restream"):
         for row in stream.pop(algo):
             emit({"phase": "stream-delta", "algo": algo, **row})
     emit({"phase": "stream", **stream})
+    # 11e. the stream over a mesh: 8 shards on the card, halo with hubs
+    next_model(torch)
+    emit({"phase": "stream-sharded", **stream_sharded_phase(torch, np, ops, g, le_11c)})
     t = time.perf_counter()
     emit({"phase": "vcycle", **vcycle_phase(torch, np, ops, g, flat, host),
           "seconds": time.perf_counter() - t})

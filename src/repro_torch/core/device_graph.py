@@ -567,14 +567,23 @@ def _hub_slabs(spec: HaloSpec, s: int, dev: torch.device, repl: dict) -> HubSlab
         vmask_nonhub=torch.from_numpy(np.ascontiguousarray(spec.vmask_nonhub[verts])).to(dev))
 
 
-def _upload_shards(dg: DeviceGraph, mesh, spec: Optional[HaloSpec]):
+_SLAB_FIELDS = _BLOCKED_FIELDS + ("blk_row_ptr",)
+
+
+def _upload_shards(dg: DeviceGraph, mesh, spec: Optional[HaloSpec], *,
+                   row_ptr: Optional[np.ndarray] = None, slabs=None):
     """Each shard's `ShardSlabs` on its device (views of ``dg`` on the home
-    device), with the halo plan's slabs, exchange indices and hub plan."""
+    device), with the halo plan's slabs, exchange indices and hub plan.
+    ``row_ptr`` is ``dg``'s row pointer on the host (downloaded when None);
+    ``slabs[s]``, when given, holds shard s's slabs and row pointer
+    (`_SLAB_FIELDS`) already resident on its device (the incremental
+    layout keeps them across deltas)."""
     n_shards = mesh.n_shards
     bps = dg.n_blocks // n_shards
     bv = dg.block_v
     local_n = bps * bv
-    row_ptr = dg.blk_row_ptr.cpu().numpy()
+    if row_ptr is None:
+        row_ptr = dg.blk_row_ptr.cpu().numpy()
     halo_dst = {}
     use_halo = spec is not None and not spec.fallback
     use_hubs = use_halo and spec.hub_owner is not None
@@ -601,10 +610,10 @@ def _upload_shards(dg: DeviceGraph, mesh, spec: Optional[HaloSpec]):
                     spec.boundary_rows[s].astype(np.int64)).to(dev)
         if use_hubs:
             extra["hub"] = _hub_slabs(spec, s, dev, hub_repl)
+        own = (slabs[s] if slabs is not None
+               else {f: place(getattr(dg, f)[blocks]) for f in _SLAB_FIELDS})
         shards.append(ShardSlabs(
-            device=dev,
-            blk_dst=place(dg.blk_dst[blocks]), blk_row=place(dg.blk_row[blocks]),
-            blk_w=place(dg.blk_w[blocks]), blk_row_ptr=place(dg.blk_row_ptr[blocks]),
+            device=dev, **own,
             blk_spans=SpanPlan.from_row_ptr(row_ptr[blocks], dev),
             deg=place(dg.deg_out[verts]), inv_wsum=place(dg.inv_wsum[verts]),
             vmask=place(dg.vmask[verts]), **extra))

@@ -66,19 +66,6 @@ _log = logging.getLogger("repro_torch.core.runner")
 _SHARDED_SCHEDULES = ("sharded", "halo", "async")
 
 
-def reject_unported(kwargs: dict, unported: dict, where: str) -> None:
-    """Pop every key of ``unported`` ({name: (off value, ROADMAP item)})
-    from ``kwargs``; raise NotImplementedError for one not at its "off"
-    value."""
-    for name in sorted(set(kwargs) & set(unported)):
-        off, item = unported[name]
-        value = kwargs.pop(name)
-        if value != off:
-            raise NotImplementedError(
-                f"{where}({name}={value!r}) is not ported yet; it comes with "
-                f"ROADMAP {item}")
-
-
 class PartitionStateError(RuntimeError):
     """The drain-window state guard found corrupt partitioner state
     (non-finite LA probabilities or out-of-range labels) under the
@@ -713,33 +700,87 @@ def _prepare_layout(graph, schedule, dev, *, dg, mesh, n_blocks, assignment, hal
     return dg
 
 
-def _plan_counters(tracer, algorithm, schedule, sdg, k) -> None:
-    """The halo plan's static per-run gauges (what each superstep's
-    exchange moves), without touching the device."""
+def halo_counters(tracer, algorithm, spec, k, step: Optional[int] = None) -> None:
+    """`repro`'s gauges of a halo plan (what each superstep's exchange and
+    hub votes move a device), without touching the device; the flat runner
+    records them once a run, `StreamRunner` once a delta (``step``)."""
     n_fields = len(algorithm.vertex_fields)
+    wire_sum = sum(spec.wire_bytes_per_elem(k, f in algorithm.wire_int8_fields)
+                   for f in algorithm.vertex_fields)
+    tracer.counter("halo_b_max", spec.b_max, step=step)
+    tracer.counter("halo_h_max", spec.h_max, step=step)
+    tracer.counter("halo_coverage", spec.coverage, step=step)
+    tracer.counter("gathered_bytes_halo", spec.gathered_elems_per_device() * wire_sum, step=step)
+    tracer.counter("gathered_bytes_full", spec.full_gather_elems_per_device() * 4 * n_fields,
+                   step=step)
+    if spec.granularity == "vertex" and not spec.fallback:
+        tracer.counter("pervertex_halo_bytes", spec.gathered_elems_per_device() * wire_sum,
+                       step=step)
+    tracer.counter("hub_count", spec.n_hubs, step=step)
+    if spec.n_hubs:
+        tracer.counter("replica_vote_bytes", spec.hub_sync_elems_per_device(k, n_fields) * 4,
+                       step=step)
+
+
+def _plan_counters(tracer, algorithm, schedule, sdg, k) -> None:
+    """The layout's static per-run gauges: the halo plan's
+    (`halo_counters`), the async schedule's interior split, or the full
+    gather's bytes without a plan."""
     spec = sdg.halo
     if spec is None:
         per_dev = (sdg.n_shards - 1) * sdg.blocks_per_shard * sdg.block_v
-        tracer.counter("gathered_bytes_full", per_dev * 4 * n_fields)
+        tracer.counter("gathered_bytes_full", per_dev * 4 * len(algorithm.vertex_fields))
         return
-    wire_sum = sum(spec.wire_bytes_per_elem(k, f in algorithm.wire_int8_fields)
-                   for f in algorithm.vertex_fields)
-    tracer.counter("halo_b_max", spec.b_max)
-    tracer.counter("halo_h_max", spec.h_max)
-    tracer.counter("halo_coverage", spec.coverage)
     if schedule == "async":
         # trace_report --validate requires the overlap span pair for async
         # runs unless the plan fell back to the full gather
         if spec.fallback:
             tracer.meta["async_fallback"] = True
         tracer.counter("interior_split", spec.interior_split)
-    tracer.counter("gathered_bytes_halo", spec.gathered_elems_per_device() * wire_sum)
-    tracer.counter("gathered_bytes_full", spec.full_gather_elems_per_device() * 4 * n_fields)
-    if spec.granularity == "vertex" and not spec.fallback:
-        tracer.counter("pervertex_halo_bytes", spec.gathered_elems_per_device() * wire_sum)
-    tracer.counter("hub_count", spec.n_hubs)
-    if spec.n_hubs:
-        tracer.counter("replica_vote_bytes", spec.hub_sync_elems_per_device(k, n_fields) * 4)
+    halo_counters(tracer, algorithm, spec, k)
+
+
+class AsyncStaleness:
+    """The async schedule's staleness policy, shared by `run_partitioner`
+    and `StreamRunner`: the engine only tells a fresh exchange (cache None)
+    from a reused tail; this decides. ``g`` counts supersteps from ``g0``
+    (a resumed run's global step). The tail is refreshed when the bound
+    expires (``g % (s + 1) == 0`` keeps any tail at most ``staleness_bound``
+    supersteps old), when the layout object changes (the tail indexes one
+    layout's slabs: a stream's every delta), after `drop` (a rollback or
+    reinit discarded the trajectory it was read from) and, with ``window``,
+    on every checkpoint window (``g % window == 0``), so a snapshot is taken
+    downstream of a fresh exchange and a resumed run, which starts with no
+    tail, replays bit-identically. Each superstep records the
+    ``halo_staleness`` counter."""
+
+    def __init__(self, algorithm, cfg, *, g0: int = 0, window: int = 0, draws=None,
+                 tracer=None):
+        self.algorithm, self.cfg, self.draws = algorithm, cfg, draws
+        self.bound = cfg.staleness_bound
+        self.window = window
+        self.tracer = tracer if tracer is not None else obs.NULL_TRACER
+        self.g = self.last_refresh = g0
+        self.cache = None
+        self.layout = None
+
+    def drop(self) -> None:
+        self.cache = None
+
+    def step(self, layout, state):
+        if layout is not self.layout:
+            self.layout, self.cache = layout, None
+        g = self.g
+        if (self.cache is None or self.bound == 0 or g % (self.bound + 1) == 0
+                or (self.window and g % self.window == 0)):
+            self.cache = None
+            self.last_refresh = g
+        state, self.cache = engine.async_superstep(self.algorithm, layout, self.cfg, state,
+                                                   cache=self.cache, draws=self.draws)
+        if self.tracer.enabled:
+            self.tracer.counter("halo_staleness", float(g - self.last_refresh), step=g)
+        self.g = g + 1
+        return state
 
 
 def _run_partitioner_traced(
@@ -825,34 +866,15 @@ def _run_partitioner_traced(
                                  # superstep that produced them
     drained = [start_step]       # global index of the next drained step
 
-    # async staleness policy: the engine only distinguishes a fresh exchange
-    # (cache None) from a reused tail; the policy lives here. Refresh when
-    # the bound expires (g % (s+1) == 0 keeps any tail at most
-    # staleness_bound supersteps old) and on every checkpoint window (g %
-    # sync_every == 0), so a snapshot is always taken downstream of a fresh
-    # exchange and a resumed run (which starts with no cache: a refresh)
-    # replays bit-identically even at s >= 1
-    async_box = {"cache": None, "g": None, "last_refresh": 0}
+    async_policy = None
     if schedule == "async":
-        staleness = cfg.staleness_bound
         ckpt_windows = checkpoint_dir is not None and checkpoint_every > 0
+        async_policy = AsyncStaleness(algorithm, cfg, g0=start_step,
+                                      window=sync_every if ckpt_windows else 0,
+                                      draws=draws, tracer=tracer)
 
         def base_step(s):
-            if async_box["g"] is None:      # first call: resume-aware origin
-                async_box["g"] = async_box["last_refresh"] = start_step
-            g = async_box["g"]
-            refresh = (async_box["cache"] is None or staleness == 0
-                       or g % (staleness + 1) == 0
-                       or (ckpt_windows and g % sync_every == 0))
-            if refresh:
-                async_box["cache"] = None
-                async_box["last_refresh"] = g
-            s2, async_box["cache"] = engine.async_superstep(
-                algorithm, dg, cfg, s, cache=async_box["cache"], draws=draws)
-            if tracer.enabled:
-                tracer.counter("halo_staleness", float(g - async_box["last_refresh"]), step=g)
-            async_box["g"] = g + 1
-            return s2
+            return async_policy.step(dg, s)
     else:
         def base_step(s):
             return engine.superstep(algorithm, dg, cfg, s, draws=draws, halo=seq_hub)
@@ -951,7 +973,8 @@ def _run_partitioner_traced(
             # loop step counting continues forward; only the halting state
             # and the state (its generator included) rewind; a cached halo
             # tail was read from the discarded trajectory
-            async_box["cache"] = None
+            if async_policy is not None:
+                async_policy.drop()
             return {"state": r_state, "prev_score": r_prev, "stall": r_stall}
         # reinit-affected-vertices: repair on the device — clamp labels into
         # range, rebuild loads from the repaired labels, and reset any
@@ -966,7 +989,8 @@ def _run_partitioner_traced(
             fix["probs"] = torch.where(row_ok, flat, uniform).reshape(s.probs.shape)
         tracer.instant("reinit", step=gsteps)
         _log.warning("reinitialized affected vertices at step %d", gsteps)
-        async_box["cache"] = None    # the tail may carry the corrupt labels
+        if async_policy is not None:
+            async_policy.drop()      # the tail may carry the corrupt labels
         return {"state": s._replace(**fix), "prev_score": -np.inf, "stall": 0}
 
     # the reinit path needs the loop's current state object (drain_metrics

@@ -65,13 +65,24 @@ def fill_block_slab(
     edge_dst: np.ndarray,
     edge_row: np.ndarray,
     edge_w: np.ndarray,
+    *,
+    out_blk: int | None = None,
+    dst_map: np.ndarray | None = None,
 ) -> int:
     """Rewrite one block's slab row in place from `g`'s adjacency.
 
     Zeroes the padded tail. Returns the slab's real edge count. Raises
     ValueError if the block does not fit `e_max`.
+
+    `blk` names the block in *graph* (original vertex-id) space; under a
+    permuted block->shard assignment the slab is stored elsewhere and its
+    neighbor ids live in the permuted space — `out_blk` selects the storage
+    row (default: `blk` itself) and `dst_map` ([>= n] int) remaps each
+    neighbor id before it is written.
     """
     e_max = edge_dst.shape[1]
+    if out_blk is None:
+        out_blk = blk
     v0 = blk * block_v
     v1 = min(v0 + block_v, g.n)
     lo, hi = int(g.adj_ptr[v0]), int(g.adj_ptr[v1])
@@ -82,12 +93,15 @@ def fill_block_slab(
         np.arange(v0, v1, dtype=np.int64),
         np.diff(g.adj_ptr[v0 : v1 + 1]).astype(np.int64),
     )
-    edge_dst[blk, :cnt] = g.adj_idx[lo:hi]
-    edge_row[blk, :cnt] = (rows - v0).astype(np.int32)
-    edge_w[blk, :cnt] = g.adj_w[lo:hi]
-    edge_dst[blk, cnt:] = 0
-    edge_row[blk, cnt:] = 0
-    edge_w[blk, cnt:] = 0.0
+    dst = g.adj_idx[lo:hi]
+    if dst_map is not None:
+        dst = dst_map[dst]
+    edge_dst[out_blk, :cnt] = dst
+    edge_row[out_blk, :cnt] = (rows - v0).astype(np.int32)
+    edge_w[out_blk, :cnt] = g.adj_w[lo:hi]
+    edge_dst[out_blk, cnt:] = 0
+    edge_row[out_blk, cnt:] = 0
+    edge_w[out_blk, cnt:] = 0.0
     return cnt
 
 

@@ -1,7 +1,6 @@
 """StreamRunner: ingest -> warm-start refine -> metrics, per delta.
 
-The port of `repro.streaming.runner` for the sequential schedule on one
-device. The streaming lifecycle:
+The port of `repro.streaming.runner`. The streaming lifecycle:
 
   1. an `EdgeDelta` arrives (from a `StreamBuffer` or `stream_from_graph`);
   2. `IncrementalDeviceGraph.apply` merges it — sorted-key splice on the
@@ -43,10 +42,21 @@ the pass. (It requires a probs-carrying algorithm; with
 ``algo="restream"`` the degree-priority ramp is built into the rule
 itself.)
 
-What waits for a later slice, and raises NotImplementedError when asked
-for: the mesh, assignment, halo and hub options and every schedule but the
-sequential one (ROADMAP queue 1 item 9, slice B: the stream's sharded
-layouts).
+The sharded schedules (``chunk_schedule="sharded" | "halo" | "async"``, a
+config knob) refine over a `BlocksMesh` (``mesh=``; default
+`make_blocks_mesh` on ``device``): the incremental layout is mesh-aligned
+up front and may be stored in a permuted block->shard order
+(``assignment=``: "contiguous", "locality" — decided once, from the first
+merged delta — or an explicit permutation), so each delta's dirty slabs
+land on the shard that owns them. ``"halo"`` and ``"async"`` rebuild the
+exchange plan every delta (``halo_threshold``, ``halo_granularity`` and
+the hub knobs as in `run_partitioner`) under monotonic shape floors:
+growth of ``b_max`` / ``h_max`` is a "halo-widen" event, of the hub region
+a "hub-promote" one, and promoted hubs stay replicated. ``"async"`` keeps
+a tail up to ``staleness_bound`` supersteps old (`AsyncStaleness`; a new
+delta's layout always refreshes it). Carried labels and probabilities stay
+in original vertex order whatever the assignment; the floors, the hub set
+and the permutation ride the stream checkpoints.
 """
 from __future__ import annotations
 
@@ -61,30 +71,21 @@ import torch
 from repro_torch import faults, obs
 from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.core import engine
+from repro_torch.core.device_graph import resolve_device, vertices_to_original
+from repro_torch.core.halo import DEFAULT_HALO_THRESHOLD, HubConfig
 from repro_torch.core.metrics import local_edges, max_normalized_load
 from repro_torch.core.registry import Algorithm, get_algorithm
 from repro_torch.core.revolver import make_generator
-from repro_torch.core.runner import reject_unported, run_convergence_loop
+from repro_torch.core.runner import (
+    _SHARDED_SCHEDULES,
+    AsyncStaleness,
+    halo_counters,
+    run_convergence_loop,
+)
 from repro_torch.streaming.delta_graph import IncrementalDeviceGraph
 from repro_torch.streaming.stream import EdgeDelta
 
 _log = logging.getLogger("repro_torch.streaming")
-
-_ITEM9 = "queue 1 item 9, slice B (the stream's sharded layouts)"
-# StreamRunner options of `repro` that are not ported yet (the stream's
-# sharded, halo, locality and hub layouts come with item 9's slice B):
-# name -> (the value that means "off", the ROADMAP queue item that ports it)
-_UNPORTED = {
-    "chunk_schedule": ("sequential", _ITEM9),
-    "mesh": (None, _ITEM9),
-    "assignment": ("contiguous", _ITEM9),
-    "halo_threshold": (None, _ITEM9),
-    "halo_granularity": ("auto", _ITEM9),
-    "hub_replication": (False, _ITEM9),
-    "hub_quantile": (0.0, _ITEM9),
-    "hub_target_coverage": (None, _ITEM9),
-    "staleness_bound": (0, _ITEM9),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +123,8 @@ class DeltaReport:
     repadded: bool
     wall_s: float
     merge_s: float = 0.0     # host seconds of the merge and the uploads
+    plan_s: float = 0.0      # host seconds of `as_sharded` (plan + uploads)
+    upload_bytes: int = 0    # bytes the delta moved host -> device
 
 
 class StreamRunner:
@@ -130,27 +133,30 @@ class StreamRunner:
     plain PyTorch path).
 
     The runner owns the incremental graph state plus the carried assignment
-    (labels, and LA probabilities when the algorithm has them, in vertex
-    order on the host). Each `ingest(delta)` returns a `DeltaReport`;
-    `run(stream)` drains an iterator of deltas. It holds only the latest
-    delta's `DeviceGraph`, whose slabs the next delta rewrites in place.
+    (labels, and LA probabilities when the algorithm has them, in original
+    vertex order on the host). Each `ingest(delta)` returns a
+    `DeltaReport`; `run(stream)` drains an iterator of deltas. It holds
+    only the latest delta's layout, whose slabs the next delta rewrites in
+    place.
 
     `algo` names any engine-driven algorithm in the registry;
     `**algo_kwargs` flow into its config dataclass (unknown keys raise
-    TypeError; `repro`'s options that are not ported yet raise
-    NotImplementedError unless they carry their "off" value).
+    TypeError), ``chunk_schedule`` and ``staleness_bound`` among them.
+    ``mesh``, ``assignment``, ``halo_threshold``, ``halo_granularity``,
+    ``hub_replication``, ``hub_quantile`` and ``hub_target_coverage`` are
+    `repro`'s (see the module docstring), with its argument errors.
 
     `trace`, `checkpoint_dir`, `checkpoint_every` (deltas), `resume` and
     `keep_checkpoints` are `repro`'s (see the module docstring).
     """
 
     def __init__(self, n: int, cfg: StreamConfig, *, algo: str = "revolver",
-                 seed: int = 0, device="cuda", trace=None,
-                 checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
+                 seed: int = 0, device="cuda", mesh=None, assignment="contiguous",
+                 halo_threshold: float = DEFAULT_HALO_THRESHOLD,
+                 halo_granularity: str = "auto", hub_replication: bool = False,
+                 hub_quantile: float = 0.0, hub_target_coverage: Optional[float] = None,
+                 trace=None, checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
                  resume: bool = False, keep_checkpoints: int = 2, **algo_kwargs):
-        # the schedule knobs are config kwargs in `repro`, the others
-        # StreamRunner keywords
-        reject_unported(algo_kwargs, _UNPORTED, "StreamRunner")
         self.cfg = cfg
         self.tracer = trace if trace is not None else obs.NULL_TRACER
         self.algo = get_algorithm(algo)
@@ -175,8 +181,43 @@ class StreamRunner:
             theta=cfg.theta,
             **algo_kwargs,
         )
+        dev = resolve_device(device)
+        schedule = getattr(self.rcfg, "chunk_schedule", "sequential")
+        sharded = schedule in _SHARDED_SCHEDULES
+        if sharded and mesh is None:
+            from repro_torch.launch.mesh import make_blocks_mesh
+
+            mesh = make_blocks_mesh(device=dev)
+        if mesh is not None and not sharded:
+            raise ValueError(
+                "mesh is only meaningful with chunk_schedule='sharded'/'halo'/'async'")
+        if not sharded and not (isinstance(assignment, str) and assignment == "contiguous"):
+            raise ValueError(
+                "assignment is only meaningful with chunk_schedule='sharded'/'halo'/'async'")
+        if mesh is not None and mesh.home.type != dev.type:
+            raise ValueError(f"mesh {mesh} is not on device={device!r}")
+        self.mesh = mesh
+        self._halo = schedule in ("halo", "async")
+        self._halo_threshold = halo_threshold
+        if halo_granularity not in ("auto", "block", "vertex"):
+            raise ValueError(
+                f"halo_granularity={halo_granularity!r} is not one of "
+                "('auto', 'block', 'vertex')")
+        if halo_granularity != "auto" and not self._halo:
+            raise ValueError(
+                "halo_granularity is only meaningful with chunk_schedule='halo'")
+        if not hub_replication and (hub_quantile or hub_target_coverage is not None):
+            raise ValueError("hub_quantile/hub_target_coverage need hub_replication=True")
+        if hub_replication and not self._halo:
+            raise ValueError(
+                "streaming hub replication rides the halo exchange plan; "
+                "use chunk_schedule='halo'")
+        self._halo_granularity = halo_granularity
+        self._hubs = (HubConfig(quantile=hub_quantile, target_coverage=hub_target_coverage)
+                      if hub_replication else None)
         self.idg = IncrementalDeviceGraph(
-            n, n_blocks=cfg.n_blocks, e_headroom=cfg.e_headroom, device=device)
+            n, n_blocks=cfg.n_blocks, e_headroom=cfg.e_headroom, mesh=mesh,
+            assignment=assignment, device=dev)
         self._gen = make_generator(seed, self.idg.device)
         self.labels: Optional[np.ndarray] = None   # [n] carried labels
         self.probs: Optional[np.ndarray] = None    # carried LA probabilities
@@ -195,6 +236,16 @@ class StreamRunner:
                                  # total_steps monotonic across a resume)
         if resume:
             self._restore_latest()
+        # the async schedule's staleness policy counts supersteps across the
+        # stream (from the resumed step count: a resumed runner starts with
+        # no tail, and so does every delta's new layout)
+        self._async = (AsyncStaleness(self.algo, self.rcfg, g0=self._steps_base,
+                                      tracer=self.tracer)
+                       if schedule == "async" else None)
+
+    @property
+    def schedule(self) -> str:
+        return getattr(self.rcfg, "chunk_schedule", "sequential")
 
     @property
     def total_steps(self) -> int:
@@ -227,6 +278,27 @@ class StreamRunner:
                 # later, unrelated one
                 tracer.clear_recompile_cause()
 
+    def _layout(self, idx: int):
+        """The delta's layout for the configured schedule: the incremental
+        layout wrapped by `as_sharded` on a mesh (its plan rebuilt, growth
+        past a floor noted as its cause), else as it is. Returns (layout,
+        host seconds of the wrap)."""
+        idg, tracer = self.idg, self.tracer
+        if self.mesh is None:
+            return idg.device_graph, 0.0
+        t = time.perf_counter()
+        prev_b, prev_h, prev_hub = idg.b_max_floor, idg.h_max_floor, idg.hub_pad_floor
+        dg = idg.as_sharded(halo=self._halo, halo_threshold=self._halo_threshold,
+                            halo_granularity=self._halo_granularity, hubs=self._hubs)
+        widened = 0 < prev_b < idg.b_max_floor or 0 < prev_h < idg.h_max_floor
+        if self._halo and 0 < prev_hub < idg.hub_pad_floor:
+            # the hub region outgrew its padding: new hubs were promoted
+            # into every shard's replicated buffer
+            tracer.note_recompile_cause("hub-promote")
+        elif self._halo and widened:
+            tracer.note_recompile_cause("halo-widen")
+        return dg, time.perf_counter() - t
+
     def _ingest(self, delta: EdgeDelta, *, max_steps: Optional[int],
                 patience: Optional[int]) -> DeltaReport:
         t0 = time.perf_counter()
@@ -238,17 +310,20 @@ class StreamRunner:
         max_steps = cfg.refine_max_steps if max_steps is None else max_steps
         patience = cfg.refine_patience if patience is None else patience
         with tracer.span("merge", idx=idx):
-            dg, info = self.idg.apply(delta)
+            _, info = self.idg.apply(delta)
             if info.repadded and idx > 0:
                 # new device slabs; no kernel is rebuilt for a shape, so the
                 # cause attaches only to a kernel build falling in this delta
                 tracer.note_recompile_cause("e_max-repad")
-        merge_s = time.perf_counter() - t0
+            merge_s = time.perf_counter() - t0
+            dg, plan_s = self._layout(idx)
         if tracer.enabled:
             tracer.counter("delta_m", info.m, step=idx)
             tracer.counter("delta_added_edges", info.added, step=idx)
             tracer.counter("delta_deleted_edges", info.deleted, step=idx)
             tracer.counter("delta_dirty_blocks", info.dirty_blocks, step=idx)
+            if self._halo and dg.halo is not None:
+                halo_counters(tracer, self.algo, dg.halo, cfg.k, step=idx)
 
         gen = self._gen
         with tracer.span("warm-start", idx=idx, cold=self.labels is None):
@@ -260,19 +335,25 @@ class StreamRunner:
                     prob_sharpen=cfg.warm_sharpen)
             else:
                 state = self.algo.init_from_labels(dg, self.rcfg, gen, self.labels)
+            if self.mesh is not None:
+                state = engine.place_state(self.algo, state, dg)
 
         steps = 0
         if cfg.restream and self.labels is not None:
             state, steps = self._replay_prioritized(dg, state, step0)
         state, refine_steps, converged = run_convergence_loop(
-            lambda s: engine.superstep(self.algo, dg, self.rcfg, s), state,
+            lambda s: self._superstep(dg, s), state,
             max_steps=max_steps, patience=patience, theta=self.rcfg.theta,
             sync_every=cfg.sync_every, tracer=tracer, step0=step0 + steps)
         steps += refine_steps
 
-        self.labels = state.labels[: dg.n].cpu().numpy()
+        # the carried state crosses the delta boundary in original vertex
+        # order (the identity on an unpermuted layout); the metrics read the
+        # storage space the labels and dir_* / deg_out share
+        self.labels = vertices_to_original(dg, state.labels)[: dg.n].cpu().numpy()
         if self.algo.supports_probs:
-            self.probs = state.probs.cpu().numpy()
+            flat = state.probs.reshape(dg.n_pad, cfg.k)
+            self.probs = vertices_to_original(dg, flat).reshape(state.probs.shape).cpu().numpy()
         le = float(local_edges(state.labels, dg.dir_src, dg.dir_dst))
         ml = float(max_normalized_load(state.labels, dg.deg_out, cfg.k))
         if tracer.enabled:
@@ -292,13 +373,15 @@ class StreamRunner:
             repadded=info.repadded,
             wall_s=time.perf_counter() - t0,
             merge_s=merge_s,
+            plan_s=plan_s,
+            upload_bytes=self.idg.upload_bytes,
         )
         self.reports.append(report)
         if tracer.enabled:
             # run manifest: trace_report --validate checks one superstep span
             # per executed step against this
             tracer.meta.setdefault("runs", []).append({
-                "algo": self.algo.name, "k": cfg.k, "schedule": "sequential",
+                "algo": self.algo.name, "k": cfg.k, "schedule": self.schedule,
                 "delta": idx, "steps": steps})
         if (self.checkpoint_dir is not None
                 and self.deltas_ingested % self.checkpoint_every == 0):
@@ -332,14 +415,20 @@ class StreamRunner:
             "kind": "stream", "algo": self.algo.name, "k": self.cfg.k,
             "n": idg.n, "m": idg.inc.m,
             "deltas": self.deltas_ingested, "steps": self.total_steps,
-            "e_max": idg.e_max, "n_blocks": idg.n_blocks, "block_v": idg.block_v,
+            "e_max": idg.e_max, "b_max_floor": idg.b_max_floor,
+            "h_max_floor": idg.h_max_floor, "hub_pad_floor": idg.hub_pad_floor,
+            "he_max_floor": idg.he_max_floor, "hub_ids": [int(h) for h in idg.hub_ids],
+            "perm_decided": idg.perm_decided,
+            "n_blocks": idg.n_blocks, "block_v": idg.block_v,
             "device_type": idg.device.type,
         }
 
     def _save_checkpoint(self):
         """One durable snapshot per `checkpoint_every` deltas: the host-side
-        sorted edge arrays, the host copies of the padded block slabs, the
-        carried assignment (labels + LA probs) and the generator's state.
+        sorted edge arrays, the host copies of the padded block slabs (in
+        storage order) and the block permutation, the carried assignment
+        (labels + LA probs, original vertex order) and the generator's
+        state; the halo plan's floors and hub set ride the metadata.
         Written async (atomic rename underneath); one writer in flight at a
         time."""
         self.finish()
@@ -357,6 +446,8 @@ class StreamRunner:
             tree["labels"] = self.labels
         if self.probs is not None:
             tree["probs"] = self.probs
+        if idg.block_perm is not None:
+            tree["block_perm"] = idg.block_perm
         with self.tracer.span("checkpoint-save", delta=self.deltas_ingested):
             self._ckpt_handle = ckpt_store.save_checkpoint(
                 self.checkpoint_dir, self.deltas_ingested, tree,
@@ -408,7 +499,11 @@ class StreamRunner:
             deltas = int(meta.get("deltas", step))
             idg.restore(arrays["dir_keys"], arrays["sym_keys"], arrays["sym_w"],
                         arrays["blk_dst"], arrays["blk_row"], arrays["blk_w"],
-                        deltas_applied=deltas)
+                        deltas_applied=deltas, block_perm=arrays.get("block_perm"),
+                        perm_decided=bool(meta.get("perm_decided", True)),
+                        floors={f: meta.get(f"{f}_floor", 0)
+                                for f in ("b_max", "h_max", "hub_pad", "he_max")},
+                        hub_ids=meta.get("hub_ids", ()))
             gen = torch.Generator(device=idg.device)
             gen.set_state(torch.from_numpy(arrays["gen"].copy()))
             self._gen = gen
@@ -421,6 +516,13 @@ class StreamRunner:
         _log.info("resumed stream at delta %d (%d supersteps) from %s",
                   self.delta_base, self._steps_base, self.checkpoint_dir)
 
+    def _superstep(self, dg, state):
+        """One refine superstep under the configured schedule (the async
+        one through the stream's staleness policy)."""
+        if self._async is not None:
+            return self._async.step(dg, state)
+        return engine.superstep(self.algo, dg, self.rcfg, state)
+
     def _replay_prioritized(self, dg, state, step0: int = 0) -> Tuple[object, int]:
         """Restream pass: reset the LA state of high-degree vertices in
         priority-ordered chunks, letting each chunk re-decide before the
@@ -429,8 +531,11 @@ class StreamRunner:
         n_replay = int(cfg.restream_frac * dg.n)
         if n_replay == 0:
             return state, 0
-        # the priority order as `repro` takes it: a stable sort on the host
-        order = np.argsort(-dg.deg_out.cpu().numpy(), kind="stable")[:n_replay]
+        # the priority order as `repro` takes it: a stable sort of the whole
+        # padded degree vector in storage order (real vertices are not a
+        # prefix under a permuted assignment; padding has degree 0), from
+        # the layout's host copy; the picks are storage ids, as the probs'
+        order = np.argsort(-self.idg.deg_host, kind="stable")[:n_replay]
         chunks = np.array_split(order, min(cfg.restream_chunks, n_replay))
         steps = 0
         for chunk in chunks:
@@ -438,6 +543,6 @@ class StreamRunner:
             state.probs.view(dg.n_pad, cfg.k)[torch.from_numpy(chunk).to(dg.device)] = 1.0 / cfg.k
             for _ in range(cfg.restream_steps_per_chunk):
                 with self.tracer.span("superstep", step=step0 + steps, replay=True):
-                    state = engine.superstep(self.algo, dg, self.rcfg, state)
+                    state = self._superstep(dg, state)
                 steps += 1
         return state, steps

@@ -156,6 +156,45 @@ def test_check_integer_weights_holds_the_span_kernels_contract():
                                                 np.float32), ptr)
 
 
+@pytest.mark.parametrize("name", ["WIKI", "SO"])
+def test_fill_block_slab_into_permuted_storage_matches_reference(name):
+    """`out_blk` / `dst_map`: every block written into its storage row of a
+    permuted layout with its neighbor ids remapped, over slabs holding
+    stale entries (the tails must be zeroed), equals `repro`'s."""
+    from repro_torch.core.device_graph import block_vertex_perms
+
+    g = datasets.load_dataset(name, scale=SCALE)
+    bv = 64
+    nb = -(-g.n // bv)
+    rng = np.random.default_rng(5)
+    perm = rng.permutation(nb)
+    pos = np.empty(nb, np.int64)
+    pos[perm] = np.arange(nb)
+    o2s, _ = block_vertex_perms(perm, bv)
+    e_max = int(blocking.block_slab_sizes(g.adj_ptr, g.n, bv, nb).max()) + 7
+    stale = (rng.integers(0, g.n, (nb, e_max)).astype(np.int32),
+             rng.integers(0, bv, (nb, e_max)).astype(np.int32),
+             np.ones((nb, e_max), np.float32))
+    slabs = {}
+    for mod in (blocking, jax_blocking):
+        dst, row, w = (a.copy() for a in stale)
+        cnts = [mod.fill_block_slab(g, b, bv, dst, row, w, out_blk=int(pos[b]), dst_map=o2s)
+                for b in range(nb)]
+        slabs[mod] = (dst, row, w, cnts)
+    for a, b in zip(slabs[blocking], slabs[jax_blocking]):
+        np.testing.assert_array_equal(a, b)
+    dst, _, w, cnts = slabs[blocking]
+    plain = blocking.block_edges(g, block_v=bv)
+    for b in range(nb):
+        live = w[pos[b]] > 0
+        assert live.sum() == cnts[b] and not live[cnts[b]:].any()
+        np.testing.assert_array_equal(dst[pos[b], :cnts[b]], o2s[plain.edge_dst[b, :cnts[b]]])
+    # without the keywords the block is written in place, ids unmapped
+    d2, r2, w2 = (np.zeros_like(x) for x in (dst, dst, w))
+    blocking.fill_block_slab(g, 1, bv, d2, r2, w2)
+    np.testing.assert_array_equal(d2[1, :cnts[1]], plain.edge_dst[1, :cnts[1]])
+
+
 @pytest.mark.parametrize("name,n_blocks,n_shards", [
     ("WIKI", 32, 8), ("LJ", 16, 4), ("USA", 32, 4), ("SO", 24, 8)])
 def test_block_orders_match_reference(name, n_blocks, n_shards):

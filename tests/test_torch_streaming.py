@@ -251,15 +251,37 @@ def test_supersteps_on_the_incremental_layout_match_reference(sbm, weight_mode):
     assert checked == [2, 3]
 
 
-def test_unported_layout_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        IncrementalDeviceGraph(64, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        IncrementalDeviceGraph(64, assignment="locality", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        IncrementalDeviceGraph(64, device="cpu").as_sharded(halo=True)
+@pytest.fixture(scope="module")
+def one_shard_meshes():
+    """A 1-shard mesh of each package (`repro` runs in-process on one host
+    device)."""
+    from repro.launch.mesh import make_blocks_mesh as jax_mesh
+    from repro_torch.launch.mesh import BlocksMesh
+
+    return jax_mesh(1), BlocksMesh(["cpu"])
 
 
+def test_as_sharded_halo_matches_reference(sbm, one_shard_meshes):
+    """`IncrementalDeviceGraph(mesh=...).as_sharded(halo=True)` after every
+    delta of the mixed stream: the host slabs and the halo plan equal
+    `repro`'s."""
+    jmesh, mesh = one_shard_meshes
+    ours = IncrementalDeviceGraph(sbm.n, n_blocks=4, mesh=mesh)
+    ref = jax_streaming.IncrementalDeviceGraph(sbm.n, n_blocks=4, mesh=jmesh)
+    for delta in mixed_stream(sbm):
+        ours.apply(delta)
+        ref.apply(to_jax(delta))
+        a, b = ours.as_sharded(halo=True), ref.as_sharded(halo=True)
+        for f in ("_blk_dst", "_blk_row", "_blk_w"):
+            np.testing.assert_array_equal(getattr(ours, f), getattr(ref, f), err_msg=f)
+        for f in ("b_max", "h_max", "coverage", "fallback", "granularity", "blk_dst_halo"):
+            np.testing.assert_array_equal(getattr(a.halo, f), getattr(b.halo, f), err_msg=f)
+        assert (a.n_shards, a.blocks_per_shard) == (b.n_shards, b.blocks_per_shard)
+
+
+# --------------------------------------------------------------------------
+# StreamRunner
+# --------------------------------------------------------------------------
 # --------------------------------------------------------------------------
 # StreamRunner
 # --------------------------------------------------------------------------
@@ -333,21 +355,68 @@ def test_stream_runner_argument_errors_match_reference(sbm):
             Runner(sbm.n, Config(k=4, warm_sharpen=0.5), algo="restream", **kw)
         with pytest.raises(TypeError):
             Runner(sbm.n, Config(k=4), capacty_mode="x", **kw)
-    # the "off" value of each unported option runs
+    # the "off" value of each schedule option runs
     assert StreamRunner(sbm.n, StreamConfig(k=4), device="cpu", trace=None, checkpoint_dir=None,
                         mesh=None, chunk_schedule="sequential").deltas_ingested == 0
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"mesh": object()},
-    {"assignment": "locality"},
-    {"chunk_schedule": "halo"},
-    {"halo_granularity": "vertex"},
-    {"hub_replication": True},
-], ids=lambda kw: next(iter(kw)))
-def test_unported_stream_options_raise(sbm, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        StreamRunner(sbm.n, StreamConfig(k=4), device="cpu", **kwargs)
+# the options that raised NotImplementedError until the stream's sharded
+# layouts were ported; each on a 1-shard mesh of each package ("MESH")
+SHARDED_OPTIONS = {
+    "mesh": dict(chunk_schedule="sharded", mesh="MESH"),
+    "assignment": dict(chunk_schedule="sharded", mesh="MESH", assignment="locality"),
+    "chunk_schedule": dict(chunk_schedule="halo"),
+    "halo_granularity": dict(chunk_schedule="halo", mesh="MESH", halo_granularity="vertex"),
+    "hub_replication": dict(chunk_schedule="halo", mesh="MESH", halo_threshold=2.0,
+                            hub_replication=True, hub_quantile=0.9),
+}
+
+
+@pytest.mark.parametrize("option", list(SHARDED_OPTIONS))
+def test_sharded_stream_options_run_and_match_reference(sbm, one_shard_meshes, option):
+    """Each option runs the mixed stream in both packages: the merges
+    (m, added, deleted, dirty blocks, re-pads), the final host slabs, the
+    block permutation and the halo floors equal `repro`'s; labels come back
+    in range for every vertex."""
+    jmesh, mesh = one_shard_meshes
+    cfg = dict(k=4, n_blocks=4, refine_max_steps=6, refine_patience=2)
+    kw = SHARDED_OPTIONS[option]
+    ours = StreamRunner(sbm.n, StreamConfig(**cfg), seed=0, device="cpu",
+                        **{k: (mesh if v == "MESH" else v) for k, v in kw.items()})
+    ref = jax_streaming.StreamRunner(sbm.n, jax_streaming.StreamConfig(**cfg), seed=0,
+                                     **{k: (jmesh if v == "MESH" else v) for k, v in kw.items()})
+    got = ours.run(mixed_stream(sbm))
+    want = ref.run([to_jax(d) for d in mixed_stream(sbm)])
+
+    def merges(reports):
+        return [(r.m, r.added, r.deleted, r.dirty_blocks, r.repadded) for r in reports]
+    assert merges(got) == merges(want)
+    a, b = ours.idg, ref.idg
+    for f in ("_blk_dst", "_blk_row", "_blk_w"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    assert (a.block_perm is None) == (b.block_perm is None)
+    assert (a.b_max_floor, a.h_max_floor, a.hub_pad_floor, a.hub_ids) == (
+        b.b_max_floor, b.h_max_floor, b.hub_pad_floor, b.hub_ids)
+    assert ours.labels.shape == (sbm.n,) and 0 <= ours.labels.min() and ours.labels.max() < 4
+    assert all(0.0 <= r.local_edges <= 1.0 and r.steps >= 1 for r in got)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(mesh="MESH"), "mesh is only meaningful"),
+    (dict(assignment="locality"), "assignment is only meaningful"),
+    (dict(chunk_schedule="halo", halo_granularity="blocks"), "halo_granularity="),
+    (dict(halo_granularity="vertex"), "halo_granularity is only meaningful"),
+    (dict(hub_quantile=0.9), "need hub_replication=True"),
+    (dict(chunk_schedule="sharded", hub_replication=True), "rides the halo exchange plan"),
+    (dict(chunk_schedule="sharded", mesh="MESH", assignment="elsewhere"), "unknown assignment"),
+], ids=["mesh", "assignment", "granularity-name", "granularity-schedule", "hub-knobs",
+        "hubs-sharded", "assignment-name"])
+def test_sharded_stream_argument_errors_match_reference(sbm, one_shard_meshes, bad, match):
+    jmesh, mesh = one_shard_meshes
+    for module, kw, m in ((jax_streaming, {}, jmesh), (torch_streaming, {"device": "cpu"}, mesh)):
+        with pytest.raises(ValueError, match=match):
+            module.StreamRunner(sbm.n, module.StreamConfig(k=4), **kw,
+                                **{k: (m if v == "MESH" else v) for k, v in bad.items()})
 
 
 @pytest.mark.parametrize("option", ["trace", "checkpoint_dir", "resume", "checkpoint_every"])
