@@ -35,9 +35,15 @@ failure raises and the script exits non-zero without printing a result:
               (Sq = Skv = 129, 255, 1025; Sq = 1 against 1000 keys; D 128 at
               group 8 with a window crossing kv tiles; Sq > Skv at D 128),
               K5 with kv_len on both sides of a split boundary and at S
-              with the most splits; then reduced GQA tinyllama in f32 (TF32 off):
+              with the most splits; K4 at MLA's head widths, 24 (SIMT) and
+              192 (bf16 on the tensor-core body), ragged, windowed, one row
+              and rows without keys; then reduced GQA tinyllama in f32 (TF32 off):
               prefill and 8 greedy decode steps on the card (kernels) against
-              the same on the CPU (plain versions), from one set of weights
+              the same on the CPU (plain versions), from one set of weights,
+              every cache tensor compared; then reduced
+              deepseek-v2-lite-16b and deepseek-v2-236b the same way (MoE
+              and MLA, K4 at D 24; 236b with q LoRA and routed scale 16;
+              both caches, c_kv and k_pe, of the dense and the MoE stack)
   5. lm-full  tinyllama-1.1b at full width, bf16, random weights from seed 0
               on the card: prefill(1024) + decode(token 1025) against
               prefill(1025) (greedy argmax held as in phase 7's bf16 run)
@@ -54,7 +60,28 @@ failure raises and the script exits non-zero without printing a result:
               argmax equal on every row whose top-two gap exceeds one bf16
               ulp of its top logit), then with f32 weights and activations
               (relative L2 < 1e-3, greedy argmax equal on every row)
-  8. graph    the paper's WIKI graph at full size (1.79M vertices), built on
+  7d. deepseek  (in the host build's wait, after the side legs of phases
+              16, 17, 17h and 11e) deepseek-v2-lite-16b at full width and
+              depth (27 layers, 64 routed experts top-6 + 2 shared, MLA),
+              bf16, random weights from seed 0: 15,706,484,224 parameters
+              (`repro`'s count); prefill(1024) + decode(token 1025) against
+              prefill(1025) at a capacity factor just above 64 / 6, where
+              nothing drops: relative L2 < 5e-2 over all rows, the greedy
+              token on every decided row (a row whose router picks differ
+              between the paths at some layer is left out only if the gate
+              fails with it; the routing agreement, the flipped picks'
+              router margins and the rows left out printed); then
+              ``Engine.generate`` at the config's capacity factor 1.25 (batch
+              8, 1024-token prompts, 128 new tokens, greedy) with every
+              launch counter set to 0 just before and read just after: K4
+              once a layer (27), no other kernel (MLA's absorbed decode and
+              the MoE dispatch are plain PyTorch, as in `repro`); two
+              generates bit-equal (no float atomics in the MoE combine); rates, time to first token, peak memory,
+              the device busy share over decode steps; each MoE layer's
+              dropped pairs and max / mean expert load at the prefill, and
+              none dropped in decode. No f32 leg: its weights alone would
+              take 62.8 GB
+ 8. graph    the paper's WIKI graph at full size (1.79M vertices), built on
               the host (by a worker process started before phase 2,
               overlapping phases 2-7, which then coarsens it for phase 11d
               while phases 9-17 and 11c run) and laid out on the card in 8
@@ -152,18 +179,22 @@ failure raises and the script exits non-zero without printing a result:
  12. serve    ``Engine.generate`` on tinyllama-1.1b (batch 8, 1024-token
               prompts, 128 new tokens, greedy), with every launch counter set
               to 0 just before and read just after: K4 once per layer, K5
-              once per layer and decode step; rates, time to first token,
+              once per layer and decode step; a second generate bit-equal
+              (tokens and log-probabilities, as in phases 7d and 14); rates,
+              time to first token,
               peak memory, and the device busy share over decode steps under
               torch.profiler (the host worker coarsens on another core
               meanwhile; it shares no interpreter lock with this process)
- 13. attn-kernels  K4 and K5 at the serving shapes against their plain
-              versions on the card, then timed as in phase 9 but replayed
-              from a CUDA graph (device time without the wrapper's host
-              time; the eager time is printed beside), with
-              ``scaled_dot_product_attention`` as the yardstick; K4's
-              achieved TFLOP/s; two K4 and two K5 calls bit-equal, and K5
-              replayed 3 times from one CUDA graph equal to K5 eager; the
-              device kernels per K5 call (1) under torch.profiler
+ 13. attn-kernels  K4 and K5 at the serving shapes, and K4 at MLA's
+              prefill shape ([8,16,1024,192] bf16 causal; its launches are
+              phase 7d's), against their plain versions on the card, then
+              timed as in phase 9 but replayed from a CUDA graph (device
+              time without the wrapper's host time; the eager time is
+              printed beside), with ``scaled_dot_product_attention`` as the
+              yardstick; K4's achieved TFLOP/s; two K4 calls (at D 64 and
+              at 192) and two K5 calls bit-equal, and K5 replayed 3 times
+              from one CUDA graph equal to K5 eager; the device kernels per
+              K5 call (1) under torch.profiler
  14. rwkv-serve  ``Engine.generate`` on rwkv6-3b at full width and depth,
               as phase 12: K6 once per layer in prefill and once per layer
               and decode step (32 x 128 = 4,096 launches), no other kernel
@@ -319,6 +350,11 @@ FULL_F32_REL_TOL = 1e-3
 WKV_TOL = dict(atol=2e-4, rtol=2e-4)
 GQA = dict(n_heads=8, n_kv=2, d_model=128)
 SERVE = dict(batch=8, prompt=1024, new=128, s_max=1152)
+DEEPSEEK = "deepseek-v2-lite-16b"
+# `repro`'s parameter count of deepseek-v2-lite-16b: the leaves of
+# ``repro.models.init_lm(cfg, key)`` under ``jax.eval_shape``, summed
+# (counted on the CPU; the port's model has the same leaves)
+DEEPSEEK_LITE_PARAMS = 15_706_484_224
 # the golden-worker graph of the JAX package's tests
 PARITY_GRAPH = dict(n=1024, m=8192, n_comm=16, mixing=0.25,
                     degree_exponent=0.5, seed=3)
@@ -2696,6 +2732,15 @@ def attention_small_checks(torch) -> dict:
         (2, 8, 2, 1, 1000, 64, True, None),     # one query row against 1000 keys
         (1, 16, 2, 300, 300, 128, True, 100),   # D 128, group 8, window across kv tiles
         (1, 8, 2, 300, 100, 128, True, None),   # Sq > Skv at D 128: rows without keys
+        # MLA's head widths: 24 (reduced configs, SIMT) and 192 (DeepSeek-V2,
+        # bf16 on the tensor-core body: three 64-column boxes, N 192)
+        (1, 4, 4, 67, 67, 24, True, None),      # ragged
+        (2, 4, 2, 37, 90, 24, True, None),      # group 2, Sq < Skv
+        (1, 4, 4, 129, 129, 192, True, None),   # ragged q and kv tiles, diagonal
+        (1, 4, 2, 300, 300, 192, True, 100),    # group 2, window across kv tiles
+        (2, 3, 3, 1, 257, 192, True, None),     # one query row against 257 keys
+        (1, 2, 2, 200, 70, 192, True, None),    # Sq > Skv: rows without keys
+        (1, 2, 2, 65, 65, 192, False, None),    # no mask
     ]
     k5_cases = [  # b, hq, hkv, s, d, kv_len
         (4, 8, 8, 300, 64, [0, 1, 300, 157]),           # group 1
@@ -2826,15 +2871,9 @@ def next_model(torch) -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def full_width_consistency(torch, cfg, model, toks, *, rel_tol: float = FULL_REL_TOL,
-                           same_argmax: bool = False) -> dict:
-    """prefill(P) + decode(token P+1) logits against prefill(P+1)'s, within
-    ``rel_tol`` relative L2. The greedy token must agree on every row whose
-    top-two gap in prefill(P+1) is larger than one ulp of its top logit in
-    the compute dtype (``near_ties`` counts the rows within that gap); with
-    ``same_argmax`` it must agree on every row. ``tie_gap`` is the largest
-    amount by which prefill(P+1) prefers its own greedy token to the
-    decode's."""
+def consistency_logits(torch, cfg, model, toks):
+    """(decode logits, prefill(P+1) logits): prefill(P) + decode(token P+1)
+    against prefill(P+1) at the serving batch, all three finite."""
     from repro_torch.models import init_cache, lm_decode_step, lm_prefill
 
     p = SERVE["prompt"]
@@ -2846,6 +2885,21 @@ def full_width_consistency(torch, cfg, model, toks, *, rel_tol: float = FULL_REL
                               {"tokens": toks})
     for name, t in (("prefill", first), ("decode", dec), ("prefill+1", whole)):
         require(bool(torch.isfinite(t).all()), f"full-width {name} logits not finite")
+    return dec, whole
+
+
+def consistency_gate(torch, cfg, dec, whole, *, rel_tol: float = FULL_REL_TOL,
+                     same_argmax: bool = False, rows=None) -> dict:
+    """Decode logits against prefill(P+1)'s within ``rel_tol`` relative L2.
+    The greedy token must agree on every row whose top-two gap in
+    prefill(P+1) is larger than one ulp of its top logit in the compute
+    dtype (``near_ties`` counts the rows within that gap); with
+    ``same_argmax`` it must agree on every row. ``tie_gap`` is the largest
+    amount by which prefill(P+1) prefers its own greedy token to the
+    decode's. ``rows`` (bool [B]) limits the gate to those rows."""
+    if rows is not None:
+        require(bool(rows.any()), "full-width decode vs prefill: no row left to hold")
+        dec, whole = dec[rows], whole[rows]
     rel = float((dec - whole).norm() / whole.norm())
     same = dec.argmax(-1) == whole.argmax(-1)
     agree = float(same.float().mean())
@@ -2866,9 +2920,18 @@ def full_width_consistency(torch, cfg, model, toks, *, rel_tol: float = FULL_REL
             "tol_rel_l2": rel_tol}
 
 
+def full_width_consistency(torch, cfg, model, toks, *, rel_tol: float = FULL_REL_TOL,
+                           same_argmax: bool = False) -> dict:
+    """`consistency_gate` on `consistency_logits`: prefill(P) +
+    decode(token P+1) logits against prefill(P+1)'s."""
+    dec, whole = consistency_logits(torch, cfg, model, toks)
+    return consistency_gate(torch, cfg, dec, whole, rel_tol=rel_tol, same_argmax=same_argmax)
+
+
 def serve_phase(torch, ops, cfg, model, toks, want: dict) -> tuple[dict, dict]:
     """The serving main path through `Engine.generate`, timed; ``want`` is
-    each kernel's launch count in the generate call (others must be 0)."""
+    each kernel's launch count in the generate call (others must be 0). A
+    second generate must give bit-equal tokens and log-probabilities."""
     from repro_torch.serve import Engine
 
     prompts = toks[:, :SERVE["prompt"]].contiguous()
@@ -2896,6 +2959,9 @@ def serve_phase(torch, ops, cfg, model, toks, want: dict) -> tuple[dict, dict]:
     require(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab,
             "serve: tokens out of range")
     require(bool(torch.isfinite(res.logprobs).all()), "serve: non-finite logprobs")
+    again = eng.generate(prompts, max_new=SERVE["new"])
+    require(torch.equal(again.tokens, res.tokens) and torch.equal(again.logprobs, res.logprobs),
+            "serve: two generates differ")
     decode_s = wall - ttft
     b, p = SERVE["batch"], SERVE["prompt"]
     return {"arch": cfg.name, "batch": b, "prompt": p, "new_tokens": SERVE["new"],
@@ -2904,7 +2970,7 @@ def serve_phase(torch, ops, cfg, model, toks, want: dict) -> tuple[dict, dict]:
             "decode_tokens_per_s": b * steps / decode_s,
             "decode_ms_per_step": decode_s / steps * 1e3,
             "peak_memory_bytes": peak, "allocated_before_bytes": weights,
-            "launches": counts}, counts
+            "launches": counts, "repeat_bit_equal": True}, counts
 
 
 def serve_profile(torch, cfg, model, toks, steps: int = 4) -> dict:
@@ -2934,6 +3000,151 @@ def serve_profile(torch, cfg, model, toks, steps: int = 4) -> dict:
             wall_us = (time.perf_counter() - t0) * 1e6
     return {"decode_steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
             **device_busy(prof, wall_us, steps, "step"), "prefill": prefill}
+
+
+class MoEStats:
+    """While active, every MoE layer the model runs (`transformer`'s
+    ``apply_moe``) also returns its ``return_stats``, appended to ``calls``
+    with its capacity (and, with ``router``, each token's router
+    probabilities and margin: its K-th probability less its (K+1)-th); the
+    layer's output is the one it gives without stats."""
+
+    def __init__(self, router: bool = False):
+        self.router = router
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.models import moe, transformer
+
+        self._mod, self._orig = transformer, transformer.apply_moe
+
+        def hooked(p, x, spec):
+            y, st = moe.apply_moe(p, x, spec, return_stats=True)
+            t = x.numel() // x.shape[-1]
+            st["capacity"] = moe.moe_capacity(t, spec)
+            if self.router:
+                _, _, probs = moe.route(p.router, x.reshape(t, -1), spec)
+                top = probs.topk(spec.top_k + 1, dim=-1).values
+                st["probs"], st["margin"] = probs, top[:, -2] - top[:, -1]
+            self.calls.append(st)
+            return y
+
+        transformer.apply_moe = hooked
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.apply_moe = self._orig
+        return False
+
+
+def moe_layer_rows(calls: list) -> list:
+    """Per MoE layer: dropped pairs, capacity, max and mean expert load."""
+    return [{"dropped": int(c["dropped"]), "capacity": c["capacity"],
+             "load_max": float(c["expert_load"].max()),
+             "load_mean": float(c["expert_load"].mean())} for c in calls]
+
+
+def deepseek_consistency(torch, cfg, model, toks) -> dict:
+    """deepseek-v2-lite-16b's prefill(P) + decode against prefill(P+1) at a
+    capacity factor just above n_experts / top_k, where ``moe_capacity(T)
+    >= T`` and nothing drops (capacity drops differ by design between the
+    two paths: the last token sorts last within its experts). The routing
+    of the last token is compared between the two paths, as a set per
+    (layer, row): ``routing_agree`` is the share of its K picks the other
+    path also picked; ``router_prob_max_diff`` is the largest difference of
+    its router probabilities between the paths, ``router_flip_margins``
+    prefill(P+1)'s margin (K-th less (K+1)-th probability) where a pick
+    differs. Relative L2 over all rows must stay below FULL_REL_TOL. The
+    rest of `consistency_gate` holds on all rows, or, only if that fails
+    and some row's routing differs between the paths (an f32 router
+    near-tie flipped by the paths' bf16 differences), on the rows whose
+    routing agrees in every layer (counted and printed, with the all-row
+    failure)."""
+    dropless = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k * 1.001)
+    with MoEStats(router=True) as st:
+        dec, whole = consistency_logits(torch, dropless, model, toks)
+    n_moe = cfg.n_layers - cfg.first_dense
+    require(len(st.calls) == 3 * n_moe, f"{len(st.calls)} MoE calls, expected {3 * n_moe}")
+    require(all(int(c["dropped"]) == 0 for c in st.calls),
+            "dropless capacity dropped pairs")
+    b, k = SERVE["batch"], cfg.top_k
+    agree, prob_diff, flip_margins = [], [], []
+    flipped = torch.zeros(b, dtype=torch.bool, device="cuda")
+    for d_call, w_call in zip(st.calls[n_moe:2 * n_moe], st.calls[2 * n_moe:]):
+        d_idx = d_call["top_idx"].long()                                  # [B, K]
+        w_idx = w_call["top_idx"].reshape(b, -1, k)[:, -1].long()         # the last token
+        same = (d_idx[:, :, None] == w_idx[:, None, :]).any(-1).sum(-1)  # [B]
+        agree.append(same.float() / k)
+        row_flip = same < k
+        flipped |= row_flip
+        w_probs = w_call["probs"].reshape(b, -1, cfg.n_experts)[:, -1]
+        prob_diff.append(float((d_call["probs"] - w_probs).abs().max()))
+        w_margin = w_call["margin"].reshape(b, -1)[:, -1]
+        flip_margins += [float(m) for m in w_margin[row_flip]]
+    agree = torch.stack(agree)
+    all_rel = float((dec - whole).norm() / whole.norm())
+    out = {"capacity_factor": dropless.capacity_factor,
+           "capacity": [st.calls[i * n_moe]["capacity"] for i in range(3)],
+           "routing_agree": float(agree.mean()),
+           "routing_flips": int((agree < 1).sum()), "router_flip_rows": int(flipped.sum()),
+           "router_flip_margins": flip_margins, "router_prob_max_diff": max(prob_diff),
+           "all_rows_rel_l2_err": all_rel,
+           "all_rows_argmax_agree": float((dec.argmax(-1) == whole.argmax(-1)).float().mean())}
+    require(all_rel < FULL_REL_TOL, f"full-width decode vs prefill: relative error {all_rel}")
+    try:
+        out.update(consistency_gate(torch, cfg, dec, whole))
+        out["router_flip_rows_excluded"] = 0
+    except RuntimeError as e:
+        if not bool(flipped.any()):
+            raise
+        out["gate_all_rows"] = str(e)
+        out.update(consistency_gate(torch, cfg, dec, whole, rows=~flipped))
+        out["router_flip_rows_excluded"] = int(flipped.sum())
+    return out
+
+
+def deepseek_phase(torch, ops) -> tuple[dict, dict]:
+    """deepseek-v2-lite-16b at full width and depth, bf16, random weights
+    from SEED (31.4 GB; no f32 leg: its weights alone would be 62.8 GB):
+    the parameter count against `repro`'s; prefill + decode against prefill
+    at dropless capacity (`deepseek_consistency`); then the serving main
+    path at the config's capacity factor (1.25) through `Engine.generate`,
+    K4 once a layer (27) and no other kernel, two generates bit-equal, its
+    device busy share; then each MoE layer's drops and expert load at the
+    prefill and in two decode steps (batch 8 decode never drops: capacity
+    8, a token's 6 picks distinct). Returns (its rows, the serve counts)."""
+    from repro_torch.models import init_cache, lm_decode_step, lm_prefill
+
+    t = time.perf_counter()
+    cfg, model, toks, n_params = full_width_model(torch, DEEPSEEK)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    require(n_params == DEEPSEEK_LITE_PARAMS,
+            f"{DEEPSEEK} has {n_params} parameters, repro's has {DEEPSEEK_LITE_PARAMS}")
+    t = time.perf_counter()
+    full = {"arch": cfg.name, "params": n_params, "init_s": init_s,
+            **deepseek_consistency(torch, cfg, model, toks),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": time.perf_counter() - t}
+    next_model(torch)
+    serve, counts = serve_phase(torch, ops, cfg, model, toks,
+                                {"flash_attention": cfg.n_layers})
+    serve_prof = serve_profile(torch, cfg, model, toks)
+    with MoEStats() as st, torch.inference_mode():
+        cache = init_cache(cfg, SERVE["batch"], SERVE["s_max"], "cuda")
+        logits, cache = lm_prefill(model, cfg, cache, {"tokens": toks[:, :SERVE["prompt"]]})
+        n_pre = len(st.calls)
+        for _ in range(2):
+            logits, cache = lm_decode_step(model, cfg, cache, logits.argmax(-1).int())
+    prefill_rows, decode_rows = moe_layer_rows(st.calls[:n_pre]), \
+        moe_layer_rows(st.calls[n_pre:])
+    require(all(r["dropped"] == 0 for r in decode_rows), "batch 8 decode dropped pairs")
+    stats = {"capacity_factor": cfg.capacity_factor, "prefill_layers": prefill_rows,
+             "prefill_dropped": sum(r["dropped"] for r in prefill_rows),
+             "prefill_pairs": SERVE["batch"] * SERVE["prompt"] * cfg.top_k * len(prefill_rows),
+             "decode_layers_dropped": [r["dropped"] for r in decode_rows],
+             "decode_load_max": max(r["load_max"] for r in decode_rows)}
+    return {"full": full, "serve": serve, "serve_profile": serve_prof, "moe": stats}, counts
 
 
 def sass_counts(lib_path) -> dict:
@@ -3047,6 +3258,19 @@ def attention_serve_kernels(torch, flush) -> dict:
             and "decode_attention" in next(iter(k5_names)),
             f"K5 runs {k5_kernels} device kernels a call ({k5_names}), expected 1")
     k4_ms = graph_ms(torch, k4_fn, flush)
+
+    # K4 at DeepSeek-V2's MLA prefill shape: 16 heads of 192 (v padded)
+    h192, d192 = 16, 192
+    q2, k2, v2 = (torch.randn((b, h192, s, d192), generator=gen, device="cuda").to(bf16)
+                  for _ in range(3))
+    mla_fn = lambda: k4.flash_attention_cuda(q2, k2, v2)  # noqa: E731
+    mla_err = check_close(torch, mla_fn(), k4.flash_attention_plain(q2, k2, v2),
+                          ATTN_TOL["bfloat16"], "K4 at the MLA prefill shape")
+    require(torch.equal(mla_fn(), mla_fn()), "K4 at D 192: two calls differ")
+    mla_bytes = el * 4 * b * h192 * s * d192
+    mla_flops = 4 * d192 * b * h192 * s * (s + 1) // 2
+    mla_bound, mla_by = bound(mla_bytes, mla_flops, BF16_FLOPS)
+    mla_ms = graph_ms(torch, mla_fn, flush)
     return {
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
@@ -3076,6 +3300,21 @@ def attention_serve_kernels(torch, flush) -> dict:
             "shape": f"q [{b},{hq},{d}] caches [{b},{hkv},{s_max},{d}] bf16 kv_len {kv}",
             "bytes": k5_bytes, "flops": k5_flops, "device_kernels_per_call": k5_kernels,
             "deterministic": True,
+        },
+        "flash_attention_d192": {
+            "name": "flash_attention_d192", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:97",
+            "max_abs_err": mla_err,
+            "ms": mla_ms, "tflops": mla_flops / mla_ms / 1e9,
+            "plain_ms": graph_ms(torch, lambda: k4.flash_attention_plain(q2, k2, v2), flush),
+            "bound_ms": mla_bound, "bound_by": mla_by,
+            "bound_ops_ms": mla_flops / BF16_FLOPS * 1e3,
+            "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                q2, k2, v2, is_causal=True), flush),
+            "eager_ms": time_ms(torch, mla_fn, flush),
+            "shape": f"q, k, v [{b},{h192},{s},{d192}] bf16 causal (MLA prefill)",
+            "bytes": mla_bytes, "flops": mla_flops, "deterministic": True,
         },
     }
 
@@ -3435,8 +3674,12 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
     t = time.perf_counter()
     attn_small = attention_small_checks(torch)
     lm_small = reduced_lm_parity(torch, "tinyllama-1.1b", GQA)
+    # DeepSeek-V2 reduced: MoE + MLA (K4 at D 24); 236b with q LoRA and
+    # routed scale 16
+    deepseek_small = [reduced_lm_parity(torch, arch, {})
+                      for arch in (DEEPSEEK, "deepseek-v2-236b")]
     emit({"phase": "attn", **attn_small, "reduced_lm": lm_small,
-          "seconds": time.perf_counter() - t})
+          "reduced_deepseek": deepseek_small, "seconds": time.perf_counter() - t})
 
     # 5. tinyllama-1.1b at full width: prefill + decode against prefill
     next_model(torch)
@@ -3495,6 +3738,19 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
           **stream_sharded_side_legs(np, side_results)})
     side.stop()
     spawned.remove(side)
+
+    # 7d. deepseek-v2-lite-16b at full width (MoE + MLA, K4 at D 192): the
+    # consistency gate, then served through Engine.generate; in the host
+    # build's wait, with the side legs' processes stopped
+    next_model(torch)
+    t = time.perf_counter()
+    ds_rows, ds_counts = deepseek_phase(torch, ops)
+    emit({"phase": "deepseek-full", "graph_built": host.ready(), **ds_rows["full"]})
+    emit({"phase": "deepseek-serve", **ds_rows["serve"]})
+    emit({"phase": "deepseek-serve-profile", **ds_rows["serve_profile"]})
+    emit({"phase": "deepseek-moe", **ds_rows["moe"], "seconds": time.perf_counter() - t})
+    del ds_rows
+    next_model(torch)
 
     # 8. graph: full-size WIKI, host build (started above) then device layout
     t = time.perf_counter()
@@ -3633,7 +3889,9 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
     attn_records = attention_serve_kernels(torch, flush)
     del flush
     for name, rec in attn_records.items():
-        rec["launches"] = serve_counts[name]
+        # K4 at D 192: its launches in phase 7d's DeepSeek generate
+        rec["launches"] = (ds_counts["flash_attention"] if name == "flash_attention_d192"
+                           else serve_counts[name])
         records[name] = rec
         emit(rec)
     del model, toks

@@ -1,7 +1,8 @@
 """Architecture registry: the ten archs `repro` knows, and which of them
 the port runs.
 
-The dense decoder family (`repro_torch.models.transformer`) and the RWKV6
+The dense decoder family and the ``moe`` family (DeepSeek-V2's MoE FFN
+and MLA attention, `repro_torch.models.transformer`) and the RWKV6
 ``ssm`` family (`repro_torch.models.rwkv_model`) are ported; `get_config`
 of an arch whose family or features are not ported yet raises
 `NotImplementedError` naming the ROADMAP item that brings it. `repro`'s
@@ -31,8 +32,6 @@ ARCHS = {
 UNPORTED = {
     "command-r-plus-104b": ("the parallel attention/MLP block", "queue 1 item 13"),
     "h2o-danube-3-4b": ("sliding-window attention", "queue 1 item 13"),
-    "deepseek-v2-236b": ("MoE and MLA", "queue 1 item 13"),
-    "deepseek-v2-lite-16b": ("MoE and MLA", "queue 1 item 13"),
     "zamba2-7b": ("the hybrid (Mamba2) family", "queue 1 item 13"),
     "internvl2-1b": ("the VLM family", "queue 1 item 13"),
     "whisper-base": ("the encoder-decoder family", "queue 1 item 13"),

@@ -16,18 +16,24 @@
 // Bound on the card: operations. At the serving prefill shape (B 8, Hq 32,
 // Hkv 4, S 1024, d 64, bf16, causal) the kernel must move ~75 MB (q, k, v,
 // o once: ~23 us at 3.35 TB/s) and do ~2 B Hq S^2 d = 34 GFLOP of products
-// (~35 us at the 989 TFLOP/s bf16 tensor-core peak).
+// (~35 us at the 989 TFLOP/s bf16 tensor-core peak). At MLA's prefill
+// shape (B 8, H 16, S 1024, d 192) ~51.5 GFLOP: ~52 us.
 //
 // Two bodies, chosen by the C entry point on dtype and d:
 //
-// * bf16 at d in {64, 128}, the serving dtype: the tensor-core body
+// * bf16 at d in {64, 128, 192}, the serving dtype: the tensor-core body
 //   (`flash_attention_tc_kernel`), after FlashAttention-3's forward. A CTA
 //   takes one 128-row q tile of one (b, q head): two warpgroups, each
-//   owning 64 rows (wgmma's M); two CTAs share an SM (at most 128 registers
-//   a thread), so one CTA's softmax overlaps the other's products. Thread 0
-//   issues TMA copies (cp.async.bulk.tensor, 128-byte swizzle, 3-d tensor
+//   owning 64 rows (wgmma's M); at d <= 128 two CTAs share an SM (at most
+//   128 registers a thread), so one CTA's softmax overlaps the other's
+//   products. d 192 is DeepSeek-V2's MLA prefill (128 no-RoPE + 64 RoPE
+//   dims, v padded to 192 by the caller): one CTA an SM, its 64 x 192 O
+//   fragment 96 registers a thread beside S's 32, Q 48 KB and each K or V
+//   stage 24 KB of shared memory (145 KB at 2 stages), a row three
+//   64-element swizzle boxes, P.V one m64n192k16 wgmma a 16-key step.
+//   Thread 0 issues TMA copies (cp.async.bulk.tensor, 128-byte swizzle, 3-d tensor
 //   maps over [B*H, S, d] so rows past S come back as zeros) of Q once and
-//   of 64-key K and V tiles into a ring (4 slots at d 64, 2 at d 128)
+//   of 64-key K and V tiles into a ring (4 slots at d 64, 2 at d 128, 192)
 //   guarded by full/empty mbarriers: tile j + slots goes into tile j's slot
 //   as soon as all 8 warps have released it, so the copies of the next
 //   tiles overlap the products on this one. Each warpgroup computes
@@ -50,14 +56,15 @@
 //   order of the output's own bf16 rounding and inside the card check's
 //   bf16 tolerance (atol 2e-2, rtol 1e-2); l sums the unrounded f32 P.
 //
-// * f32 (any d) and bf16 at d in {16, 32}: the SIMT body
-//   (`flash_attention_simt_kernel`), unchanged since the first port. The
-//   f32 instantiation serves the f32 parity checks (the reduced-model check
-//   at 1e-4 and the kernel against f64 at 5e-5), which TF32 products
+// * f32 (d in {16, 24, 32, 64, 128, 192}) and bf16 at d in {16, 24, 32}:
+//   the SIMT body (`flash_attention_simt_kernel`). The f32 instantiation
+//   serves the f32 parity checks (the reduced-model checks at 1e-4, MLA's
+//   at d 24, and the kernel against f64 at 5e-5), which TF32 products
 //   could not meet; bf16 at d <= 32 is served by no config in the repo.
 //   One CTA per (64-row q tile, q head, batch); each thread owns one query
-//   row (two threads a row at d = 128, each half the dims): its q slice and
-//   its f32 accumulator stay in registers, with the running m and l. K and
+//   row (two threads a row at d = 128, four at d = 192, each a share of
+//   the dims): its q slice and its f32 accumulator stay in registers, with
+//   the running m and l. K and
 //   V tiles are staged in shared memory as f32 and read back as warp-wide
 //   broadcasts; scores are taken 16 keys at a time. Its products run in f32
 //   on the CUDA cores (67 TFLOP/s peak).
@@ -83,9 +90,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct TcShape {
+  static_assert(D == 64 || D == 128 || D == 192, "wgmma N: one 64-column swizzle box each");
   static constexpr int BK = 64;                   // keys per K/V tile
-  static constexpr int MIN_CTAS = 2;              // CTAs an SM holds (register cap 128)
-  static constexpr int STAGES = D == 64 ? 4 : 2;  // K/V ring depth (2 CTAs' shared memory)
+  // CTAs an SM holds: 2 at d <= 128 (register cap 128); 1 at d 192, whose
+  // 96 O accumulators a thread beside S's 32 need the 255-register cap
+  // and whose 145 KB of tiles fill the SM's shared memory alone
+  static constexpr int MIN_CTAS = D == 192 ? 1 : 2;
+  static constexpr int STAGES = D == 64 ? 4 : 2;  // K/V ring depth
   static constexpr int NH = D / 64;               // 64-column (128-byte) halves
   static constexpr int Q_BYTES = NH * kTcRows * 128;
   static constexpr int KV_BYTES = NH * BK * 128;  // one K (or V) tile
@@ -230,11 +241,45 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 192] += A[64 x 16] . B[16 x 192], A in registers, B in shared memory (MN-major)
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n192(d, a, db);
 }
 
 template <int D>
@@ -538,7 +583,10 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int hkv, int sq, int skv, int causal, int window,
                        float scale) {
   constexpr int DS = D / TPR;               // dims a thread owns
-  constexpr int BK = D <= 64 ? 64 : 32;     // keys per shared-memory tile
+  static_assert(DS % 4 == 0, "a thread's dims load as float4");
+  // keys per shared-memory tile: K and V in f32 stay within 48 KB of static
+  // shared memory (24 KB at d 192)
+  constexpr int BK = D <= 64 ? 64 : (D <= 128 ? 32 : 16);
   constexpr int NT = kRows * TPR;
   __shared__ __align__(16) float sk[BK][D];
   __shared__ __align__(16) float sv[BK][D];
@@ -605,9 +653,11 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
           s[j] = fmaf(qr[d + 3], kk.w, s[j]);
         }
       }
-      if (TPR == 2) {
+      // the row's TPR threads are neighbouring lanes: sum their partial dots
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], 1);
+      for (int x = 1; x < TPR; x <<= 1) {
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], x);
       }
       float mc = kNeg;
       bool ok[kChunk];
@@ -657,7 +707,9 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
                    int hq, int hkv, int sq, int skv, int causal, int window,
                    float scale, cudaStream_t stream) {
-  constexpr int TPR = D > 64 ? 2 : 1;
+  // threads a query row (neighbouring lanes, so a power of two): a
+  // thread's q slice and accumulator take 2 D / TPR registers, at most 128
+  constexpr int TPR = D > 128 ? 4 : (D > 64 ? 2 : 1);
   const dim3 grid((unsigned)((sq + kRows - 1) / kRows), (unsigned)hq, (unsigned)b);
   flash_attention_simt_kernel<T, D, TPR><<<grid, kRows * TPR, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, hq, hkv, sq, skv, causal,
@@ -671,9 +723,11 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
                          int causal, int window, float scale, cudaStream_t s) {
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
+    case 24: return launch<T, 24>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
     case 32: return launch<T, 32>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
+    case 192: return launch<T, 192>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -696,6 +750,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     err = launch_tc<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
   else if (dtype == 1 && d == 128)
     err = launch_tc<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
+  else if (dtype == 1 && d == 192)
+    err = launch_tc<192>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
   else if (dtype == 1)
     err = launch_simt<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, skv, d, causal, window, scale, s);
   else

@@ -35,7 +35,9 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, NEG, check_inputs
+from repro_torch.kernels.flash_attention import DTYPES, NEG, check_inputs
+
+HEAD_DIMS = (16, 32, 64, 128)
 
 SPLIT_ROWS = 32          # a split covers a multiple of this many positions
 CTAS_PER_SM = 2          # splits are added until the grid has this many CTAs per SM

@@ -14,13 +14,16 @@ Two implementations of one function:
     CPU path and the oracle;
   * `flash_attention_cuda` — the hand-written kernel in
     ``csrc/flash_attention.cu``, bound by operations. Two bodies behind one
-    entry point: bf16 at D 64 or 128 (the serving dtype) runs on the tensor
-    cores (128-row q tiles, two `wgmma` warpgroups fed by TMA copies of
-    64-key K/V tiles into a ring, the online softmax on the accumulator
-    fragment, P rounded to bf16 for P.V, tiles the mask kills never
-    loaded, the heaviest q tiles launched first); f32, and bf16 at D 16 or
-    32, keep the SIMT body (one thread a query row, f32 products on the
-    CUDA cores), which the f32 parity checks need.
+    entry point: bf16 at D 64, 128 or 192 (the serving dtype; 192 is
+    DeepSeek-V2's MLA prefill, a 128-wide no-RoPE part and a 64-wide RoPE
+    part, v padded to match) runs on the tensor cores (128-row q tiles, two
+    `wgmma` warpgroups fed by TMA copies of 64-key K/V tiles into a ring,
+    the online softmax on the accumulator fragment, P rounded to bf16 for
+    P.V, tiles the mask kills never loaded, the heaviest q tiles launched
+    first); f32, and bf16 at D 16, 24 or 32, keep the SIMT body (a query
+    row on one, two or four threads, f32 products on the CUDA cores), which
+    the f32 parity checks need (the reduced MLA configs' heads are 24
+    wide).
 
 They differ in summation order and, in the tensor-core body, in P's
 rounding to bf16 before P.V (at most 2^-9 relative a term, the order of
@@ -34,7 +37,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 24, 32, 64, 128, 192)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = _build.LaunchCounter()
@@ -104,7 +107,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the K4 kernel on the current stream of the tensors' device.
 
     q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], one dtype (f32 or bf16),
-    contiguous, D in {16, 32, 64, 128}, Hq a multiple of Hkv. Returns the
+    contiguous, D in `HEAD_DIMS`, Hq a multiple of Hkv. Returns the
     output in a new tensor of q's shape and dtype; raises on any input the
     kernel does not take, or if the launch fails.
     """

@@ -1,6 +1,7 @@
-"""LM stack of the port: the dense decoder family, served through the
-hand-written attention kernels, and the RWKV6 ``ssm`` family, served
-through the hand-written recurrence kernel (`repro_torch.kernels`)."""
+"""LM stack of the port: the dense and MoE decoder families (GQA or
+DeepSeek-V2's MLA attention), served through the hand-written attention
+kernels, and the RWKV6 ``ssm`` family, served through the hand-written
+recurrence kernel (`repro_torch.kernels`)."""
 from repro_torch.models.api import init_cache, init_lm, lm_decode_step, lm_prefill
 from repro_torch.models.config import ModelConfig
 

@@ -5,7 +5,8 @@
   lm_prefill(model, cfg, cache, batch)       -> (logits, cache)
   lm_decode_step(model, cfg, cache, token)   -> (logits, cache)
 
-batch = {"tokens": [B,S] int32}. The dense family (`transformer`) and the
+batch = {"tokens": [B,S] int32}. The decoder families ``dense`` and
+``moe`` (`transformer`: GQA or MLA attention, MLP or MoE FFNs) and the
 RWKV6 ``ssm`` family (`rwkv_model`) are ported; making a model or a cache
 for another raises `NotImplementedError` naming the ROADMAP item that ports
 it, and `repro`'s ``lm_loss`` (training) comes with queue 1 item 14.

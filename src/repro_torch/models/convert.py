@@ -4,9 +4,11 @@
 a stacked ``[L, ...]`` layer axis (built with ``jax.vmap``) and whose dense
 weights are ``[d_in, d_out]``. `lm_params_from_numpy` takes that tree with
 numpy leaves (``jax.device_get(params)``) or tensor leaves (a checkpoint
-read by `repro_torch.checkpoint`), of a dense decoder or of an RWKV6 model,
-and returns the port's `Decoder` or `RWKV`, which computes
-what `repro` computes from them.
+read by `repro_torch.checkpoint`), of a dense or MoE decoder (GQA or MLA
+attention; an MoE's leading dense layers in ``dense_blocks``, its expert
+weights as raw ``[L, E, ...]`` arrays) or of an RWKV6 model, and returns
+the port's `Decoder` or `RWKV`, which computes what `repro` computes from
+them.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ from repro_torch.core.device_graph import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.common import Dense, Embed, Norm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mla import MLA
 from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 from repro_torch.models.rwkv_model import RWKV, RWKVBlock
 from repro_torch.models.transformer import Block, Decoder, check_ported
@@ -36,6 +40,13 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+STACKS = ("blocks", "dense_blocks")   # subtrees with a stacked [L, ...] layer axis
+
+
+def _leaves(tree: dict) -> list:
+    return [a for v in tree.values() for a in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
 def _paths(tree: dict, prefix: str = "") -> set:
     out = set()
     for k, v in tree.items():
@@ -44,9 +55,10 @@ def _paths(tree: dict, prefix: str = "") -> set:
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV:
-    """The port's `Decoder` (dense family) or `RWKV` (``ssm`` family) on
-    ``device`` from `repro`'s parameter tree with numpy leaves. Raises if
-    the tree holds leaves the port would not use (or lacks some)."""
+    """The port's `Decoder` (dense and moe families) or `RWKV` (``ssm``
+    family) on ``device`` from `repro`'s parameter tree with numpy leaves.
+    Raises if the tree holds leaves the port would not use (or lacks some),
+    or a stack with another number of layers than ``cfg`` gives it."""
     if cfg.family != "ssm":
         check_ported(cfg)
     dev = resolve_device(device)
@@ -71,26 +83,61 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV
         except TypeError as e:      # a key too many or too few
             raise ValueError(f"parameter tree does not match {cfg.name}: {e}") from e
 
+    def fail(what):
+        raise ValueError(f"parameter tree does not match {cfg.name}: {what}")
+
+    def stack(name, n):
+        """The n layers of the stacked subtree ``tree[name]``."""
+        if name not in tree:
+            fail(f"no {name}")
+        lens = {int(a.shape[0]) for a in _leaves(tree[name])}
+        if lens != {n}:
+            fail(f"{name} holds {sorted(lens)} layers, expected {n}")
+        return [layer(tree[name], i) for i in range(n)]
+
+    def attention(d):
+        if cfg.attn_kind != "mla":
+            return Attention(*(lin(d[n]) for n in ("wq", "wk", "wv", "wo")))
+        if ("wq" in d) == bool(cfg.q_lora_rank):
+            fail(f"q_lora_rank {cfg.q_lora_rank} but attn holds {sorted(d)}")
+        return module(d, MLA)
+
+    def block(bt, moe_layer):
+        if moe_layer != ("moe" in bt):
+            fail(f"expected {'moe' if moe_layer else 'mlp'}, got {sorted(bt)}")
+        if not moe_layer:
+            ffn = {"mlp": MLP(cfg.mlp_kind, **{k: lin(v) for k, v in bt["mlp"].items()})}
+        else:
+            m = bt["moe"]
+            if ("shared" in m) != bool(cfg.n_shared_experts):
+                fail(f"n_shared_experts {cfg.n_shared_experts} but moe holds {sorted(m)}")
+            shared = (MLP("swiglu", **{k: lin(v) for k, v in m["shared"].items()})
+                      if "shared" in m else None)
+            ffn = {"moe": MoE(lin(m["router"]), put(m["w_gate"]), put(m["w_up"]),
+                              put(m["w_down"]), shared)}
+        return Block(norm(bt["ln1"]), attention(bt["attn"]), norm(bt["ln2"]), **ffn)
+
     embed = Embed(put(tree["embed"]["emb"]))
-    bts = [layer(tree["blocks"], i) for i in range(cfg.n_layers)]
     if cfg.family == "ssm":
         blocks = [RWKVBlock(norm(bt["ln1"]), norm(bt["ln2"]), module(bt["time"], TimeMix),
                             module(bt["chan"], ChannelMix))
-                  for bt in bts]
+                  for bt in stack("blocks", cfg.n_layers)]
         model = RWKV(embed, norm(tree["ln0"]), blocks, norm(tree["ln_f"]),
                      Embed(put(tree["unembed"]["emb"])))
     else:
-        blocks = [Block(norm(bt["ln1"]),
-                        Attention(*(lin(bt["attn"][n]) for n in ("wq", "wk", "wv", "wo"))),
-                        norm(bt["ln2"]),
-                        MLP(cfg.mlp_kind, **{k: lin(v) for k, v in bt["mlp"].items()}))
-                  for bt in bts]
+        n_dense = cfg.first_dense if cfg.moe else 0
+        try:
+            blocks = [block(bt, cfg.moe) for bt in stack("blocks", cfg.n_layers - n_dense)]
+            dense_blocks = ([block(bt, False) for bt in stack("dense_blocks", n_dense)]
+                            if n_dense else [])
+        except KeyError as e:
+            fail(f"no {e}")
         unembed = None if cfg.tie_embeddings else Embed(put(tree["unembed"]["emb"]))
-        model = Decoder(embed, blocks, norm(tree["ln_f"]), unembed)
+        model = Decoder(embed, blocks, norm(tree["ln_f"]), unembed, dense_blocks)
 
     # every leaf of the tree is a parameter of the model, and back
     used = {".".join(p for j, p in enumerate(name.split("."))
-                     if not (j == 1 and name.startswith("blocks.")))
+                     if not (j == 1 and name.split(".")[0] in STACKS))
             for name, _ in model.named_parameters()}
     if used != _paths(tree):
         raise ValueError(f"parameter tree does not match {cfg.name}: "

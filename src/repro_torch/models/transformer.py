@@ -1,14 +1,17 @@
-"""Decoder-only LM assembly: the dense family.
+"""Decoder-only LM assembly: the dense and MoE families.
 
-The counterpart of `repro.models.transformer` for ``family="dense"``:
-blocks are `nn.Module`s in an `nn.ModuleList` walked by a Python loop (the
-counterpart of `repro`'s ``lax.scan`` over a stacked ``[L, ...]`` layer
-axis; `repro_torch.models.convert` splits that axis). Not ported yet, each
-raising `NotImplementedError`: MoE FFNs and MLA attention (with the
-``first_dense`` stack they imply), the VLM frontend and the parallel
-attention/MLP block (ROADMAP queue 1 item 13). `repro`'s
-``maybe_gather_hidden`` / ``maybe_shard_hidden`` are the identity on one
-device and have no counterpart.
+The counterpart of `repro.models.transformer` for ``family="dense"`` and
+``family="moe"``: blocks are `nn.Module`s in an `nn.ModuleList` walked by
+a Python loop (the counterpart of `repro`'s ``lax.scan`` over a stacked
+``[L, ...]`` layer axis; `repro_torch.models.convert` splits that axis). A
+block's attention is GQA (`attention.Attention`) or DeepSeek-V2's MLA
+(`mla.MLA`), its FFN an `MLP` or an `MoE`; ``cfg.first_dense`` leading
+layers of an MoE config (DeepSeek-V2's dense layer 0) form a second stack,
+``dense_blocks``, walked before ``blocks``. Not ported yet, each raising
+`NotImplementedError`: the VLM frontend, the hybrid and encoder-decoder
+families and the parallel attention/MLP block (ROADMAP queue 1 item 13).
+`repro`'s ``maybe_gather_hidden`` / ``maybe_shard_hidden`` are the
+identity on one device and have no counterpart.
 
 Paths:
   decoder_hidden       tokens -> final hidden (the teacher-forced pass)
@@ -21,16 +24,16 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.common import Embed, Norm, apply_norm, embed_init, norm_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import MLP, apply_mlp, init_mlp
+from repro_torch.models.moe import MoE, MoESpec, apply_moe, init_moe
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config this module cannot run."""
-    unported = [(cfg.family != "dense", f"family={cfg.family!r}"),
-                (cfg.moe, "moe=True"),
-                (cfg.attn_kind == "mla", "attn_kind='mla'"),
+    unported = [(cfg.family not in ("dense", "moe"), f"family={cfg.family!r}"),
                 (cfg.parallel_block, "parallel_block=True")]
     for bad, what in unported:
         if bad:
@@ -47,73 +50,128 @@ def attn_spec(cfg: ModelConfig) -> attn.AttnSpec:
         qkv_bias=cfg.qkv_bias)
 
 
+def mla_spec(cfg: ModelConfig) -> mla_mod.MLASpec:
+    return mla_mod.MLASpec(
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        q_lora_rank=cfg.q_lora_rank, kv_lora_rank=cfg.kv_lora_rank,
+        d_nope=cfg.mla_d_nope, d_rope=cfg.mla_d_rope, d_v=cfg.mla_d_v,
+        rope_theta=cfg.rope_theta)
+
+
+def moe_spec(cfg: ModelConfig) -> MoESpec:
+    return MoESpec(
+        d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        d_ff_expert=cfg.d_ff_expert, n_shared=cfg.n_shared_experts,
+        capacity_factor=cfg.capacity_factor, norm_topk=cfg.norm_topk,
+        routed_scale=cfg.routed_scale)
+
+
 # --------------------------------------------------------------------------
 # blocks
 # --------------------------------------------------------------------------
 class Block(nn.Module):
-    """Pre-norm block: ``h + attn(ln1(h))``, then ``+ mlp(ln2(.))``."""
+    """Pre-norm block: ``h + attn(ln1(h))``, then ``+ ffn(ln2(.))``, where
+    ``attn`` is an `Attention` or an `MLA` and the FFN is ``mlp`` (an
+    `MLP`) or ``moe`` (an `MoE`)."""
 
-    def __init__(self, ln1: Norm, attn_: attn.Attention, ln2: Norm, mlp: MLP):
+    def __init__(self, ln1: Norm, attn_: nn.Module, ln2: Norm, mlp: MLP | None = None,
+                 moe: MoE | None = None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn_, ln2, mlp
+        if (mlp is None) == (moe is None):
+            raise ValueError("a block takes one FFN: mlp or moe")
+        self.ln1, self.attn, self.ln2, self.mlp, self.moe = ln1, attn_, ln2, mlp, moe
 
 
-def _init_block(cfg: ModelConfig, gen: torch.Generator) -> Block:
+def _init_block(cfg: ModelConfig, moe_layer: bool, gen: torch.Generator) -> Block:
     dev = gen.device
-    return Block(
-        norm_init(cfg.d_model, cfg.pdt, dev, kind=cfg.norm, bias=cfg.norm_bias),
-        attn.init_attention(gen, attn_spec(cfg), cfg.pdt),
-        norm_init(cfg.d_model, cfg.pdt, dev, kind=cfg.norm, bias=cfg.norm_bias),
-        init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdt, kind=cfg.mlp_kind))
+    ln1 = norm_init(cfg.d_model, cfg.pdt, dev, kind=cfg.norm, bias=cfg.norm_bias)
+    if cfg.attn_kind == "mla":
+        attn_ = mla_mod.init_mla(gen, mla_spec(cfg), cfg.pdt)
+    else:
+        attn_ = attn.init_attention(gen, attn_spec(cfg), cfg.pdt)
+    ln2 = norm_init(cfg.d_model, cfg.pdt, dev, kind=cfg.norm, bias=cfg.norm_bias)
+    if moe_layer:
+        return Block(ln1, attn_, ln2, moe=init_moe(gen, moe_spec(cfg), cfg.pdt))
+    return Block(ln1, attn_, ln2,
+                 mlp=init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdt, kind=cfg.mlp_kind))
 
 
 def _norm(cfg: ModelConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
     return apply_norm(p, x, kind=cfg.norm, eps=cfg.norm_eps)
 
 
+def _ffn(cfg: ModelConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
+    if p.moe is not None:
+        return apply_moe(p.moe, x, moe_spec(cfg))
+    return apply_mlp(p.mlp, x, kind=cfg.mlp_kind)
+
+
 def _apply_block(cfg: ModelConfig, p: Block, h, positions, *, return_kv=False):
-    out = attn.apply_attention(p.attn, attn_spec(cfg), _norm(cfg, p.ln1, h),
-                               positions, return_kv=return_kv)
+    """One block over h [B, S, d]; with ``return_kv`` also this layer's
+    cache entry: (k, v) for GQA, (c_kv, k_pe) for MLA."""
+    a = _norm(cfg, p.ln1, h)
+    if cfg.attn_kind == "mla":
+        out = mla_mod.apply_mla(p.attn, mla_spec(cfg), a, positions, return_cache=return_kv)
+    else:
+        out = attn.apply_attention(p.attn, attn_spec(cfg), a, positions, return_kv=return_kv)
     attn_out, kv = out if return_kv else (out, None)
     h = h + attn_out
-    h = h + apply_mlp(p.mlp, _norm(cfg, p.ln2, h), kind=cfg.mlp_kind)
+    h = h + _ffn(cfg, p, _norm(cfg, p.ln2, h))
     return (h, kv) if return_kv else h
 
 
-def _decode_block(cfg: ModelConfig, p: Block, h1, cache_k, cache_v, pos):
-    """One-token decode through a block; the cache is this layer's slice,
-    written in place."""
-    attn_out, _, _ = attn.decode_self_attention(
-        p.attn, attn_spec(cfg), _norm(cfg, p.ln1, h1), cache_k, cache_v, pos)
+def _decode_block(cfg: ModelConfig, p: Block, h1, cache_a, cache_b, pos):
+    """One-token decode through a block; the cache pair is this layer's
+    slice ((k, v) or MLA's (c_kv, k_pe)), written in place."""
+    a = _norm(cfg, p.ln1, h1)
+    if cfg.attn_kind == "mla":
+        attn_out, _, _ = mla_mod.decode_mla(p.attn, mla_spec(cfg), a, cache_a, cache_b, pos)
+    else:
+        attn_out, _, _ = attn.decode_self_attention(p.attn, attn_spec(cfg), a, cache_a,
+                                                    cache_b, pos)
     h1 = h1 + attn_out
-    return h1 + apply_mlp(p.mlp, _norm(cfg, p.ln2, h1), kind=cfg.mlp_kind)
+    return h1 + _ffn(cfg, p, _norm(cfg, p.ln2, h1))
 
 
 # --------------------------------------------------------------------------
 # model
 # --------------------------------------------------------------------------
 class Decoder(nn.Module):
-    """Token embedding, the block stack, the final norm and (unless tied)
-    the output embedding."""
+    """Token embedding, the leading dense stack (MoE configs with
+    ``first_dense``; else empty), the main block stack, the final norm and
+    (unless tied) the output embedding."""
 
     def __init__(self, embed: Embed, blocks: list[Block], ln_f: Norm,
-                 unembed: Embed | None):
+                 unembed: Embed | None, dense_blocks: list[Block] = ()):
         super().__init__()
         self.embed = embed
+        self.dense_blocks = nn.ModuleList(dense_blocks)
         self.blocks = nn.ModuleList(blocks)
         self.ln_f = ln_f
         self.unembed = unembed
+
+    def stacks(self):
+        """(cache key, blocks) for each non-empty stack, in the order the
+        forward pass walks them."""
+        return [(key, stack) for key, stack in (("dense", self.dense_blocks),
+                                                ("main", self.blocks)) if len(stack)]
+
+
+def _n_dense(cfg: ModelConfig) -> int:
+    return cfg.first_dense if cfg.moe else 0
 
 
 def init_decoder(cfg: ModelConfig, gen: torch.Generator) -> Decoder:
     """Random parameters on the generator's device, drawn in a fixed order."""
     check_ported(cfg)
+    n_dense = _n_dense(cfg)
     embed = embed_init(gen, cfg.vocab, cfg.d_model, cfg.pdt)
     ln_f = norm_init(cfg.d_model, cfg.pdt, gen.device, kind=cfg.norm,
                      bias=cfg.norm_bias)
-    blocks = [_init_block(cfg, gen) for _ in range(cfg.n_layers)]
+    blocks = [_init_block(cfg, cfg.moe, gen) for _ in range(cfg.n_layers - n_dense)]
+    dense_blocks = [_init_block(cfg, False, gen) for _ in range(n_dense)]
     unembed = None if cfg.tie_embeddings else embed_init(gen, cfg.vocab, cfg.d_model, cfg.pdt)
-    return Decoder(embed, blocks, ln_f, unembed)
+    return Decoder(embed, blocks, ln_f, unembed, dense_blocks)
 
 
 def _out_emb(cfg: ModelConfig, model: Decoder) -> torch.Tensor:
@@ -132,8 +190,9 @@ def decoder_hidden(model: Decoder, cfg: ModelConfig, tokens) -> torch.Tensor:
     """tokens [B,S] -> final hidden [B, S, d]."""
     h = _embed_tokens(cfg, model, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
-    for blk in model.blocks:
-        h = _apply_block(cfg, blk, h, positions)
+    for _, stack in model.stacks():
+        for blk in stack:
+            h = _apply_block(cfg, blk, h, positions)
     return _norm(cfg, model.ln_f, h)
 
 
@@ -141,22 +200,39 @@ def decoder_hidden(model: Decoder, cfg: ModelConfig, tokens) -> torch.Tensor:
 # serving: cache init / prefill / decode
 # --------------------------------------------------------------------------
 def decoder_init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
-    """``{"main": (k, v), "pos": [B] int32}`` with k, v
-    [L, B, Hkv, S, D] in the compute dtype (S = the window for a
-    sliding-window config shorter than ``s_max``: a ring buffer)."""
+    """``{"main": pair, "dense": pair (MoE configs with first_dense only),
+    "pos": [B] int32}``, each pair over its stack's L layers in the compute
+    dtype: GQA's (k, v) [L, B, Hkv, S, D] (S = the window for a
+    sliding-window config shorter than ``s_max``: a ring buffer), or MLA's
+    (c_kv [L, B, S, R], k_pe [L, B, S, d_rope])."""
     check_ported(cfg)
-    w = cfg.window if cfg.window and cfg.window < s_max else s_max
-    shape = (cfg.n_layers, batch, cfg.n_kv, w, cfg.head_dim)
-    return {"main": (torch.zeros(shape, dtype=cfg.cdt, device=device),
-                     torch.zeros(shape, dtype=cfg.cdt, device=device)),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    n_dense = _n_dense(cfg)
+    if cfg.attn_kind == "mla":
+        shapes = ((batch, s_max, cfg.kv_lora_rank), (batch, s_max, cfg.mla_d_rope))
+    else:
+        w = cfg.window if cfg.window and cfg.window < s_max else s_max
+        shapes = ((batch, cfg.n_kv, w, cfg.head_dim),) * 2
+
+    def mk(n):
+        return tuple(torch.zeros((n,) + sh, dtype=cfg.cdt, device=device) for sh in shapes)
+
+    cache = {"main": mk(cfg.n_layers - n_dense),
+             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if n_dense:
+        cache["dense"] = mk(n_dense)
+    return cache
 
 
 def _write_prefill(cfg: ModelConfig, cache_pair, layer: int, kv, s: int) -> None:
-    """Write one layer's prefill k, v [B, Hkv, s, D] into the cache at
-    positions [0, s), in place (a ring buffer keeps the last slots)."""
+    """Write one layer's prefill cache entry into the cache at positions
+    [0, s), in place: GQA's k, v [B, Hkv, s, D] (a ring buffer keeps the
+    last slots) or MLA's c_kv [B, s, R], k_pe [B, s, d_rope]."""
     ck, cv = cache_pair
     k, v = kv
+    if cfg.attn_kind == "mla":
+        ck[layer, :, :s] = k
+        cv[layer, :, :s] = v
+        return
     s_max = ck.shape[3]
     if s_max < s:
         sl = torch.arange(s - s_max, s, device=ck.device) % s_max
@@ -173,9 +249,10 @@ def decoder_prefill(model: Decoder, cfg: ModelConfig, tokens, cache: dict):
     h = _embed_tokens(cfg, model, tokens)
     s_tot = h.shape[1]
     positions = torch.arange(s_tot, device=h.device)
-    for i, blk in enumerate(model.blocks):
-        h, kv = _apply_block(cfg, blk, h, positions, return_kv=True)
-        _write_prefill(cfg, cache["main"], i, kv, s_tot)
+    for key, stack in model.stacks():
+        for i, blk in enumerate(stack):
+            h, kv = _apply_block(cfg, blk, h, positions, return_kv=True)
+            _write_prefill(cfg, cache[key], i, kv, s_tot)
     cache["pos"] = torch.full((tokens.shape[0],), s_tot, dtype=torch.int32,
                               device=h.device)
     h = _norm(cfg, model.ln_f, h)
@@ -187,9 +264,10 @@ def decoder_decode_step(model: Decoder, cfg: ModelConfig, cache: dict, token):
     ``cache["pos"]``; the cache is written in place."""
     pos = cache["pos"]
     h = _embed_tokens(cfg, model, token[:, None])
-    ck, cv = cache["main"]
-    for i, blk in enumerate(model.blocks):
-        h = _decode_block(cfg, blk, h, ck[i], cv[i], pos)
+    for key, stack in model.stacks():
+        ca, cb = cache[key]
+        for i, blk in enumerate(stack):
+            h = _decode_block(cfg, blk, h, ca[i], cb[i], pos)
     cache["pos"] = pos + 1
     h = _norm(cfg, model.ln_f, h)
     return _logits(cfg, model, h[:, 0]), cache

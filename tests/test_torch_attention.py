@@ -122,7 +122,7 @@ def _tensor_core_attention(q, k, v, *, causal, window):
 
 
 @pytest.mark.parametrize("skv", [64, 1024])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, 37)])
 def test_bf16_probabilities_stay_within_the_card_tolerance(skv, d, causal, window):
     """Rounding P to bf16 before P.V (K4's tensor-core body) keeps the output

@@ -61,7 +61,8 @@ def _dense(p):
 # --------------------------------------------------------------------------
 # configs
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "stablelm-1.6b", "deepseek-v2-lite-16b",
+                                  "deepseek-v2-236b"])
 @pytest.mark.parametrize("overrides", [{}, GQA])
 def test_config_and_reduced_match_repro(arch, overrides):
     for ours, theirs in ((registry.get_config(arch), jregistry.get_config(arch)),
@@ -80,7 +81,7 @@ def test_registry_knows_every_arch_and_refuses_the_unported():
             with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
                 registry.get_config(arch)
         else:
-            assert registry.get_config(arch).family in ("dense", "ssm")
+            assert registry.get_config(arch).family in ("dense", "moe", "ssm")
     with pytest.raises(KeyError):
         registry.get_config("gpt-5")
 
@@ -296,14 +297,32 @@ def test_serve_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(family="moe", moe=True), "item 13"),
-    (dict(attn_kind="mla"), "item 13"),
+    # MoE and MLA were ported with ROADMAP queue 1 item 13's first bullet:
+    # these two cases now build and serve
+    (dict(family="moe", moe=True, n_experts=4, top_k=2, d_ff_expert=16, first_dense=1,
+          capacity_factor=4.0), "item 13"),
+    (dict(attn_kind="mla", kv_lora_rank=16, mla_d_nope=8, mla_d_rope=8, mla_d_v=16),
+     "item 13"),
     (dict(family="vlm"), "item 13"),
     (dict(parallel_block=True), "item 13"),
     (dict(family="hybrid"), "item 13"),
 ])
 def test_unported_model_features_raise(overrides, item):
+    """The features item 13 has not ported yet raise naming it; MoE FFNs
+    (with their leading dense stack) and MLA attention build, and a prefill
+    and a decode step through them give finite logits."""
     cfg = dataclasses.replace(registry.get_config("tinyllama-1.1b").reduced(), **overrides)
+    if cfg.moe or cfg.attn_kind == "mla":
+        model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+        assert len(model.dense_blocks) == (1 if cfg.moe else 0)
+        assert all((blk.moe is not None) == cfg.moe for blk in model.blocks)
+        assert all(type(blk.attn).__name__ == ("MLA" if cfg.attn_kind == "mla" else "Attention")
+                   for blk in model.blocks)
+        cache = init_cache(cfg, 2, 12, "cpu")
+        logits, cache = lm_prefill(model, cfg, cache, {"tokens": torch.ones((2, 8), dtype=torch.int32)})
+        logits, cache = lm_decode_step(model, cfg, cache, logits.argmax(-1).int())
+        assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         init_lm(cfg, torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
