@@ -1,9 +1,11 @@
 """Architecture registry: the ten archs `repro` knows, and which of them
 the port runs.
 
-The dense decoder family and the ``moe`` family (DeepSeek-V2's MoE FFN
-and MLA attention, `repro_torch.models.transformer`) and the RWKV6
-``ssm`` family (`repro_torch.models.rwkv_model`) are ported; `get_config`
+The dense decoder family (sliding-window attention included) and the
+``moe`` family (DeepSeek-V2's MoE FFN and MLA attention,
+`repro_torch.models.transformer`), the RWKV6 ``ssm`` family
+(`repro_torch.models.rwkv_model`) and the Mamba2 ``hybrid`` family
+(`repro_torch.models.zamba`) are ported; `get_config`
 of an arch whose family or features are not ported yet raises
 `NotImplementedError` naming the ROADMAP item that brings it. `repro`'s
 ``input_specs`` (ShapeDtypeStruct stand-ins for the JAX dry-run) has no
@@ -31,8 +33,6 @@ ARCHS = {
 # arch -> (what it needs that is not ported, the ROADMAP item that ports it)
 UNPORTED = {
     "command-r-plus-104b": ("the parallel attention/MLP block", "queue 1 item 13"),
-    "h2o-danube-3-4b": ("sliding-window attention", "queue 1 item 13"),
-    "zamba2-7b": ("the hybrid (Mamba2) family", "queue 1 item 13"),
     "internvl2-1b": ("the VLM family", "queue 1 item 13"),
     "whisper-base": ("the encoder-decoder family", "queue 1 item 13"),
 }

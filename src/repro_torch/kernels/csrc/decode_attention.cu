@@ -21,6 +21,9 @@
 // head) is far below the roof. At that size the kernel is bound by how many
 // bytes are in flight at once and by launch latency, so the design keeps
 // the whole cache slice of a CTA in flight from its start and is one launch.
+// zamba2-7b's shared-attention decode ([8, 32, 1024, 224], MHA) reads
+// ~235 MB (~70 us), h2o-danube-3-4b's ring ([4, 8, 4096, 120], group 4)
+// ~63 MB (~19 us).
 //
 // Design: one launch. The cache is split along S into n_split <= 8 parts;
 // the CTAs of one (b, KV head) form a thread-block cluster of n_split CTAs,
@@ -40,13 +43,20 @@
 //     S = Q K^T (K through ldmatrix), the online softmax on the fragment
 //     (row max and sum across the quad by shuffles), rounds P to bf16 and
 //     adds P V (V through ldmatrix.trans), so warps meet only at the end,
-//     where the 4 warp partials are combined in warp order. P's rounding
+//     where the 4 warp partials are combined in warp order. Head widths
+//     that are no whole number of 64-value rows are padded in shared
+//     memory only: 120 to 128 (its 8 k16 steps' last 8 columns are
+//     zero-filled by the copy, q's there are zero) and 224 to 256 (14 k16
+//     steps; the pad is never read), so the XOR swizzle stays in the row;
+//     at 224 each warp's 2-slot ring takes 32 KB, 133 KB a CTA. P's rounding
 //     to bf16 is at most 2^-9 relative a term, the order of the output's
 //     own bf16 rounding; m and l are taken from the f32 scores and
 //     probabilities.
 //   * f32, and bf16 with a larger group: SIMT. One thread a key scores it
 //     for every q head (8 heads per read of the K row), then each q head
-//     owns d/4 threads of one warp, 4 output dims each in registers: the
+//     owns LPH lanes of one warp, d/4 rounded up to a power of two and at
+//     most 32 (32 at d 120 and 224), 4 output dims a lane (8 at d 224:
+//     dims 4 l and 4 (l + 32)) in registers: the
 //     head's tile max and sum by warp shuffles, the probabilities in shared
 //     memory, V swept for the thread's dims; products and sums in f32.
 // Then each CTA leaves its partial (acc, m, l) in its shared memory; after a
@@ -119,20 +129,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// the smallest power of two >= x (x >= 1)
+constexpr int pow2_ceil(int x) { return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2); }
+
 template <typename T, int D>
 struct Tile {
-  static constexpr int TPH = D / 4;                     // threads per q head (P V)
-  static constexpr int BK = D <= 64 ? 64 : 32;          // cache rows per tile
+  static_assert(D % 8 == 0, "a head row is whole 16-byte chunks and float4 slices");
+  // lanes of one warp a q head takes for P V (a power of two, so its
+  // softmax reduces by xor shuffles), each owning NCH 4-dim slices: lane l
+  // owns dims 4 (l + i LPH) for i < NCH, those below D
+  static constexpr int LPH = D / 4 >= 32 ? 32 : pow2_ceil(D / 4);
+  static constexpr int NCH = (D / 4 + LPH - 1) / LPH;
+  static constexpr int BK = D <= 64 ? 64 : (D <= 128 ? 32 : 16);  // cache rows per tile
   static constexpr int VE = 16 / sizeof(T);             // values per 16-byte chunk
   static constexpr int CPR = D / VE;                    // chunks per row
   static constexpr int TILE_BYTES = BK * D * sizeof(T);  // one K (or V) tile
   static constexpr int NS0 = kRingBytes / (2 * TILE_BYTES);
   static constexpr int NS = NS0 < 2 ? 2 : (NS0 > 8 ? 8 : NS0);  // ring depth
   static constexpr int PS = BK + 1;                     // score row stride
+  static_assert(CPR >= 8 || (CPR & (CPR - 1)) == 0, "a short row is a power of two of chunks");
   // XOR pattern of a K row's 16-byte chunks: 8 consecutive rows put a given
-  // chunk on 8 distinct 16-byte bank groups
+  // chunk on 8 distinct 16-byte bank groups (a row of 15, 28, 30 or 56
+  // chunks leaves its last CPR % 8 in place)
   static __device__ __forceinline__ int swz(int r, int c) {
-    return CPR >= 8 ? c ^ (r & 7) : c ^ ((r / (8 / CPR)) & (CPR - 1));
+    return CPR >= 8 ? (c < (CPR & ~7) ? c ^ (r & 7) : c)
+                    : c ^ ((r / (8 / CPR)) & (CPR - 1));
   }
   static size_t smem_bytes(int group) {
     return (size_t)2 * NS * TILE_BYTES +
@@ -141,7 +162,7 @@ struct Tile {
 };
 
 // SIMT body. grid (n_split, hkv, b), cluster (n_split, 1, 1); blockDim.x a
-// multiple of 32 holding at least group * TPH threads
+// multiple of 32 holding at least group * LPH threads
 template <typename T, int D>
 __global__ void decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                                         const T* __restrict__ vc,
@@ -165,9 +186,8 @@ __global__ void decode_attention_kernel(const T* __restrict__ q, const T* __rest
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int g = tid / C::TPH;
-  const int lane = tid % C::TPH;
-  const int d0 = lane * 4;
+  const int g = tid / C::LPH;
+  const int lane = tid % C::LPH;
 
   const int len = max(0, min(kv_len[b], s_max));
   const int s0 = split * chunk;
@@ -201,7 +221,7 @@ __global__ void decode_attention_kernel(const T* __restrict__ q, const T* __rest
         load4(q + ((long long)b * hq + hk * group + gg) * D + c);
   }
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[C::NCH][4] = {};
   float m = kNeg;
   float l = 0.f;
   for (int j = 0; j < n_t; ++j) {
@@ -251,33 +271,42 @@ __global__ void decode_attention_kernel(const T* __restrict__ q, const T* __rest
     // its result, so every lane of a warp runs the shuffles)
     const int gr = min(g, group - 1);
     float tmax = kNeg;
-    for (int key = lane; key < nk; key += C::TPH) tmax = fmaxf(tmax, ss[gr * C::PS + key]);
+    for (int key = lane; key < nk; key += C::LPH) tmax = fmaxf(tmax, ss[gr * C::PS + key]);
 #pragma unroll
-    for (int x = C::TPH / 2; x > 0; x >>= 1)
+    for (int x = C::LPH / 2; x > 0; x >>= 1)
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, x));
     const float m_new = fmaxf(m, tmax);
     const float corr = expf(m - m_new);
     float psum = 0.f;
-    for (int key = lane; key < nk; key += C::TPH) {
+    for (int key = lane; key < nk; key += C::LPH) {
       const float p = expf(ss[gr * C::PS + key] - m_new);
       psum += p;
       if (g < group) ss[gr * C::PS + key] = p;
     }
 #pragma unroll
-    for (int x = C::TPH / 2; x > 0; x >>= 1)
+    for (int x = C::LPH / 2; x > 0; x >>= 1)
       psum += __shfl_xor_sync(0xffffffffu, psum, x);
     __syncwarp();   // the head's probabilities are visible to its lanes
     l = l * corr + psum;
     m = m_new;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] *= corr;
+    for (int c = 0; c < C::NCH; ++c) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[c][i] *= corr;
+    }
     for (int key = 0; key < nk; ++key) {
       const float p = ss[gr * C::PS + key];
-      const float4 vv = load4(tv + key * D + d0);
-      acc[0] = fmaf(p, vv.x, acc[0]);
-      acc[1] = fmaf(p, vv.y, acc[1]);
-      acc[2] = fmaf(p, vv.z, acc[2]);
-      acc[3] = fmaf(p, vv.w, acc[3]);
+#pragma unroll
+      for (int c = 0; c < C::NCH; ++c) {
+        const int d0 = (lane + c * C::LPH) * 4;
+        if (d0 < D) {
+          const float4 vv = load4(tv + key * D + d0);
+          acc[c][0] = fmaf(p, vv.x, acc[c][0]);
+          acc[c][1] = fmaf(p, vv.y, acc[c][1]);
+          acc[c][2] = fmaf(p, vv.z, acc[c][2]);
+          acc[c][3] = fmaf(p, vv.w, acc[c][3]);
+        }
+      }
     }
     __syncthreads();   // slot j % NS and the scores are free again
     if (j + C::NS < n_t) issue(j + C::NS);
@@ -286,7 +315,13 @@ __global__ void decode_attention_kernel(const T* __restrict__ q, const T* __rest
   cp_async_wait<0>();
 
   if (g < group) {
-    *reinterpret_cast<float4*>(&pacc[g * D + d0]) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+#pragma unroll
+    for (int c = 0; c < C::NCH; ++c) {
+      const int d0 = (lane + c * C::LPH) * 4;
+      if (d0 < D)
+        *reinterpret_cast<float4*>(&pacc[g * D + d0]) =
+            make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
+    }
     if (lane == 0) {
       pm[g] = m;
       pl[g] = l;
@@ -298,20 +333,33 @@ __global__ void decode_attention_kernel(const T* __restrict__ q, const T* __rest
     float big = kNeg;
     for (int i = 0; i < n_split; ++i) big = fmaxf(big, cluster.map_shared_rank(pm, i)[g]);
     float total = 0.f;
-    float num[4] = {0.f, 0.f, 0.f, 0.f};
+    float num[C::NCH][4] = {};
     for (int i = 0; i < n_split; ++i) {
       const float w = expf(cluster.map_shared_rank(pm, i)[g] - big);
       total += cluster.map_shared_rank(pl, i)[g] * w;
-      const float4 a = *reinterpret_cast<const float4*>(cluster.map_shared_rank(pacc, i) + g * D + d0);
-      num[0] += a.x * w;
-      num[1] += a.y * w;
-      num[2] += a.z * w;
-      num[3] += a.w * w;
+#pragma unroll
+      for (int c = 0; c < C::NCH; ++c) {
+        const int d0 = (lane + c * C::LPH) * 4;
+        if (d0 < D) {
+          const float4 a =
+              *reinterpret_cast<const float4*>(cluster.map_shared_rank(pacc, i) + g * D + d0);
+          num[c][0] += a.x * w;
+          num[c][1] += a.y * w;
+          num[c][2] += a.z * w;
+          num[c][3] += a.w * w;
+        }
+      }
     }
     const float denom = total > 0.f ? total : 1.f;
     const long long row = (long long)b * hq + hk * group + g;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) store1(o + row * D + d0 + i, num[i] / denom);
+    for (int c = 0; c < C::NCH; ++c) {
+      const int d0 = (lane + c * C::LPH) * 4;
+      if (d0 < D) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) store1(o + row * D + d0 + i, num[c][i] / denom);
+      }
+    }
     if (lane == 0) {
       m_out[row] = big;
       l_out[row] = total;
@@ -329,8 +377,16 @@ constexpr int kWarpRingBytes = 12 * 1024;  // each warp's own K/V ring
 
 template <int D>
 struct MmaTile {
-  static constexpr int CPR = D / 8;          // 16-byte chunks in a bf16 row
-  static constexpr int STAGE = 16 * D;       // bf16 values of one 16-row K (or V) chunk
+  // a cache row in shared memory: D padded to whole 64-value rows from 64
+  // on (120 -> 128, 224 -> 256), so the XOR swizzle stays inside the row;
+  // the k16 steps of Q K^T and the n16 steps of P V cover DK = D padded to
+  // 16 (120 -> 128: the chunk past D is zero-filled by the copy and q's
+  // columns there are zero; 224 -> 224)
+  static constexpr int DS = D < 64 ? D : (D + 63) / 64 * 64;
+  static constexpr int DK = (D + 15) / 16 * 16;
+  static constexpr int CPR = DS / 8;         // 16-byte chunks of a row in shared memory
+  static constexpr int LC = DK / 8;          // of them copied (or zero-filled) a row
+  static constexpr int STAGE = 16 * DS;      // bf16 values of one 16-row K (or V) chunk
   static constexpr int NS0 = kWarpRingBytes / (2 * STAGE * 2);
   static constexpr int NS = NS0 < 2 ? 2 : (NS0 > 8 ? 8 : NS0);  // ring depth per warp
   static __device__ __forceinline__ int swz(int r, int c) {
@@ -413,10 +469,10 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* dk = wring + (j % C::NS) * 2 * C::STAGE;
     __nv_bfloat16* dv = dk + C::STAGE;
 #pragma unroll
-    for (int idx = lane; idx < 16 * C::CPR; idx += 32) {
-      const int r = idx / C::CPR;
-      const int c = idx % C::CPR;
-      const bool valid = t0 + r < s1;
+    for (int idx = lane; idx < 16 * C::LC; idx += 32) {
+      const int r = idx / C::LC;
+      const int c = idx % C::LC;
+      const bool valid = t0 + r < s1 && c < D / 8;
       const long long src = valid ? (long long)(t0 + r) * D + c * 8 : 0;
       const int off = (r * C::CPR + C::swz(r, c)) * 8;
       cp_async16(dk + off, kb + src, valid);
@@ -429,22 +485,23 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // q as mma A fragments, rows past the group zero
-  uint32_t qa[D / 16][4];
+  // q as mma A fragments, rows past the group and columns past D zero
+  uint32_t qa[C::DK / 16][4];
   const __nv_bfloat16* qb = q + ((long long)b * hq + hk * group) * D;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < C::DK / 16; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = gq + (i & 1) * 8;
       const int col = 16 * kk + (i >> 1) * 8 + 2 * tq;
-      qa[kk][i] = row < group ? *reinterpret_cast<const uint32_t*>(qb + row * D + col) : 0u;
+      qa[kk][i] = row < group && col < D
+                      ? *reinterpret_cast<const uint32_t*>(qb + row * D + col) : 0u;
     }
   }
 
-  float acc[D / 2];
+  float acc[C::DK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < C::DK / 2; ++i) acc[i] = 0.f;
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
   for (int j = 0; j < n_w; ++j) {
     cp_async_wait<C::NS - 1>();
@@ -459,7 +516,7 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 8; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < C::DK / 16; ++kk) {
       const int key = (lane & 7) + ((lane >> 4) << 3);
       const int c = 2 * kk + ((lane >> 3) & 1);
       uint32_t kf[4];
@@ -495,7 +552,7 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l0 = l0 * corr0 + ps0;   // this lane's share; the quad sums at the end
     l1 = l1 * corr1 + ps1;
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb) {
+    for (int nb = 0; nb < C::DK / 8; ++nb) {
       acc[4 * nb] *= corr0;
       acc[4 * nb + 1] *= corr0;
       acc[4 * nb + 2] *= corr1;
@@ -506,7 +563,7 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const uint32_t pa[4] = {pack_bf16(s[0], s[1]), pack_bf16(s[2], s[3]),
                             pack_bf16(s[4], s[5]), pack_bf16(s[6], s[7])};
 #pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
+    for (int np = 0; np < C::DK / 16; ++np) {
       const int mat = lane >> 3;
       const int key = (lane & 7) + 8 * (mat & 1);
       const int c = 2 * np + (mat >> 1);
@@ -527,7 +584,7 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb) {
+  for (int nb = 0; nb < D / 8; ++nb) {     // the D real columns
     const int col = 8 * nb + 2 * tq;
     if (gq < group) {
       wacc[(warp * group + gq) * D + col] = acc[4 * nb];
@@ -649,7 +706,7 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const int* kv_
                             (const T*)vc, kv_len, (T*)o, m, l, hq, hkv, s_max, chunk, scale);
   }
   using C = Tile<T, D>;
-  const int threads = ((group * C::TPH + 31) / 32) * 32;
+  const int threads = ((group * C::LPH + 31) / 32) * 32;
   if (threads > 1024) return cudaErrorInvalidValue;
   return launch_cluster(decode_attention_kernel<T, D>, n_split, hkv, b, threads,
                         C::smem_bytes(group), stream, (const T*)q, (const T*)kc,
@@ -664,7 +721,9 @@ cudaError_t launch_dtype(const void* q, const void* kc, const void* vc, const in
     case 16: return launch<T, 16>(q, kc, vc, kv_len, o, m, l, b, hq, hkv, s_max, n_split, chunk, scale, s);
     case 32: return launch<T, 32>(q, kc, vc, kv_len, o, m, l, b, hq, hkv, s_max, n_split, chunk, scale, s);
     case 64: return launch<T, 64>(q, kc, vc, kv_len, o, m, l, b, hq, hkv, s_max, n_split, chunk, scale, s);
+    case 120: return launch<T, 120>(q, kc, vc, kv_len, o, m, l, b, hq, hkv, s_max, n_split, chunk, scale, s);
     case 128: return launch<T, 128>(q, kc, vc, kv_len, o, m, l, b, hq, hkv, s_max, n_split, chunk, scale, s);
+    case 224: return launch<T, 224>(q, kc, vc, kv_len, o, m, l, b, hq, hkv, s_max, n_split, chunk, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -17,11 +17,14 @@
 // Hkv 4, S 1024, d 64, bf16, causal) the kernel must move ~75 MB (q, k, v,
 // o once: ~23 us at 3.35 TB/s) and do ~2 B Hq S^2 d = 34 GFLOP of products
 // (~35 us at the 989 TFLOP/s bf16 tensor-core peak). At MLA's prefill
-// shape (B 8, H 16, S 1024, d 192) ~51.5 GFLOP: ~52 us.
+// shape (B 8, H 16, S 1024, d 192) ~51.5 GFLOP: ~52 us. At zamba2-7b's
+// shared-attention prefill (B 8, H 32, S 1024, d 224, MHA) the bytes bound
+// it, ~470 MB: ~140 us; at h2o-danube-3-4b's windowed prefill (B 4, Hq 32,
+// Hkv 8, S 4608, d 120, window 4096) the operations, ~644 GFLOP: ~652 us.
 //
 // Two bodies, chosen by the C entry point on dtype and d:
 //
-// * bf16 at d in {64, 128, 192}, the serving dtype: the tensor-core body
+// * bf16 at d in {64, 120, 128, 192, 224}, the serving dtype: the tensor-core body
 //   (`flash_attention_tc_kernel`), after FlashAttention-3's forward. A CTA
 //   takes one 128-row q tile of one (b, q head): two warpgroups, each
 //   owning 64 rows (wgmma's M); at d <= 128 two CTAs share an SM (at most
@@ -31,9 +34,17 @@
 //   fragment 96 registers a thread beside S's 32, Q 48 KB and each K or V
 //   stage 24 KB of shared memory (145 KB at 2 stages), a row three
 //   64-element swizzle boxes, P.V one m64n192k16 wgmma a 16-key step.
+//   d 120 (h2o-danube-3-4b) and 224 (zamba2-7b's shared block) are padded
+//   inside the kernel to DP = 128 and 256, the next whole box: the tensor
+//   maps keep the true d as their inner extent, so TMA's out-of-bounds fill
+//   writes zeros into the columns past d (no padded copy in device memory),
+//   Q K^T runs over DP columns, P.V is an m64n{DP}k16 wgmma whose columns
+//   past d are never stored, and the scale is 1/sqrt(d) of the true d. At
+//   DP 256 (d 224) one CTA holds an SM: 128 O accumulators a thread, Q 64 KB
+//   and each K or V stage 32 KB (193 KB at 2 stages).
 //   Thread 0 issues TMA copies (cp.async.bulk.tensor, 128-byte swizzle, 3-d tensor
 //   maps over [B*H, S, d] so rows past S come back as zeros) of Q once and
-//   of 64-key K and V tiles into a ring (4 slots at d 64, 2 at d 128, 192)
+//   of 64-key K and V tiles into a ring (4 slots at d 64, 2 at the wider)
 //   guarded by full/empty mbarriers: tile j + slots goes into tile j's slot
 //   as soon as all 8 warps have released it, so the copies of the next
 //   tiles overlap the products on this one. Each warpgroup computes
@@ -56,14 +67,16 @@
 //   order of the output's own bf16 rounding and inside the card check's
 //   bf16 tolerance (atol 2e-2, rtol 1e-2); l sums the unrounded f32 P.
 //
-// * f32 (d in {16, 24, 32, 64, 128, 192}) and bf16 at d in {16, 24, 32}:
+// * f32 (d in {16, 24, 32, 64, 120, 128, 192, 224}) and bf16 at d in
+//   {16, 24, 32}:
 //   the SIMT body (`flash_attention_simt_kernel`). The f32 instantiation
 //   serves the f32 parity checks (the reduced-model checks at 1e-4, MLA's
 //   at d 24, and the kernel against f64 at 5e-5), which TF32 products
 //   could not meet; bf16 at d <= 32 is served by no config in the repo.
 //   One CTA per (64-row q tile, q head, batch); each thread owns one query
-//   row (two threads a row at d = 128, four at d = 192, each a share of
-//   the dims): its q slice and its f32 accumulator stay in registers, with
+//   row (two threads a row at d 120 and 128, four at d 192 and 224, each a
+//   share of the dims, a multiple of 4): its q slice and its f32
+//   accumulator stay in registers, with
 //   the running m and l. K and
 //   V tiles are staged in shared memory as f32 and read back as warp-wide
 //   broadcasts; scores are taken 16 keys at a time. Its products run in f32
@@ -81,7 +94,7 @@ constexpr int kRows = 64;  // query rows per CTA (SIMT body)
 constexpr int kChunk = 16;  // keys per online-softmax step (SIMT body)
 
 // ---------------------------------------------------------------------------
-// tensor-core body (bf16, d in {64, 128})
+// tensor-core body (bf16, d in {64, 120, 128, 192, 224})
 // ---------------------------------------------------------------------------
 constexpr int kTcRows = 128;           // q rows per CTA: two warpgroups of 64
 constexpr int kTcWarps = 8;
@@ -90,17 +103,25 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct TcShape {
-  static_assert(D == 64 || D == 128 || D == 192, "wgmma N: one 64-column swizzle box each");
+  static_assert(D == 64 || D == 120 || D == 128 || D == 192 || D == 224,
+                "a head width the tensor-core body takes");
+  // the head padded to whole 64-column swizzle boxes in shared memory: TMA
+  // fills the columns past D with zeros (the tensor map's inner extent is
+  // D), so Q K^T over DP columns equals it over D, and P V's columns past D
+  // are dropped at the store
+  static constexpr int DP = (D + 63) / 64 * 64;
   static constexpr int BK = 64;                   // keys per K/V tile
-  // CTAs an SM holds: 2 at d <= 128 (register cap 128); 1 at d 192, whose
-  // 96 O accumulators a thread beside S's 32 need the 255-register cap
-  // and whose 145 KB of tiles fill the SM's shared memory alone
-  static constexpr int MIN_CTAS = D == 192 ? 1 : 2;
-  static constexpr int STAGES = D == 64 ? 4 : 2;  // K/V ring depth
-  static constexpr int NH = D / 64;               // 64-column (128-byte) halves
+  // CTAs an SM holds: 2 at DP <= 128 (register cap 128); 1 at DP 192 or
+  // 256, whose 96 or 128 O accumulators a thread beside S's 32 need the
+  // 255-register cap and whose 145 or 193 KB of tiles fill the SM's shared
+  // memory alone
+  static constexpr int MIN_CTAS = DP > 128 ? 1 : 2;
+  static constexpr int STAGES = DP == 64 ? 4 : 2; // K/V ring depth
+  static constexpr int NH = DP / 64;              // 64-column (128-byte) boxes
   static constexpr int Q_BYTES = NH * kTcRows * 128;
   static constexpr int KV_BYTES = NH * BK * 128;  // one K (or V) tile
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+  static_assert(SMEM <= 232448, "shared memory a block can use");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -275,11 +296,54 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] . B[16 x 256], A in registers, B in shared memory (MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n192(d, a, db);
+  else if constexpr (N == 192) wgmma_rs_n192(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
 template <int D>
@@ -291,6 +355,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           int skv, int causal, int window, float scale_log2) {
   using C = TcShape<D>;
   constexpr int BK = C::BK;
+  constexpr int DP = C::DP;
   static_assert(BK == 64, "S = Q K^T is one m64n64 wgmma per 16 dims");
   extern __shared__ uint8_t smem_raw[];
   // TMA's 128-byte swizzle and the wgmma descriptors want 1024-byte alignment
@@ -362,9 +427,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int w_hi = min(r0 + wg * 64 + 64, sq) - 1 + off;
   const bool w_rows = r0 + wg * 64 < sq;
 
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
 
   mbar_wait(q_bar, 0);
@@ -380,7 +445,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       reg_fence(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         const uint32_t qa = q_s + (kk / 4) * kTcRows * 128 + wg * 64 * 128 + (kk % 4) * 32;
         const uint32_t ka = k_s + s * C::KV_BYTES + (kk / 4) * BK * 128 + (kk % 4) * 32;
         wgmma_ss_n64(sc, desc128(qa, 16, 1024), desc128(ka, 16, 1024), kk > 0);
@@ -442,7 +507,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       l_a = l_a * corr_a + ps_a;   // this thread's share; the quad sums at the end
       l_b = l_b * corr_b + ps_b;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DP / 8; ++i) {
         acc[4 * i] *= corr_a;
         acc[4 * i + 1] *= corr_a;
         acc[4 * i + 2] *= corr_b;
@@ -464,7 +529,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint32_t va = v_s + s * C::KV_BYTES + kk * 16 * 128;
-        wgmma_rs<D>(acc, pa[kk], desc128(va, BK * 128, 1024));
+        wgmma_rs<DP>(acc, pa[kk], desc128(va, BK * 128, 1024));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -487,7 +552,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const float inv_b = 1.f / (l_b > 0.f ? l_b : 1.f);
   __nv_bfloat16* ob = o + ((long long)b * hq + h) * sq * D;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < D / 8; ++i) {   // the D real columns (D is a multiple of 8)
     const int col = 8 * i + 2 * quad;
     if (row_a < sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row_a * D + col) =
@@ -585,7 +650,7 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int DS = D / TPR;               // dims a thread owns
   static_assert(DS % 4 == 0, "a thread's dims load as float4");
   // keys per shared-memory tile: K and V in f32 stay within 48 KB of static
-  // shared memory (24 KB at d 192)
+  // shared memory (24 KB at d 192, 28 KB at d 224)
   constexpr int BK = D <= 64 ? 64 : (D <= 128 ? 32 : 16);
   constexpr int NT = kRows * TPR;
   __shared__ __align__(16) float sk[BK][D];
@@ -726,8 +791,10 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
     case 24: return launch<T, 24>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
     case 32: return launch<T, 32>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
+    case 120: return launch<T, 120>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
     case 192: return launch<T, 192>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
+    case 224: return launch<T, 224>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -748,10 +815,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     err = launch_simt<float>(q, k, v, o, b, hq, hkv, sq, skv, d, causal, window, scale, s);
   else if (dtype == 1 && d == 64)
     err = launch_tc<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
+  else if (dtype == 1 && d == 120)
+    err = launch_tc<120>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
   else if (dtype == 1 && d == 128)
     err = launch_tc<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
   else if (dtype == 1 && d == 192)
     err = launch_tc<192>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
+  else if (dtype == 1 && d == 224)
+    err = launch_tc<224>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, s);
   else if (dtype == 1)
     err = launch_simt<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, skv, d, causal, window, scale, s);
   else

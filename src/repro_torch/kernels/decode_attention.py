@@ -37,7 +37,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, NEG, check_inputs
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 120, 128, 224)
 
 SPLIT_ROWS = 32          # a split covers a multiple of this many positions
 CTAS_PER_SM = 2          # splits are added until the grid has this many CTAs per SM
@@ -85,7 +85,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     """Launch the K5 kernel on the current stream of the tensors' device.
 
     q [B, Hq, D], caches [B, Hkv, S, D] of q's dtype (f32 or bf16),
-    contiguous, D in {16, 32, 64, 128}, Hq a multiple of Hkv; kv_len [B]
+    contiguous, D in `HEAD_DIMS`, Hq a multiple of Hkv; kv_len [B]
     int32 on the same device (values are clamped to [0, S]). Returns new
     tensors; raises on any input the kernel does not take, or if the launch
     fails.

@@ -14,9 +14,11 @@ Two implementations of one function:
     CPU path and the oracle;
   * `flash_attention_cuda` — the hand-written kernel in
     ``csrc/flash_attention.cu``, bound by operations. Two bodies behind one
-    entry point: bf16 at D 64, 128 or 192 (the serving dtype; 192 is
-    DeepSeek-V2's MLA prefill, a 128-wide no-RoPE part and a 64-wide RoPE
-    part, v padded to match) runs on the tensor cores (128-row q tiles, two
+    entry point: bf16 at D 64, 120, 128, 192 or 224 (the serving dtype; 192
+    is DeepSeek-V2's MLA prefill, a 128-wide no-RoPE part and a 64-wide
+    RoPE part, v padded to match; 120 is h2o-danube-3-4b's head, 224
+    zamba2-7b's shared-attention head, both padded to the next 64 columns
+    in shared memory only) runs on the tensor cores (128-row q tiles, two
     `wgmma` warpgroups fed by TMA copies of 64-key K/V tiles into a ring,
     the online softmax on the accumulator fragment, P rounded to bf16 for
     P.V, tiles the mask kills never loaded, the heaviest q tiles launched
@@ -37,7 +39,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG = -1e30
-HEAD_DIMS = (16, 24, 32, 64, 128, 192)
+HEAD_DIMS = (16, 24, 32, 64, 120, 128, 192, 224)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = _build.LaunchCounter()

@@ -4,9 +4,10 @@
       [--reduced] --batch 4 --prompt-len 16 --max-new 32 [--device cpu]
 
 `--arch` takes the ported archs: the dense decoders (tinyllama-1.1b,
-stablelm-1.6b), the MoE + MLA decoders (deepseek-v2-lite-16b, which fits
-one card at full width, and deepseek-v2-236b, which fits one only with
-`--reduced`) and rwkv6-3b. `--device` defaults to cuda and fails without a
+stablelm-1.6b, and h2o-danube-3-4b with sliding-window attention), the
+MoE + MLA decoders (deepseek-v2-lite-16b, which fits one card at full
+width, and deepseek-v2-236b, which fits one only with `--reduced`),
+rwkv6-3b and the Mamba2 hybrid zamba2-7b. `--device` defaults to cuda and fails without a
 CUDA device. Parameters and prompts are drawn from `--seed`; `--ckpt-dir D` then replaces the
 parameters with the ``params`` tree of D's newest checkpoint (the store's
 format, as `repro`'s trainer writes it; bf16 leaves included).

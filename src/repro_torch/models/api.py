@@ -6,17 +6,19 @@
   lm_decode_step(model, cfg, cache, token)   -> (logits, cache)
 
 batch = {"tokens": [B,S] int32}. The decoder families ``dense`` and
-``moe`` (`transformer`: GQA or MLA attention, MLP or MoE FFNs) and the
-RWKV6 ``ssm`` family (`rwkv_model`) are ported; making a model or a cache
-for another raises `NotImplementedError` naming the ROADMAP item that ports
-it, and `repro`'s ``lm_loss`` (training) comes with queue 1 item 14.
+``moe`` (`transformer`: GQA, sliding-window or MLA attention, MLP or MoE
+FFNs), the RWKV6 ``ssm`` family (`rwkv_model`) and the Mamba2 ``hybrid``
+family with its shared attention block (`zamba`) are ported; making a model
+or a cache for another raises `NotImplementedError` naming the ROADMAP item
+that ports it, and `repro`'s ``lm_loss`` (training) comes with queue 1
+item 14.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.device_graph import resolve_device
-from repro_torch.models import rwkv_model, transformer
+from repro_torch.models import rwkv_model, transformer, zamba
 from repro_torch.models.config import ModelConfig
 
 
@@ -28,6 +30,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
         raise ValueError(f"generator is on {generator.device}, expected {dev}")
     if cfg.family == "ssm":
         return rwkv_model.init_rwkv(cfg, generator)
+    if cfg.family == "hybrid":
+        return zamba.init_zamba(cfg, generator)
     return transformer.init_decoder(cfg, generator)
 
 
@@ -35,16 +39,22 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
     dev = resolve_device(device)
     if cfg.family == "ssm":
         return rwkv_model.rwkv_init_cache(cfg, batch, s_max, dev)
+    if cfg.family == "hybrid":
+        return zamba.zamba_init_cache(cfg, batch, s_max, dev)
     return transformer.decoder_init_cache(cfg, batch, s_max, dev)
 
 
 def lm_prefill(model, cfg: ModelConfig, cache: dict, batch: dict):
     if cfg.family == "ssm":
         return rwkv_model.rwkv_prefill(model, cfg, batch["tokens"], cache)
+    if cfg.family == "hybrid":
+        return zamba.zamba_prefill(model, cfg, batch["tokens"], cache)
     return transformer.decoder_prefill(model, cfg, batch["tokens"], cache)
 
 
 def lm_decode_step(model, cfg: ModelConfig, cache: dict, token):
     if cfg.family == "ssm":
         return rwkv_model.rwkv_decode_step(model, cfg, cache, token)
+    if cfg.family == "hybrid":
+        return zamba.zamba_decode_step(model, cfg, cache, token)
     return transformer.decoder_decode_step(model, cfg, cache, token)

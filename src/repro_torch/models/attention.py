@@ -5,17 +5,21 @@ layout. Routing is by device, not by an ``impl`` knob:
 
   `attend`                 CPU -> `flash_attention_plain`, CUDA -> K4
                            (`repro_torch.kernels.ops.flash_attention`)
-  `decode_self_attention`  full cache: CPU -> `decode_attention_plain`,
-                           CUDA -> K5; ring-buffer (sliding-window) cache:
-                           plain PyTorch on both (no ported config has a
-                           sliding window yet)
+  `decode_self_attention`  CPU -> `decode_attention_plain`, CUDA -> K5, for
+                           a full cache and for a ring-buffer
+                           (sliding-window) cache alike
 
 `naive_attention` and `flash_attention_chunked` are the plain counterparts
 of `repro`'s ``impl="naive"`` and ``impl="xla"`` paths. Nothing on the
 serving path calls them; they pin the port's semantics to `repro`'s.
 
 Decode keeps keys post-RoPE in a [B, Hkv, S, D] cache (or a [B, Hkv, W, D]
-ring buffer) and writes the new token's k and v into it in place.
+ring buffer) and writes the new token's k and v into it in place. A ring's
+valid slots are its first min(pos + 1, W) (all W once it has wrapped), and
+their order does not matter under the softmax, so its decode is K5's
+function with kv_len = min(pos + 1, W): `repro`'s ring decode
+(``_ring_decode_xla``), which `repro` keeps in XLA only because its Pallas
+decode branch skips rings.
 """
 from __future__ import annotations
 
@@ -187,26 +191,8 @@ def decode_self_attention(p: Attention, spec: AttnSpec, x1, cache_k, cache_v, po
     cache_k[bi, :, slot] = k[:, :, 0]
     cache_v[bi, :, slot] = v[:, :, 0]
 
-    if ring:
-        o = _ring_decode(q, cache_k, cache_v, pos, spec)
-    else:
-        o = ops.decode_attention(q[:, :, 0].contiguous(), cache_k, cache_v,
-                                 (pos + 1).to(torch.int32))       # [B, Hq, D]
-        o = o[:, :, None, :]                                       # [B, Hq, 1, D]
-    y = dense(p.wo, _merge_heads(o))
+    kv_len = torch.clamp(pos + 1, max=s_max) if ring else pos + 1
+    o = ops.decode_attention(q[:, :, 0].contiguous(), cache_k, cache_v,
+                             kv_len.to(torch.int32))               # [B, Hq, D]
+    y = dense(p.wo, _merge_heads(o[:, :, None, :]))
     return y, cache_k, cache_v
-
-
-def _ring_decode(q, cache_k, cache_v, pos, spec: AttnSpec):
-    """Decode against a ring-buffer sliding-window cache: the valid slots
-    are the last min(pos+1, W) writes; their order is irrelevant under
-    softmax."""
-    b = q.shape[0]
-    w = cache_k.shape[2]
-    s = _grouped_scores(q, cache_k) * (1.0 / spec.d_head ** 0.5)
-    n_valid = torch.clamp(pos + 1, max=w)
-    valid = torch.arange(w, device=q.device)[None, :] < n_valid[:, None]
-    s = torch.where(valid[:, None, None, None], s, _NEG)
-    pmat = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", pmat, cache_v.float())
-    return o.reshape(b, spec.n_q, 1, spec.d_head).to(q.dtype)

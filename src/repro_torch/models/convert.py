@@ -6,9 +6,10 @@ weights are ``[d_in, d_out]``. `lm_params_from_numpy` takes that tree with
 numpy leaves (``jax.device_get(params)``) or tensor leaves (a checkpoint
 read by `repro_torch.checkpoint`), of a dense or MoE decoder (GQA or MLA
 attention; an MoE's leading dense layers in ``dense_blocks``, its expert
-weights as raw ``[L, E, ...]`` arrays) or of an RWKV6 model, and returns
-the port's `Decoder` or `RWKV`, which computes what `repro` computes from
-them.
+weights as raw ``[L, E, ...]`` arrays), of an RWKV6 model or of the Mamba2
+hybrid (``lora`` [G, ...], ``mamba`` [G, M, ...] with two stacked axes,
+``trailing`` [T, ...]), and returns the port's `Decoder`, `RWKV` or
+`Zamba`, which computes what `repro` computes from them.
 """
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 from repro_torch.models.rwkv_model import RWKV, RWKVBlock
+from repro_torch.models.ssm import Mamba2
 from repro_torch.models.transformer import Block, Decoder, check_ported
+from repro_torch.models.zamba import LoRA, LoRASet, MambaBlock, SharedBlock, Zamba
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -40,7 +43,9 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-STACKS = ("blocks", "dense_blocks")   # subtrees with a stacked [L, ...] layer axis
+# subtrees with stacked layer axes, and how many (the hybrid's Mamba2
+# layers are [G, M, ...])
+STACKS = {"blocks": 1, "dense_blocks": 1, "lora": 1, "trailing": 1, "mamba": 2}
 
 
 def _leaves(tree: dict) -> list:
@@ -54,12 +59,13 @@ def _paths(tree: dict, prefix: str = "") -> set:
     return out
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV:
-    """The port's `Decoder` (dense and moe families) or `RWKV` (``ssm``
-    family) on ``device`` from `repro`'s parameter tree with numpy leaves.
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV | Zamba:
+    """The port's `Decoder` (dense and moe families), `RWKV` (``ssm``
+    family) or `Zamba` (``hybrid`` family) on ``device`` from `repro`'s
+    parameter tree with numpy leaves.
     Raises if the tree holds leaves the port would not use (or lacks some),
     or a stack with another number of layers than ``cfg`` gives it."""
-    if cfg.family != "ssm":
+    if cfg.family not in ("ssm", "hybrid"):
         check_ported(cfg)
     dev = resolve_device(device)
 
@@ -86,14 +92,18 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV
     def fail(what):
         raise ValueError(f"parameter tree does not match {cfg.name}: {what}")
 
+    def split(sub, n, what):
+        """The n layers of a subtree stacked along its leading axis."""
+        lens = {int(a.shape[0]) for a in _leaves(sub)}
+        if lens != {n}:
+            fail(f"{what} holds {sorted(lens)} layers, expected {n}")
+        return [layer(sub, i) for i in range(n)]
+
     def stack(name, n):
         """The n layers of the stacked subtree ``tree[name]``."""
         if name not in tree:
             fail(f"no {name}")
-        lens = {int(a.shape[0]) for a in _leaves(tree[name])}
-        if lens != {n}:
-            fail(f"{name} holds {sorted(lens)} layers, expected {n}")
-        return [layer(tree[name], i) for i in range(n)]
+        return split(tree[name], n, name)
 
     def attention(d):
         if cfg.attn_kind != "mla":
@@ -117,8 +127,27 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV
                               put(m["w_down"]), shared)}
         return Block(norm(bt["ln1"]), attention(bt["attn"]), norm(bt["ln2"]), **ffn)
 
+    def mamba_block(bt):
+        return MambaBlock(norm(bt["ln"]), module(bt["mix"], Mamba2))
+
     embed = Embed(put(tree["embed"]["emb"]))
-    if cfg.family == "ssm":
+    if cfg.family == "hybrid":
+        g, m, t = cfg.n_attn_groups, cfg.mamba_per_group, cfg.trailing_mamba
+        try:
+            sh = tree["shared"]
+            shared = SharedBlock(norm(sh["ln1"]), attention(sh["attn"]), norm(sh["ln2"]),
+                                 MLP("swiglu", **{k: lin(v) for k, v in sh["mlp"].items()}),
+                                 lin(sh["out"]))
+            lora = [LoRASet(*(LoRA(put(lt[n]["a"]), put(lt[n]["b"])) for n in "qkv"))
+                    for lt in stack("lora", g)]
+            mamba = [[mamba_block(bt) for bt in split(grp, m, f"mamba group {gi}")]
+                     for gi, grp in enumerate(stack("mamba", g))]
+            trailing = [mamba_block(bt) for bt in stack("trailing", t)] if t else []
+        except KeyError as e:
+            fail(f"no {e}")
+        model = Zamba(embed, shared, lora, mamba, trailing, norm(tree["ln_f"]),
+                      Embed(put(tree["unembed"]["emb"])))
+    elif cfg.family == "ssm":
         blocks = [RWKVBlock(norm(bt["ln1"]), norm(bt["ln2"]), module(bt["time"], TimeMix),
                             module(bt["chan"], ChannelMix))
                   for bt in stack("blocks", cfg.n_layers)]
@@ -137,7 +166,7 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV
 
     # every leaf of the tree is a parameter of the model, and back
     used = {".".join(p for j, p in enumerate(name.split("."))
-                     if not (j == 1 and name.split(".")[0] in STACKS))
+                     if not 1 <= j <= STACKS.get(name.split(".")[0], 0))
             for name, _ in model.named_parameters()}
     if used != _paths(tree):
         raise ValueError(f"parameter tree does not match {cfg.name}: "

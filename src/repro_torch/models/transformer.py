@@ -7,9 +7,11 @@ a Python loop (the counterpart of `repro`'s ``lax.scan`` over a stacked
 block's attention is GQA (`attention.Attention`) or DeepSeek-V2's MLA
 (`mla.MLA`), its FFN an `MLP` or an `MoE`; ``cfg.first_dense`` leading
 layers of an MoE config (DeepSeek-V2's dense layer 0) form a second stack,
-``dense_blocks``, walked before ``blocks``. Not ported yet, each raising
-`NotImplementedError`: the VLM frontend, the hybrid and encoder-decoder
-families and the parallel attention/MLP block (ROADMAP queue 1 item 13).
+``dense_blocks``, walked before ``blocks``. A sliding-window config keeps a
+ring buffer of the window's width as its cache. The Mamba2 hybrid is
+`repro_torch.models.zamba`. Not ported yet, each raising
+`NotImplementedError`: the VLM frontend, the encoder-decoder family and
+the parallel attention/MLP block (ROADMAP queue 1 item 13).
 `repro`'s ``maybe_gather_hidden`` / ``maybe_shard_hidden`` are the
 identity on one device and have no counterpart.
 

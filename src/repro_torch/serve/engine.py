@@ -2,8 +2,9 @@
 
 The counterpart of `repro.serve.engine`: a fixed pool of B slots, each with
 its own cache position; finished sequences are masked. It serves every
-ported family through `repro_torch.models.api` (a dense decoder's KV cache,
-an MLA decoder's latent cache or RWKV6's O(1) state cache alike). It runs eagerly
+ported family through `repro_torch.models.api` (a dense decoder's KV cache
+or sliding-window ring, an MLA decoder's latent cache, RWKV6's O(1) state
+cache or the hybrid's KV caches and Mamba2 states alike). It runs eagerly
 (there is no counterpart of `jax.jit` to share across requests), and
 sampling draws from an explicit `torch.Generator`.
 """

@@ -81,7 +81,7 @@ def test_registry_knows_every_arch_and_refuses_the_unported():
             with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
                 registry.get_config(arch)
         else:
-            assert registry.get_config(arch).family in ("dense", "moe", "ssm")
+            assert registry.get_config(arch).family in ("dense", "moe", "ssm", "hybrid")
     with pytest.raises(KeyError):
         registry.get_config("gpt-5")
 
@@ -305,13 +305,25 @@ def test_serve_entry_points_default_to_cuda(monkeypatch):
      "item 13"),
     (dict(family="vlm"), "item 13"),
     (dict(parallel_block=True), "item 13"),
+    # the Mamba2 hybrid was ported with item 13's third bullet: this case
+    # now builds zamba2-7b's reduced config and serves it
     (dict(family="hybrid"), "item 13"),
 ])
 def test_unported_model_features_raise(overrides, item):
     """The features item 13 has not ported yet raise naming it; MoE FFNs
     (with their leading dense stack) and MLA attention build, and a prefill
-    and a decode step through them give finite logits."""
+    and a decode step through them give finite logits, as through the
+    hybrid (zamba2-7b reduced)."""
     cfg = dataclasses.replace(registry.get_config("tinyllama-1.1b").reduced(), **overrides)
+    if cfg.family == "hybrid":
+        cfg = registry.get_config("zamba2-7b").reduced()
+        model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+        assert [len(group) for group in model.mamba] == [2, 2] and len(model.trailing) == 1
+        cache = init_cache(cfg, 2, 12, "cpu")
+        logits, cache = lm_prefill(model, cfg, cache, {"tokens": torch.ones((2, 8), dtype=torch.int32)})
+        logits, cache = lm_decode_step(model, cfg, cache, logits.argmax(-1).int())
+        assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+        return
     if cfg.moe or cfg.attn_kind == "mla":
         model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
         assert len(model.dense_blocks) == (1 if cfg.moe else 0)
@@ -340,13 +352,14 @@ def test_serve_cli_refuses_checkpoints_and_unported_archs(tmp_path):
         serve_cli.main(["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
                         "--ckpt-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        serve_cli.main(["--arch", "zamba2-7b", "--reduced", "--device", "cpu"])
+        serve_cli.main(["--arch", "whisper-base", "--reduced", "--device", "cpu"])
 
 
 def test_serving_on_the_cpu_builds_and_loads_nothing():
-    """Import every module of the LM paths and serve the dense and the RWKV
-    family on the CPU, with the compiler and the library loader made to
-    fail: neither may be reached, and no kernel launch is counted."""
+    """Import every module of the LM paths and serve the dense (a
+    sliding-window one too), the RWKV and the hybrid family on the CPU,
+    with the compiler and the library loader made to fail: neither may be
+    reached, and no kernel launch is counted."""
     code = textwrap.dedent("""
         import ctypes, subprocess
         import torch
@@ -356,7 +369,7 @@ def test_serving_on_the_cpu_builds_and_loads_nothing():
         ctypes.CDLL = boom
         from repro_torch.kernels import _build, ops
         from repro_torch.launch import serve
-        for arch in ("tinyllama-1.1b", "rwkv6-3b"):
+        for arch in ("tinyllama-1.1b", "rwkv6-3b", "h2o-danube-3-4b", "zamba2-7b"):
             serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                         "--batch", "1", "--prompt-len", "4", "--max-new", "2"])
         assert _build._libs == {}
