@@ -43,7 +43,13 @@ failure raises and the script exits non-zero without printing a result:
               causal, windowed across kv tiles, Sq = Skv = 129 and 1025,
               Sq = 1 against 1000 keys, groups 1 and 4, kv_len 0, 1, S,
               mixed and on both sides of a split boundary, with m and l;
-              every K4 case two calls bit-equal; then reduced GQA tinyllama in f32 (TF32 off):
+              K4 without a mask at whisper-base's shapes (Sq = Skv = 1500:
+              23 whole 64-key tiles and a ragged one; Sq 64 and 1 against
+              1500 keys), causal at group 7 (D 64, internvl2-1b) and group
+              12 (D 128, command-r-plus-104b); K5 on a 1500-row cache (no
+              whole number of split rows) at kv_len 1500, 1499, mixed and on
+              both sides of its serving plan's last split, at groups 7 and
+              12; every K4 case two calls bit-equal; then reduced GQA tinyllama in f32 (TF32 off):
               prefill and 8 greedy decode steps on the card (kernels) against
               the same on the CPU (plain versions), from one set of weights,
               every weight redrawn around its init first (so constant leaves
@@ -56,7 +62,10 @@ failure raises and the script exits non-zero without printing a result:
               wraps the ring in prefill, its decode through K5 at kv_len
               min(pos + 1, W)) and reduced zamba2-7b (prompts of 37, the
               Mamba2 scan, and 32, the chunked form) the same way, every
-              tensor of their caches compared
+              tensor of their caches compared; then reduced whisper-base
+              (16 stub frames; its self and cross caches), internvl2-1b (8
+              stub patches before the prompt) and command-r-plus-104b (the
+              parallel block) the same way
   5. lm-full  tinyllama-1.1b at full width, bf16, random weights from seed 0
               on the card: prefill(1024) + decode(token 1025) against
               prefill(1025) (greedy argmax held as in phase 7's bf16 run)
@@ -106,22 +115,48 @@ failure raises and the script exits non-zero without printing a result:
               decode step (3,048), no other kernel; two generates
               bit-equal; rates, time to first token, peak memory, the
               device busy share over decode steps
-  7f. zamba (in the same wait) zamba2-7b at full width and depth (13 x
-              [the shared attention block at 2 d = 7168, 32 heads of 224,
-              LoRA rank 128; 5 Mamba2 layers] + 3, d 3584), random weights
-              from seed 0 with every LoRA b drawn from N(0, 0.02^2) after
-              init (0 at init, which would make the LoRA path vanish):
-              6,142,959,936 parameters (`repro`'s count); in bf16
+  7f. zamba (in the same wait) zamba2-7b at full width, its depth cut
+              from 13 to 6 groups (for the script's time limit, once
+              phases 7g-7i came: 6 x [the shared attention block at 2 d =
+              7168, 32 heads of 224, LoRA rank 128; 5 Mamba2 layers] + 3,
+              d 3584),
+              random weights from seed 0 with every LoRA b drawn from N(0,
+              0.02^2) after init (0 at init, which would make the LoRA path
+              vanish): its parameter count at 6 groups, and at all 13
+              (6,142,959,936, `repro`'s count) from one group's; in bf16
               prefill(1024) (the chunked SSD form) + decode(token 1025)
               against prefill(1025) (the scan), gated as phase 7; then
               ``Engine.generate`` (batch 8, 1024-token prompts, 128 new
-              tokens): K4 once a shared-block application (13), K5 once an
-              application and decode step (1,651), no other kernel (the
+              tokens): K4 once a shared-block application (6), K5 once an
+              application and decode step (762), no other kernel (the
               Mamba2 layers are plain PyTorch, as in `repro`); two
               generates bit-equal; rates, time to first token, peak
               memory, busy share; then the consistency leg with f32 weights
-              and activations (24.6 GB): relative L2 < 1e-3, the greedy
-              token on every row
+              and activations: relative L2 < 1e-3, the greedy token on
+              every row
+  7g. whisper (after 7f) whisper-base at full width and depth (6 + 6
+              layers, 8 heads of 64), bf16, random weights from seed 0, 1500
+              stub frames a row from seed 5: 89,569,792 parameters
+              (`repro`'s count); prefill(64) + decode(token 65) against
+              prefill(65), gated as phase 7; ``Engine.generate`` (batch 8,
+              64-token prompts, 384 new tokens: Whisper's 448-token text
+              context), every launch counter set to 0 just before and read
+              just after: K4 18 (6 encoder, 6 self, 6 cross prefill), K5 12
+              a decode step (self and cross: 4,596), no other kernel; two
+              generates bit-equal, the second splitting K4's and K5's
+              launches by shape; rates, time to first token, peak memory,
+              the device busy share over decode steps
+  7h. internvl (after 7g) internvl2-1b at full width and depth (24
+              layers, 14 q / 2 KV heads of 64), 256 stub patches a row
+              before 768-token prompts (a cache of 1,152 rows): 493,780,992
+              parameters; gated and served as 7g: K4 24, K5 3,048
+  7i. cohere (after 7h) command-r-plus-104b at full width (d 12288, 96 q
+              / 8 KV heads of 128, d_ff 33792, vocab 256000), its depth cut
+              from 64 to 8 layers (64 take 207.6 GB in bf16):
+              15,728,750,592 parameters at 8 layers, 103,809,822,720 at 64
+              (from one layer's count), both `repro`'s; batch 8, 1024-token
+              prompts, 128 new tokens, gated and served as 7g: K4 8, K5
+              1,016
  8. graph    the paper's WIKI graph at full size (1.79M vertices), built on
               the host (by a worker process started before phase 2,
               overlapping phases 2-7, which then coarsens it for phase 11d
@@ -244,7 +279,13 @@ failure raises and the script exits non-zero without printing a result:
               wrapped 4096-slot ring, group 4), against their plain
               versions, two calls bit-equal, timed the same way beside
               their bounds, the plain versions and SDPA (a boolean window
-              or kv_len mask); their launches are phases 7e's and 7f's
+              or kv_len mask); their launches are phases 7e's and 7f's;
+              then K4 and K5 at the shapes of phases 7g-7i (whisper-base's
+              encoder [8,8,1500,64] and cross prefill [8,8,64|1500,64]
+              without a mask, its cross decode on the 1500-row cache;
+              internvl2-1b's group 7 and command-r-plus-104b's group 12 at
+              D 128, prefill and decode) the same way, each with its
+              launches at that shape in phases 7g-7i
  14. rwkv-serve  ``Engine.generate`` on rwkv6-3b at full width and depth,
               as phase 12: K6 once per layer in prefill and once per layer
               and decode step (32 x 128 = 4,096 launches), no other kernel
@@ -424,6 +465,25 @@ ZAMBA = "zamba2-7b"
 # DEEPSEEK_LITE_PARAMS
 H2O_PARAMS = 3_961_839_360
 ZAMBA_PARAMS = 6_142_959_936
+# phase 7f's depth: 6 of zamba2-7b's 13 groups (and its 3 trailing Mamba2
+# layers), cut so that phases 7g-7i fit the script's time limit
+ZAMBA_GROUPS = 6
+# phases 7g-7i: whisper-base (64-token decoder prompts against 1500 stub
+# frames, 384 new tokens: 448 = Whisper's text context), internvl2-1b (256
+# stub patches before 768-token prompts: a cache of 1,152 rows) and
+# command-r-plus-104b at full width cut to 8 of its 64 layers (64 take
+# 207.6 GB in bf16, more than one card); `repro`'s parameter counts,
+# counted as DEEPSEEK_LITE_PARAMS
+WHISPER = "whisper-base"
+WHISPER_SERVE = dict(batch=8, prompt=64, new=384, s_max=448)
+WHISPER_PARAMS = 89_569_792
+INTERNVL = "internvl2-1b"
+INTERNVL_SERVE = dict(batch=8, prompt=768, new=128, s_max=1152)
+INTERNVL_PARAMS = 493_780_992
+COHERE = "command-r-plus-104b"
+COHERE_LAYERS = 8
+COHERE_PARAMS = 15_728_750_592          # at 8 layers
+COHERE_FULL_PARAMS = 103_809_822_720    # at its 64
 # the golden-worker graph of the JAX package's tests
 PARITY_GRAPH = dict(n=1024, m=8192, n_comm=16, mixing=0.25,
                     degree_exponent=0.5, seed=3)
@@ -2837,6 +2897,15 @@ def attention_small_checks(torch) -> dict:
         (1, 4, 4, 300, 300, 224, True, 100),    # group 1, window across kv tiles
         (2, 4, 4, 1, 1000, 224, True, None),    # one query row against 1000 keys
         (1, 2, 2, 200, 70, 224, True, None),    # Sq > Skv: rows without keys
+        # whisper-base's encoder and cross-attention (no mask; 1500 keys are
+        # 23 whole 64-key tiles and a ragged one), internvl2-1b's group 7 at
+        # D 64 and command-r-plus-104b's group 12 at D 128 (causal)
+        (1, 2, 2, 1500, 1500, 64, False, None),  # Sq = Skv = 1500, group 1
+        (2, 4, 4, 64, 1500, 64, False, None),    # the cross prefill: Sq 64 against 1500
+        (2, 4, 4, 1, 1500, 64, False, None),     # one query row against 1500
+        (1, 14, 2, 300, 300, 64, True, None),    # group 7, ragged
+        (2, 7, 1, 100, 257, 64, True, None),     # group 7, Sq < Skv
+        (1, 24, 2, 200, 200, 128, True, None),   # group 12, ragged
     ]
     k5_cases = [  # b, hq, hkv, s, d, kv_len
         (4, 8, 8, 300, 64, [0, 1, 300, 157]),           # group 1
@@ -2846,6 +2915,12 @@ def attention_small_checks(torch) -> dict:
         (2, 4, 2, 64, 16, [64, 3]),                     # d 16
         (4, 8, 2, 300, 120, [0, 1, 300, 157]),          # d 120, group 4
         (4, 4, 4, 300, 224, [0, 1, 300, 157]),          # d 224, group 1
+        # whisper-base's cross cache: 1500 rows (no whole number of
+        # SPLIT_ROWS), full, one short and mixed; internvl2-1b's group 7 and
+        # command-r-plus-104b's group 12 at D 128
+        (4, 8, 8, 1500, 64, [1500, 1499, 1, 777]),
+        (3, 14, 2, 1152, 64, [1024, 1, 1152]),          # group 7
+        (3, 24, 2, 1152, 128, [1024, 0, 1151]),         # group 12, d 128
     ]
     # kv_len on both sides of a split boundary, and kv_len = S at the most
     # splits (MAX_SPLITS), from the plan the wrapper takes on this card
@@ -2855,6 +2930,12 @@ def attention_small_checks(torch) -> dict:
         n_split, chunk = k5.split_plan(b, hkv, s, n_sm)
         require(n_split == k5.MAX_SPLITS, f"split plan {n_split} x {chunk} for S {s}")
         k5_cases.append((b, hq, hkv, s, d, [chunk, chunk + 1, chunk - 1, s]))
+    # whisper-base's cross decode at its serving plan: the last split ends at
+    # row 1500, inside a SPLIT_ROWS run; kv_len on both sides of its start
+    n_split, chunk = k5.split_plan(8, 8, 1500, n_sm)
+    last = chunk * (n_split - 1)
+    require(last < 1500 < chunk * n_split, f"split plan {n_split} x {chunk} for S 1500")
+    k5_cases.append((8, 8, 8, 1500, 64, [1500, 1499, last, last + 1, last - 1, chunk, 1, 0]))
     for dtype in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL[str(dtype).split(".")[1]]
         for b, hq, hkv, sq, skv, d, causal, window in k4_cases:
@@ -2950,12 +3031,17 @@ def reduced_lm_parity(torch, arch: str, overrides: dict, b: int = 3, s: int = 37
     randomize_params(torch, cpu, SEED + 9)
     card = copy.deepcopy(cpu).to("cuda")
     steps = 8
-    toks = torch.randint(0, cfg.vocab, (b, s), dtype=torch.int32,
-                         generator=torch.Generator().manual_seed(SEED + 1))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (b, s), dtype=torch.int32, generator=gen)
+    batch = {"tokens": toks}
+    if cfg.family in ("vlm", "encdec"):      # the stub patches or frames
+        batch["frontend"] = torch.randn((b, cfg.n_patches or cfg.enc_seq, cfg.d_model),
+                                        generator=gen)
+    s_max = cfg.n_patches + s + steps
     with torch.inference_mode():
-        lc, cc = lm_prefill(cpu, cfg, init_cache(cfg, b, s + steps, "cpu"), {"tokens": toks})
-        lg, cg = lm_prefill(card, cfg, init_cache(cfg, b, s + steps, "cuda"),
-                            {"tokens": toks.cuda()})
+        lc, cc = lm_prefill(cpu, cfg, init_cache(cfg, b, s_max, "cpu"), batch)
+        lg, cg = lm_prefill(card, cfg, init_cache(cfg, b, s_max, "cuda"),
+                            {k: t.cuda() for k, t in batch.items()})
         errs = [check_close(torch, lg.cpu(), lc, LM_TOL, f"{arch} reduced prefill logits")]
         for i in range(steps):
             tc, tg = lc.argmax(-1).int(), lg.argmax(-1).int().cpu()
@@ -2972,14 +3058,15 @@ def reduced_lm_parity(torch, arch: str, overrides: dict, b: int = 3, s: int = 37
             "max_abs_err": max(errs), "tol": LM_TOL}
 
 
-def full_width_model(torch, arch: str, dtype: str | None = None, serve: dict = SERVE):
-    """``arch`` at full width in its own dtype (bf16) or ``dtype``, random
-    weights from SEED on the card, and random prompts of serve["prompt"] + 1
-    tokens."""
+def full_width_model(torch, arch: str, dtype: str | None = None, serve: dict = SERVE,
+                     **changes):
+    """``arch`` at full width in its own dtype (bf16) or ``dtype`` (and the
+    config ``changes``, e.g. a cut depth), random weights from SEED on the
+    card, and random prompts of serve["prompt"] + 1 tokens."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import init_lm
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **changes)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2988,6 +3075,14 @@ def full_width_model(torch, arch: str, dtype: str | None = None, serve: dict = S
                          generator=gen, device="cuda", dtype=torch.int32)
     n_params = sum(p.numel() for p in model.parameters())
     return cfg, model, toks, n_params
+
+
+def stub_frontend(torch, cfg, batch: int):
+    """A VLM's patch or an encoder-decoder's frame embeddings [B, n_patches
+    | enc_seq, d] in the compute dtype, drawn from SEED + 5 on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    return torch.randn((batch, cfg.n_patches or cfg.enc_seq, cfg.d_model), generator=gen,
+                       device="cuda").to(cfg.cdt)
 
 
 def next_model(torch) -> None:
@@ -3000,19 +3095,25 @@ def next_model(torch) -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def consistency_logits(torch, cfg, model, toks, serve: dict = SERVE):
+def front(frontend) -> dict:
+    """The batch entries of a stub frontend (none without one)."""
+    return {} if frontend is None else {"frontend": frontend}
+
+
+def consistency_logits(torch, cfg, model, toks, serve: dict = SERVE, frontend=None):
     """(decode logits, prefill(P+1) logits): prefill(P) + decode(token P+1)
-    against prefill(P+1) at the serving batch, all three finite."""
+    against prefill(P+1) at the serving batch (after the same ``frontend``),
+    all three finite."""
     from repro_torch.models import init_cache, lm_decode_step, lm_prefill
 
     p = serve["prompt"]
     with torch.inference_mode():
         cache = init_cache(cfg, serve["batch"], serve["s_max"], "cuda")
-        first, cache = lm_prefill(model, cfg, cache, {"tokens": toks[:, :p]})
+        first, cache = lm_prefill(model, cfg, cache, {"tokens": toks[:, :p], **front(frontend)})
         dec, cache = lm_decode_step(model, cfg, cache, toks[:, p])
         del cache
         whole, _ = lm_prefill(model, cfg, init_cache(cfg, serve["batch"], serve["s_max"], "cuda"),
-                              {"tokens": toks})
+                              {"tokens": toks, **front(frontend)})
     for name, t in (("prefill", first), ("decode", dec), ("prefill+1", whole)):
         require(bool(torch.isfinite(t).all()), f"full-width {name} logits not finite")
     return dec, whole
@@ -3051,33 +3152,79 @@ def consistency_gate(torch, cfg, dec, whole, *, rel_tol: float = FULL_REL_TOL,
 
 
 def full_width_consistency(torch, cfg, model, toks, *, rel_tol: float = FULL_REL_TOL,
-                           same_argmax: bool = False, serve: dict = SERVE) -> dict:
+                           same_argmax: bool = False, serve: dict = SERVE,
+                           frontend=None) -> dict:
     """`consistency_gate` on `consistency_logits`: prefill(P) +
     decode(token P+1) logits against prefill(P+1)'s."""
-    dec, whole = consistency_logits(torch, cfg, model, toks, serve)
+    dec, whole = consistency_logits(torch, cfg, model, toks, serve, frontend)
     return consistency_gate(torch, cfg, dec, whole, rel_tol=rel_tol, same_argmax=same_argmax)
 
 
-def serve_phase(torch, ops, cfg, model, toks, want: dict,
-                serve: dict = SERVE) -> tuple[dict, dict]:
-    """The serving main path through `Engine.generate`, timed; ``want`` is
+class AttentionShapes:
+    """While active, every launch of K4 or K5 (their CUDA wrappers, which
+    `ops` calls) is also tallied by its shape: ``counts[key]`` with
+    `k4_key` / `k5_key`. The launch counters stay the record; this splits
+    them by shape."""
+
+    def __enter__(self):
+        from repro_torch.kernels import decode_attention as k5
+        from repro_torch.kernels import flash_attention as k4
+
+        self.counts: dict = collections.Counter()
+        self._orig = (k4.flash_attention_cuda, k5.decode_attention_cuda)
+        f4, f5 = self._orig
+
+        def k4_tally(q, k, v, *, causal=True, window=None):
+            out = f4(q, k, v, causal=causal, window=window)
+            self.counts[k4_key(q.shape, k.shape, causal)] += 1
+            return out
+
+        def k5_tally(q, k_cache, v_cache, kv_len, *, return_lse=False):
+            out = f5(q, k_cache, v_cache, kv_len, return_lse=return_lse)
+            self.counts[k5_key(q.shape, k_cache.shape)] += 1
+            return out
+
+        self._mods = (k4, k5)
+        k4.flash_attention_cuda, k5.decode_attention_cuda = k4_tally, k5_tally
+        return self
+
+    def __exit__(self, *exc):
+        k4, k5 = self._mods
+        k4.flash_attention_cuda, k5.decode_attention_cuda = self._orig
+        return False
+
+
+def k4_key(q_shape, kv_shape, causal: bool) -> str:
+    return f"k4 q{list(q_shape)} kv{list(kv_shape)} {'causal' if causal else 'no mask'}"
+
+
+def k5_key(q_shape, cache_shape) -> str:
+    return f"k5 q{list(q_shape)} cache{list(cache_shape)}"
+
+
+def serve_phase(torch, ops, cfg, model, toks, want: dict, serve: dict = SERVE,
+                frontend=None) -> tuple[dict, dict]:
+    """The serving main path through `Engine.generate` (after ``frontend``,
+    a VLM's patches or an encoder-decoder's frames), timed; ``want`` is
     each kernel's launch count in the generate call (others must be 0). A
-    second generate must give bit-equal tokens and log-probabilities."""
+    second generate must give bit-equal tokens and log-probabilities; it
+    also splits K4's and K5's launches by shape (``attention_shapes``),
+    which must sum to the first generate's counts."""
     from repro_torch.serve import Engine
 
     prompts = toks[:, :serve["prompt"]].contiguous()
     eng = Engine(cfg, model, s_max=serve["s_max"])
-    eng.generate(prompts, max_new=2)                       # warm-up
+    eng.generate(prompts, max_new=2, frontend=frontend)    # warm-up
     torch.cuda.synchronize()
     t = time.perf_counter()
-    eng.generate(prompts, max_new=1)                       # prefill + first token
+    eng.generate(prompts, max_new=1, frontend=frontend)    # prefill + first token
     torch.cuda.synchronize()
     ttft = time.perf_counter() - t
     weights = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t = time.perf_counter()
-    res = eng.generate(prompts, max_new=serve["new"])
+    res = eng.generate(prompts, max_new=serve["new"], frontend=frontend)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = ops.launch_counts()
@@ -3090,9 +3237,15 @@ def serve_phase(torch, ops, cfg, model, toks, want: dict,
     require(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab,
             "serve: tokens out of range")
     require(bool(torch.isfinite(res.logprobs).all()), "serve: non-finite logprobs")
-    again = eng.generate(prompts, max_new=serve["new"])
+    # the second generate, untimed, splits K4's and K5's launches by shape
+    with AttentionShapes() as shapes:
+        again = eng.generate(prompts, max_new=serve["new"], frontend=frontend)
     require(torch.equal(again.tokens, res.tokens) and torch.equal(again.logprobs, res.logprobs),
             "serve: two generates differ")
+    for name, prefix in (("flash_attention", "k4"), ("decode_attention", "k5")):
+        tallied = sum(c for key, c in shapes.counts.items() if key.startswith(prefix))
+        require(tallied == counts[name], f"serve: {name} tallied {tallied} launches by "
+                f"shape in the second generate, its counter {counts[name]} in the first")
     decode_s = wall - ttft
     b, p = serve["batch"], serve["prompt"]
     return {"arch": cfg.name, "batch": b, "prompt": p, "new_tokens": serve["new"],
@@ -3101,10 +3254,12 @@ def serve_phase(torch, ops, cfg, model, toks, want: dict,
             "decode_tokens_per_s": b * steps / decode_s,
             "decode_ms_per_step": decode_s / steps * 1e3,
             "peak_memory_bytes": peak, "allocated_before_bytes": weights,
-            "launches": counts, "repeat_bit_equal": True}, counts
+            "launches": counts, "attention_shapes": dict(shapes.counts),
+            "repeat_bit_equal": True}, counts
 
 
-def serve_profile(torch, cfg, model, toks, steps: int = 4, serve: dict = SERVE) -> dict:
+def serve_profile(torch, cfg, model, toks, steps: int = 4, serve: dict = SERVE,
+                  frontend=None) -> dict:
     """Device busy share over the prefill and over a few decode steps at the
     serving shape (after the serve phase's calls warmed both up)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3116,7 +3271,8 @@ def serve_profile(torch, cfg, model, toks, steps: int = 4, serve: dict = SERVE) 
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            logits, cache = lm_prefill(model, cfg, cache, {"tokens": toks[:, :serve["prompt"]]})
+            logits, cache = lm_prefill(model, cfg, cache, {"tokens": toks[:, :serve["prompt"]],
+                                                           **front(frontend)})
             torch.cuda.synchronize()
             prefill_us = (time.perf_counter() - t0) * 1e6
         prefill = {"wall_ms": prefill_us / 1e3, **device_busy(prof, prefill_us, 1, "prefill")}
@@ -3321,34 +3477,43 @@ def perturb_lora(torch, model, seed: int) -> None:
 
 
 def zamba_phase(torch, ops) -> tuple[dict, dict]:
-    """zamba2-7b at full width and depth (13 groups of the shared attention
-    block at head width 224 and 5 Mamba2 layers, 3 trailing), random
-    weights from SEED with the LoRA ``b`` leaves drawn after init
-    (`perturb_lora`): the parameter count against `repro`'s; in bf16
-    prefill(1024) (the chunked SSD form) + decode(token 1025) against
-    prefill(1025) (the scan), gated as phase 7; the serving main path
-    (batch 8, 1024-token prompts, 128 new tokens): K4 once an application
-    (13), K5 once an application and decode step (13 x 127), no other
+    """zamba2-7b at full width, its depth cut to ZAMBA_GROUPS of its 13
+    groups of the shared attention block at head width 224 and 5 Mamba2
+    layers (3 trailing kept), random weights from SEED with the LoRA ``b``
+    leaves drawn after init (`perturb_lora`): the parameter count at all
+    13 groups (from one group's) against `repro`'s; in bf16 prefill(1024)
+    (the chunked SSD form) + decode(token 1025) against prefill(1025) (the
+    scan), gated as phase 7; the serving main path (batch 8, 1024-token
+    prompts, 128 new tokens): K4 once an application (6), K5 once an
+    application and decode step (6 x 127), no other
     kernel (the Mamba2 layers are plain PyTorch, as in `repro`), two
     generates bit-equal, its device busy share; then the same consistency
     with f32 weights and activations (TF32 off), relative L2 < 1e-3 and the
     greedy token on every row. Returns (its rows, the serve counts)."""
+    from repro_torch.configs.registry import get_config
+
     rows = {}
     for dtype, tol, same_argmax in ((None, FULL_REL_TOL, False),
                                     ("float32", FULL_F32_REL_TOL, True)):
         next_model(torch)
         t = time.perf_counter()
-        cfg, model, toks, n_params = full_width_model(torch, ZAMBA, dtype)
+        full = get_config(ZAMBA)
+        cut = dict(n_attn_groups=ZAMBA_GROUPS, n_layers=ZAMBA_GROUPS * (1 + full.mamba_per_group)
+                   + full.trailing_mamba)
+        cfg, model, toks, n_params = full_width_model(torch, ZAMBA, dtype, **cut)
         perturb_lora(torch, model, SEED + 4)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t
-        require(n_params == ZAMBA_PARAMS,
-                f"{ZAMBA} has {n_params} parameters, repro's has {ZAMBA_PARAMS}")
+        per_group = sum(p.numel() for m in (model.lora[0], model.mamba[0]) for p in m.parameters())
+        full_params = n_params + (full.n_attn_groups - ZAMBA_GROUPS) * per_group
+        require(full_params == ZAMBA_PARAMS, f"{ZAMBA} at {full.n_attn_groups} groups has "
+                f"{full_params} parameters, repro's has {ZAMBA_PARAMS}")
         require(SERVE["prompt"] % cfg.ssm_chunk == 0 and (SERVE["prompt"] + 1) % cfg.ssm_chunk,
                 "prefill(P) must take the chunked form and prefill(P+1) the scan")
         t = time.perf_counter()
         rows[str(cfg.cdt)] = {
-            "arch": cfg.name, "params": n_params, "init_s": init_s, "lora_b": "N(0, 0.02^2)",
+            "arch": cfg.name, "params": n_params, "groups": ZAMBA_GROUPS, "layers": cfg.n_layers,
+            "full_depth_params": full_params, "init_s": init_s, "lora_b": "N(0, 0.02^2)",
             **full_width_consistency(torch, cfg, model, toks, rel_tol=tol,
                                      same_argmax=same_argmax),
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -3362,6 +3527,56 @@ def zamba_phase(torch, ops) -> tuple[dict, dict]:
             serve_prof = serve_profile(torch, cfg, model, toks)
         del model, toks
     return {"full": rows, "serve": serve, "serve_profile": serve_prof}, counts
+
+
+def serve_leg(torch, ops, arch: str, serve: dict, n_params_want: int, **changes):
+    """``arch`` at full width (depth cut by ``changes`` for 7i), bf16,
+    random weights from SEED, its stub frontend (a VLM's patches, an
+    encoder-decoder's frames) from SEED + 5: the parameter count against
+    `repro`'s (and, for a cut depth, the full depth's, from one layer's);
+    prefill(P) + decode(token P+1) against prefill(P+1), gated as phase 7;
+    then the serving main path through `Engine.generate`: K4 once a layer
+    (whisper: once an encoder layer and twice a decoder layer, the self and
+    the cross prefill), K5 once a layer and decode step (whisper: twice, the
+    self and the cross decode), no other kernel, two generates bit-equal,
+    its device busy share. Returns (its rows, the serve counts, the
+    launches by shape)."""
+    t = time.perf_counter()
+    cfg, model, toks, n_params = full_width_model(torch, arch, serve=serve, **changes)
+    frontend = (stub_frontend(torch, cfg, serve["batch"])
+                if cfg.family in ("vlm", "encdec") else None)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    require(n_params == n_params_want,
+            f"{cfg.name} has {n_params} parameters, repro's has {n_params_want}")
+    full = {"arch": cfg.name, "params": n_params, "init_s": init_s, "layers": cfg.n_layers,
+            "prompt": serve["prompt"]}
+    if "n_layers" in changes:
+        from repro_torch.configs.registry import get_config
+
+        depth = get_config(arch).n_layers
+        per_layer = sum(p.numel() for p in model.blocks[0].parameters())
+        full_params = n_params + (depth - cfg.n_layers) * per_layer
+        require(full_params == COHERE_FULL_PARAMS,
+                f"{arch} at {depth} layers has {full_params} parameters, "
+                f"repro's has {COHERE_FULL_PARAMS}")
+        full.update(full_depth_layers=depth, full_depth_params=full_params,
+                    full_depth_bf16_bytes=2 * full_params)
+    if frontend is not None:
+        full["frontend"] = list(frontend.shape)
+    t = time.perf_counter()
+    full.update(**full_width_consistency(torch, cfg, model, toks, serve=serve, frontend=frontend),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                seconds=time.perf_counter() - t)
+    next_model(torch)
+    attn_layers = cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
+    decode_layers = 2 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
+    row, counts = serve_phase(torch, ops, cfg, model, toks,
+                              {"flash_attention": attn_layers,
+                               "decode_attention": decode_layers * (serve["new"] - 1)},
+                              serve=serve, frontend=frontend)
+    prof = serve_profile(torch, cfg, model, toks, serve=serve, frontend=frontend)
+    return {"full": full, "serve": row, "serve_profile": prof}, counts, row["attention_shapes"]
 
 
 def sass_counts(lib_path) -> dict:
@@ -3569,6 +3784,30 @@ def attention_serve_kernels(torch, flush) -> dict:
     }
 
 
+def attention_record(torch, flush, name, source_kernel, fn, plain, library, err, nbytes,
+                     flops, shape) -> dict:
+    """A K4 or K5 call ``fn`` at one shape, already held to its plain
+    version (``err``): two calls bit-equal, then it, the plain version and
+    the ``library`` call timed replayed from a CUDA graph (the eager time
+    beside), with the bound of ``nbytes`` and ``flops`` (bf16)."""
+    require(torch.equal(fn(), fn()), f"{name}: two calls differ")
+    ms = graph_ms(torch, fn, flush)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    rec = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/kernels/csrc/{source_kernel}.cu",
+           "replaces": ("src/repro/kernels/flash_attention.py:97"
+                        if source_kernel == "flash_attention"
+                        else "src/repro/kernels/decode_attention.py:78"),
+           **err, "ms": ms, "plain_ms": graph_ms(torch, plain, flush),
+           "bound_ms": b_ms, "bound_by": b_by, "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_ops_ms": flops / BF16_FLOPS * 1e3,
+           "library_ms": graph_ms(torch, library, flush), "eager_ms": time_ms(torch, fn, flush),
+           "shape": shape, "bytes": nbytes, "flops": flops, "deterministic": True}
+    if source_kernel == "flash_attention":
+        rec["tflops"] = flops / ms / 1e9
+    return rec
+
+
 def wide_head_attention_kernels(torch, flush) -> dict:
     """K4 and K5 at the head widths of h2o-danube-3-4b (120) and zamba2-7b's
     shared attention (224), at their serving shapes (phases 7e and 7f):
@@ -3587,23 +3826,8 @@ def wide_head_attention_kernels(torch, flush) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(bf16)
 
-    def record(name, source_kernel, fn, plain, library, err, nbytes, flops, shape):
-        require(torch.equal(fn(), fn()), f"{name}: two calls differ")
-        ms = graph_ms(torch, fn, flush)
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-        rec = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{source_kernel}.cu",
-               "replaces": ("src/repro/kernels/flash_attention.py:97"
-                            if source_kernel == "flash_attention"
-                            else "src/repro/kernels/decode_attention.py:78"),
-               **err, "ms": ms, "plain_ms": graph_ms(torch, plain, flush),
-               "bound_ms": b_ms, "bound_by": b_by, "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "bound_ops_ms": flops / BF16_FLOPS * 1e3,
-               "library_ms": graph_ms(torch, library, flush), "eager_ms": time_ms(torch, fn, flush),
-               "shape": shape, "bytes": nbytes, "flops": flops, "deterministic": True}
-        if source_kernel == "flash_attention":
-            rec["tflops"] = flops / ms / 1e9
-        return rec
+    def record(*args):
+        return attention_record(torch, flush, *args)
 
     out = {}
     # zamba2-7b's shared-attention prefill: [8, 32, 1024, 224] causal MHA
@@ -3667,6 +3891,84 @@ def wide_head_attention_kernels(torch, flush) -> dict:
                                                enable_gqa=True), err,
         el * (2 * b * hkv * w * d + 2 * b * hq * d) + 4 * b, 4 * d * b * hq * w,
         f"q [{b},{hq},{d}] ring [{b},{hkv},{w},{d}] bf16 kv_len {w} (h2o-danube-3-4b)")
+    return out
+
+
+def encdec_vlm_attention_kernels(torch, flush) -> dict:
+    """K4 and K5 at the serving shapes of phases 7g-7i: whisper-base's
+    encoder ([8,8,1500,64], no mask), its cross prefill (q [8,8,64,64]
+    against 1500 keys, no mask) and cross decode (the full 1500-row cache),
+    internvl2-1b's group 7 at D 64 and command-r-plus-104b's group 12 at D
+    128 (prefill causal over 1024 positions, decode against 1024 of 1152
+    cache rows). Each held against its plain version (every output row
+    within 1e-2 of its norm), two calls bit-equal, timed as in phase 13
+    beside its bound, the plain version and SDPA (no mask, causal with GQA,
+    or a kv_len mask). Each record carries the `AttentionShapes` key whose
+    launches it reports."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    bf16, el = torch.bfloat16, 2
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    out = {}
+    k4_cases = [  # name, b, hq, hkv, sq, skv, d, causal, what
+        ("flash_attention_whisper_encoder", 8, 8, 8, 1500, 1500, 64, False,
+         "whisper-base encoder"),
+        ("flash_attention_whisper_cross", 8, 8, 8, WHISPER_SERVE["prompt"], 1500, 64, False,
+         "whisper-base cross prefill"),
+        ("flash_attention_group7", 8, 14, 2, 1024, 1024, 64, True,
+         "internvl2-1b: 256 patches + 768 tokens"),
+        ("flash_attention_group12", 8, 96, 8, 1024, 1024, 128, True,
+         "command-r-plus-104b"),
+    ]
+    for name, b, hq, hkv, sq, skv, d, causal, what in k4_cases:
+        q, k, v = randn(b, hq, sq, d), randn(b, hkv, skv, d), randn(b, hkv, skv, d)
+        fn = lambda: k4.flash_attention_cuda(q, k, v, causal=causal)  # noqa: E731
+        plain = lambda: k4.flash_attention_plain(q, k, v, causal=causal)  # noqa: E731
+        err = check_rows(torch, fn(), plain(), SERVE_ROW_REL_TOL, f"K4 at {what}")
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        library = (lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=hq != hkv))
+        rec = attention_record(
+            torch, flush, name, "flash_attention", fn, plain, library, err,
+            el * (2 * b * hq * sq * d + 2 * b * hkv * skv * d), 4 * d * b * hq * pairs,
+            f"q [{b},{hq},{sq},{d}] kv [{b},{hkv},{skv},{d}] bf16 "
+            f"{'causal' if causal else 'no mask'} ({what})")
+        out[name] = {**rec, "shape_key": k4_key(q.shape, k.shape, causal)}
+        del q, k, v
+    k5_cases = [  # name, b, hq, hkv, s_max, kv, d, what
+        ("decode_attention_whisper_cross", 8, 8, 8, 1500, 1500, 64,
+         "whisper-base cross decode"),
+        ("decode_attention_group7", 8, 14, 2, INTERNVL_SERVE["s_max"], 1024, 64,
+         "internvl2-1b"),
+        ("decode_attention_group12", 8, 96, 8, SERVE["s_max"], 1024, 128,
+         "command-r-plus-104b"),
+    ]
+    for name, b, hq, hkv, s_max, kv, d, what in k5_cases:
+        qd, kc, vc = randn(b, hq, d), randn(b, hkv, s_max, d), randn(b, hkv, s_max, d)
+        kv_len = torch.full((b,), kv, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(s_max, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+        fn = lambda: k5.decode_attention_cuda(qd, kc, vc, kv_len)  # noqa: E731
+        plain = lambda: k5.decode_attention_plain(qd, kc, vc, kv_len)  # noqa: E731
+        got = k5.decode_attention_cuda(qd, kc, vc, kv_len, return_lse=True)
+        want = k5.decode_attention_plain(qd, kc, vc, kv_len, return_lse=True)
+        err = check_rows(torch, got[0], want[0], SERVE_ROW_REL_TOL, f"K5 at {what}")
+        for a, w, part in zip(got[1:], want[1:], "ml"):
+            check_close(torch, a, w, ATTN_TOL["float32"], f"K5 {part} at {what}")
+        library = (lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=hq != hkv))
+        rec = attention_record(
+            torch, flush, name, "decode_attention", fn, plain, library, err,
+            el * (2 * b * hkv * kv * d + 2 * b * hq * d) + 4 * b, 4 * d * b * hq * kv,
+            f"q [{b},{hq},{d}] cache [{b},{hkv},{s_max},{d}] bf16 kv_len {kv} ({what})")
+        out[name] = {**rec, "shape_key": k5_key(qd.shape, kc.shape)}
+        del qd, kc, vc, got, want
     return out
 
 
@@ -4045,9 +4347,15 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
     # Mamba2 scan, 32 the chunked form)
     swa_small = reduced_lm_parity(torch, H2O, {})
     hybrid_small = [reduced_lm_parity(torch, ZAMBA, {}, s=s) for s in (37, 32)]
+    # whisper-base (16 stub frames; both caches), internvl2-1b (8 stub
+    # patches before the prompt) and command-r-plus-104b (the parallel
+    # block) reduced
+    encdec_vlm_small = [reduced_lm_parity(torch, arch, {})
+                        for arch in (WHISPER, INTERNVL, COHERE)]
     emit({"phase": "attn", **attn_small, "reduced_lm": lm_small,
           "reduced_deepseek": deepseek_small, "reduced_h2o": swa_small,
-          "reduced_zamba": hybrid_small, "seconds": time.perf_counter() - t})
+          "reduced_zamba": hybrid_small, "reduced_whisper_internvl_cohere": encdec_vlm_small,
+          "seconds": time.perf_counter() - t})
 
     # 5. tinyllama-1.1b at full width: prefill + decode against prefill
     next_model(torch)
@@ -4130,8 +4438,8 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
           "seconds": time.perf_counter() - t})
     del h2o_rows
 
-    # 7f. zamba2-7b at full width (the Mamba2 hybrid, K4 and K5 at head dim
-    # 224), in bf16 and f32, in the same wait
+    # 7f. zamba2-7b at full width and 6 of its 13 groups (the Mamba2
+    # hybrid, K4 and K5 at head dim 224), in bf16 and f32, in the same wait
     t = time.perf_counter()
     zamba_rows, zamba_counts = zamba_phase(torch, ops)
     for dtype, row in zamba_rows["full"].items():
@@ -4140,6 +4448,25 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
     emit({"phase": "zamba-serve-profile", **zamba_rows["serve_profile"],
           "seconds": time.perf_counter() - t})
     del zamba_rows
+
+    # 7g-7i. whisper-base (the encoder-decoder), internvl2-1b (the VLM
+    # frontend) and command-r-plus-104b at 8 of its 64 layers (the parallel
+    # block), K4 and K5 at their new shapes; their launches by shape go to
+    # phase 13's records
+    leg_shapes = {}
+    for phase, arch, serve, n_params, changes in (
+            ("whisper", WHISPER, WHISPER_SERVE, WHISPER_PARAMS, {}),
+            ("internvl", INTERNVL, INTERNVL_SERVE, INTERNVL_PARAMS, {}),
+            ("cohere", COHERE, SERVE, COHERE_PARAMS, {"n_layers": COHERE_LAYERS})):
+        next_model(torch)
+        t = time.perf_counter()
+        rows, _, shapes = serve_leg(torch, ops, arch, serve, n_params, **changes)
+        leg_shapes.update(shapes)
+        emit({"phase": f"{phase}-full", "graph_built": host.ready(), **rows["full"]})
+        emit({"phase": f"{phase}-serve", **rows["serve"]})
+        emit({"phase": f"{phase}-serve-profile", **rows["serve_profile"],
+              "seconds": time.perf_counter() - t})
+        del rows
     next_model(torch)
 
     # 8. graph: full-size WIKI, host build (started above) then device layout
@@ -4297,6 +4624,18 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
         records[name] = rec
         emit(rec)
     emit({"phase": "wide-head-kernels", "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    # K4 and K5 at the shapes of phases 7g-7i: their launches there, by shape
+    next_model(torch)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
+    encdec_vlm = encdec_vlm_attention_kernels(torch, flush)
+    del flush
+    for name, rec in encdec_vlm.items():
+        rec["launches"] = leg_shapes.get(rec["shape_key"], 0)
+        require(rec["launches"] > 0, f"{name}: no launch at {rec['shape_key']} in phases 7g-7i")
+        records[name] = rec
+        emit(rec)
+    emit({"phase": "encdec-vlm-kernels",
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
 
     # 14. rwkv6-3b served through the same entry point: K6 once per layer in
     # prefill and once per layer and decode step

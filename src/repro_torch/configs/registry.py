@@ -1,15 +1,16 @@
 """Architecture registry: the ten archs `repro` knows, and which of them
 the port runs.
 
-The dense decoder family (sliding-window attention included) and the
-``moe`` family (DeepSeek-V2's MoE FFN and MLA attention,
-`repro_torch.models.transformer`), the RWKV6 ``ssm`` family
-(`repro_torch.models.rwkv_model`) and the Mamba2 ``hybrid`` family
-(`repro_torch.models.zamba`) are ported; `get_config`
-of an arch whose family or features are not ported yet raises
-`NotImplementedError` naming the ROADMAP item that brings it. `repro`'s
-``input_specs`` (ShapeDtypeStruct stand-ins for the JAX dry-run) has no
-counterpart here.
+Every family is ported: the dense decoders (sliding-window attention and
+Cohere's parallel attention/MLP block included), the ``moe`` family
+(DeepSeek-V2's MoE FFN and MLA attention) and the ``vlm`` family (patch
+embeddings before the tokens), all in `repro_torch.models.transformer`;
+the RWKV6 ``ssm`` family (`repro_torch.models.rwkv_model`), the Mamba2
+``hybrid`` family (`repro_torch.models.zamba`) and the ``encdec`` family
+(`repro_torch.models.whisper`). `UNPORTED` is empty; an arch entered there
+makes `get_config` raise `NotImplementedError` naming the ROADMAP item that
+brings it. `repro`'s ``input_specs`` (ShapeDtypeStruct stand-ins for the
+JAX dry-run) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -31,11 +32,7 @@ ARCHS = {
 }
 
 # arch -> (what it needs that is not ported, the ROADMAP item that ports it)
-UNPORTED = {
-    "command-r-plus-104b": ("the parallel attention/MLP block", "queue 1 item 13"),
-    "internvl2-1b": ("the VLM family", "queue 1 item 13"),
-    "whisper-base": ("the encoder-decoder family", "queue 1 item 13"),
-}
+UNPORTED: dict[str, tuple[str, str]] = {}
 
 
 def get_config(name: str) -> ModelConfig:

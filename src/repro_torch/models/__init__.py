@@ -1,8 +1,9 @@
-"""LM stack of the port: the dense and MoE decoder families (GQA,
-sliding-window or DeepSeek-V2's MLA attention) and the Mamba2 hybrid with
-its shared attention block, served through the hand-written attention
-kernels, and the RWKV6 ``ssm`` family, served through the hand-written
-recurrence kernel (`repro_torch.kernels`)."""
+"""LM stack of the port: the dense, MoE and VLM decoder families (GQA,
+sliding-window or DeepSeek-V2's MLA attention, Cohere's parallel block,
+patch embeddings before the tokens), the Mamba2 hybrid with its shared
+attention block and the Whisper encoder-decoder, served through the
+hand-written attention kernels, and the RWKV6 ``ssm`` family, served
+through the hand-written recurrence kernel (`repro_torch.kernels`)."""
 from repro_torch.models.api import init_cache, init_lm, lm_decode_step, lm_prefill
 from repro_torch.models.config import ModelConfig
 

@@ -5,20 +5,21 @@
   lm_prefill(model, cfg, cache, batch)       -> (logits, cache)
   lm_decode_step(model, cfg, cache, token)   -> (logits, cache)
 
-batch = {"tokens": [B,S] int32}. The decoder families ``dense`` and
-``moe`` (`transformer`: GQA, sliding-window or MLA attention, MLP or MoE
-FFNs), the RWKV6 ``ssm`` family (`rwkv_model`) and the Mamba2 ``hybrid``
-family with its shared attention block (`zamba`) are ported; making a model
-or a cache for another raises `NotImplementedError` naming the ROADMAP item
-that ports it, and `repro`'s ``lm_loss`` (training) comes with queue 1
-item 14.
+batch = {"tokens": [B,S] int32, "frontend": [B, n_patches|enc_seq, d]
+(the ``vlm`` and ``encdec`` families' stub embeddings only)}. Every family
+of `repro` is ported: the decoder families ``dense``, ``moe`` and ``vlm``
+(`transformer`: GQA, sliding-window or MLA attention, MLP or MoE FFNs,
+Cohere's parallel block, a VLM's patches before the tokens), the RWKV6
+``ssm`` family (`rwkv_model`), the Mamba2 ``hybrid`` family with its
+shared attention block (`zamba`) and the ``encdec`` family (`whisper`).
+`repro`'s ``lm_loss`` (training) comes with queue 1 item 14.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.device_graph import resolve_device
-from repro_torch.models import rwkv_model, transformer, zamba
+from repro_torch.models import rwkv_model, transformer, whisper, zamba
 from repro_torch.models.config import ModelConfig
 
 
@@ -32,6 +33,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
         return rwkv_model.init_rwkv(cfg, generator)
     if cfg.family == "hybrid":
         return zamba.init_zamba(cfg, generator)
+    if cfg.family == "encdec":
+        return whisper.init_whisper(cfg, generator)
     return transformer.init_decoder(cfg, generator)
 
 
@@ -41,15 +44,21 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
         return rwkv_model.rwkv_init_cache(cfg, batch, s_max, dev)
     if cfg.family == "hybrid":
         return zamba.zamba_init_cache(cfg, batch, s_max, dev)
+    if cfg.family == "encdec":
+        return whisper.whisper_init_cache(cfg, batch, s_max, dev)
     return transformer.decoder_init_cache(cfg, batch, s_max, dev)
 
 
 def lm_prefill(model, cfg: ModelConfig, cache: dict, batch: dict):
+    tokens = batch["tokens"]
     if cfg.family == "ssm":
-        return rwkv_model.rwkv_prefill(model, cfg, batch["tokens"], cache)
+        return rwkv_model.rwkv_prefill(model, cfg, tokens, cache)
     if cfg.family == "hybrid":
-        return zamba.zamba_prefill(model, cfg, batch["tokens"], cache)
-    return transformer.decoder_prefill(model, cfg, batch["tokens"], cache)
+        return zamba.zamba_prefill(model, cfg, tokens, cache)
+    if cfg.family == "encdec":
+        return whisper.whisper_prefill(model, cfg, tokens, cache, batch["frontend"])
+    return transformer.decoder_prefill(model, cfg, tokens, cache,
+                                       frontend=batch.get("frontend"))
 
 
 def lm_decode_step(model, cfg: ModelConfig, cache: dict, token):
@@ -57,4 +66,6 @@ def lm_decode_step(model, cfg: ModelConfig, cache: dict, token):
         return rwkv_model.rwkv_decode_step(model, cfg, cache, token)
     if cfg.family == "hybrid":
         return zamba.zamba_decode_step(model, cfg, cache, token)
+    if cfg.family == "encdec":
+        return whisper.whisper_decode_step(model, cfg, cache, token)
     return transformer.decoder_decode_step(model, cfg, cache, token)

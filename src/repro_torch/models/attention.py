@@ -1,13 +1,15 @@
-"""GQA / MHA / sliding-window attention: prefill and decode paths.
+"""GQA / MHA / sliding-window and cross attention: prefill and decode paths.
 
 The counterpart of `repro.models.attention`, in the same [B, H, S, D]
 layout. Routing is by device, not by an ``impl`` knob:
 
-  `attend`                 CPU -> `flash_attention_plain`, CUDA -> K4
-                           (`repro_torch.kernels.ops.flash_attention`)
-  `decode_self_attention`  CPU -> `decode_attention_plain`, CUDA -> K5, for
-                           a full cache and for a ring-buffer
-                           (sliding-window) cache alike
+  `attend`                  CPU -> `flash_attention_plain`, CUDA -> K4
+                            (`repro_torch.kernels.ops.flash_attention`);
+                            self-attention and `apply_cross_attention`
+  `decode_self_attention`   CPU -> `decode_attention_plain`, CUDA -> K5, for
+                            a full cache and for a ring-buffer
+                            (sliding-window) cache alike
+  `decode_cross_attention`  the same, against a full cross cache
 
 `naive_attention` and `flash_attention_chunked` are the plain counterparts
 of `repro`'s ``impl="naive"`` and ``impl="xla"`` paths. Nothing on the
@@ -20,6 +22,12 @@ their order does not matter under the softmax, so its decode is K5's
 function with kv_len = min(pos + 1, W): `repro`'s ring decode
 (``_ring_decode_xla``), which `repro` keeps in XLA only because its Pallas
 decode branch skips rings.
+
+Cross-attention (Whisper's decoder) has no RoPE and no mask. Its prefill
+runs `attend(..., causal=False)`. Its decode is one query a row against
+the whole [B, Hkv, enc_seq, D] cross cache: K5's function with
+kv_len = enc_seq for every row, the same function `repro` computes with
+``attend(causal=False)`` at Sq = 1 (`repro/models/whisper.py:185-186`).
 """
 from __future__ import annotations
 
@@ -167,6 +175,31 @@ def apply_attention(p: Attention, spec: AttnSpec, x, positions, *,
     if return_kv:
         return y, (k, v)
     return y
+
+
+def apply_cross_attention(p: Attention, spec: AttnSpec, x, kv_or_mem, *,
+                          from_cache=False):
+    """Cross-attention: queries from x [B, S, d], keys and values from the
+    encoder memory [B, Sm, d] (or a precomputed (k, v) [B, Hkv, Sm, D]
+    pair). No RoPE, no mask."""
+    q = _split_heads(dense(p.wq, x), spec.n_q, spec.d_head)
+    if from_cache:
+        k, v = kv_or_mem
+    else:
+        k = _split_heads(dense(p.wk, kv_or_mem), spec.n_kv, spec.d_head)
+        v = _split_heads(dense(p.wv, kv_or_mem), spec.n_kv, spec.d_head)
+    o = attend(q, k, v, causal=False)
+    return dense(p.wo, _merge_heads(o))
+
+
+def decode_cross_attention(p: Attention, spec: AttnSpec, x1, cache_k, cache_v):
+    """One-token cross-attention: x1 [B, 1, d] against every row of the
+    cross cache [B, Hkv, Sm, D] (K5 with kv_len = Sm). Returns y [B, 1, d]."""
+    q = _split_heads(dense(p.wq, x1), spec.n_q, spec.d_head)    # [B,Hq,1,D]
+    kv_len = torch.full((x1.shape[0],), cache_k.shape[2], dtype=torch.int32,
+                        device=x1.device)
+    o = ops.decode_attention(q[:, :, 0].contiguous(), cache_k, cache_v, kv_len)
+    return dense(p.wo, _merge_heads(o[:, :, None, :]))
 
 
 def decode_self_attention(p: Attention, spec: AttnSpec, x1, cache_k, cache_v, pos):

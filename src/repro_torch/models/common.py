@@ -1,5 +1,5 @@
-"""Shared model primitives: parameter modules, inits, norms, rotary
-embeddings and the SwiGLU activation.
+"""Shared model primitives: parameter modules, inits, norms, rotary and
+sinusoidal position embeddings and the SwiGLU activation.
 
 `repro.models.common` keeps parameters in nested dicts with a stacked
 ``[L, ...]`` layer axis; the port keeps them in small `nn.Module`s whose
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -132,6 +133,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     x1, x2 = torch.chunk(x_rot.float(), 2, dim=-1)
     r = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([r.to(x.dtype), x_pass], dim=-1)
+
+
+def sinusoid_pos(n: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """[n, d] sin / cos table (Whisper's encoder positions): built in numpy
+    f64 and cast once to ``dtype``, so it equals `repro`'s bit for bit."""
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    tab = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(tab).to(device=device, dtype=dtype)
 
 
 # --------------------------------------------------------------------------

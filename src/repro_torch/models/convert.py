@@ -4,12 +4,15 @@
 a stacked ``[L, ...]`` layer axis (built with ``jax.vmap``) and whose dense
 weights are ``[d_in, d_out]``. `lm_params_from_numpy` takes that tree with
 numpy leaves (``jax.device_get(params)``) or tensor leaves (a checkpoint
-read by `repro_torch.checkpoint`), of a dense or MoE decoder (GQA or MLA
-attention; an MoE's leading dense layers in ``dense_blocks``, its expert
-weights as raw ``[L, E, ...]`` arrays), of an RWKV6 model or of the Mamba2
-hybrid (``lora`` [G, ...], ``mamba`` [G, M, ...] with two stacked axes,
-``trailing`` [T, ...]), and returns the port's `Decoder`, `RWKV` or
-`Zamba`, which computes what `repro` computes from them.
+read by `repro_torch.checkpoint`), of a dense, MoE or VLM decoder (GQA or
+MLA attention; an MoE's leading dense layers in ``dense_blocks``, its
+expert weights as raw ``[L, E, ...]`` arrays; a parallel block's layers
+without ``ln2``), of an RWKV6 model, of the Mamba2 hybrid (``lora``
+[G, ...], ``mamba`` [G, M, ...] with two stacked axes, ``trailing``
+[T, ...]) or of the Whisper encoder-decoder (``enc_blocks`` and
+``dec_blocks``, each stacked, biased ``attn`` / ``self`` / ``cross`` and
+``mlp`` leaves, ``dec_pos``), and returns the port's `Decoder`, `RWKV`,
+`Zamba` or `Whisper`, which computes what `repro` computes from them.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 from repro_torch.models.rwkv_model import RWKV, RWKVBlock
 from repro_torch.models.ssm import Mamba2
-from repro_torch.models.transformer import Block, Decoder, check_ported
+from repro_torch.models.transformer import Block, Decoder, check_family
+from repro_torch.models.whisper import DecBlock, EncBlock, Whisper
 from repro_torch.models.zamba import LoRA, LoRASet, MambaBlock, SharedBlock, Zamba
 
 
@@ -45,7 +49,8 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 # subtrees with stacked layer axes, and how many (the hybrid's Mamba2
 # layers are [G, M, ...])
-STACKS = {"blocks": 1, "dense_blocks": 1, "lora": 1, "trailing": 1, "mamba": 2}
+STACKS = {"blocks": 1, "dense_blocks": 1, "lora": 1, "trailing": 1, "mamba": 2,
+          "enc_blocks": 1, "dec_blocks": 1}
 
 
 def _leaves(tree: dict) -> list:
@@ -59,24 +64,25 @@ def _paths(tree: dict, prefix: str = "") -> set:
     return out
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV | Zamba:
-    """The port's `Decoder` (dense and moe families), `RWKV` (``ssm``
-    family) or `Zamba` (``hybrid`` family) on ``device`` from `repro`'s
-    parameter tree with numpy leaves.
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
+                         device) -> Decoder | RWKV | Zamba | Whisper:
+    """The port's `Decoder` (dense, moe and vlm families), `RWKV` (``ssm``
+    family), `Zamba` (``hybrid`` family) or `Whisper` (``encdec`` family)
+    on ``device`` from `repro`'s parameter tree with numpy leaves.
     Raises if the tree holds leaves the port would not use (or lacks some),
     or a stack with another number of layers than ``cfg`` gives it."""
-    if cfg.family not in ("ssm", "hybrid"):
-        check_ported(cfg)
     dev = resolve_device(device)
 
     def put(a):
         return tensor_from_numpy(a, dev)
 
-    def norm(d):
-        return Norm(put(d["g"]), put(d["b"]) if "b" in d else None)
+    def norm(d, bias=False):
+        """A norm ({g, b}); ``bias`` requires its b."""
+        return Norm(put(d["g"]), put(d["b"]) if bias or "b" in d else None)
 
-    def lin(d):
-        return Dense(put(d["w"]), put(d["b"]) if "b" in d else None)
+    def lin(d, bias=False):
+        """A dense layer ({w, b}); ``bias`` requires its b."""
+        return Dense(put(d["w"]), put(d["b"]) if bias or "b" in d else None)
 
     def layer(d, i):
         return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in d.items()}
@@ -105,6 +111,12 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV
             fail(f"no {name}")
         return split(tree[name], n, name)
 
+    def mlp(d, kind, bias=False):
+        names = ("w_gate", "w_up", "w_down") if kind == "swiglu" else ("w_up", "w_down")
+        if set(d) != set(names):
+            fail(f"a {kind} mlp holds {sorted(d)}, expected {sorted(names)}")
+        return MLP(kind, **{n: lin(d[n], bias) for n in names})
+
     def attention(d):
         if cfg.attn_kind != "mla":
             return Attention(*(lin(d[n]) for n in ("wq", "wk", "wv", "wo")))
@@ -116,27 +128,44 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV
         if moe_layer != ("moe" in bt):
             fail(f"expected {'moe' if moe_layer else 'mlp'}, got {sorted(bt)}")
         if not moe_layer:
-            ffn = {"mlp": MLP(cfg.mlp_kind, **{k: lin(v) for k, v in bt["mlp"].items()})}
+            ffn = {"mlp": mlp(bt["mlp"], cfg.mlp_kind)}
         else:
             m = bt["moe"]
             if ("shared" in m) != bool(cfg.n_shared_experts):
                 fail(f"n_shared_experts {cfg.n_shared_experts} but moe holds {sorted(m)}")
-            shared = (MLP("swiglu", **{k: lin(v) for k, v in m["shared"].items()})
-                      if "shared" in m else None)
+            shared = mlp(m["shared"], "swiglu") if "shared" in m else None
             ffn = {"moe": MoE(lin(m["router"]), put(m["w_gate"]), put(m["w_up"]),
                               put(m["w_down"]), shared)}
-        return Block(norm(bt["ln1"]), attention(bt["attn"]), norm(bt["ln2"]), **ffn)
+        # a parallel block has no ln2 (an ln2 in its tree is a leaf too many)
+        ln2 = None if cfg.parallel_block else norm(bt["ln2"])
+        return Block(norm(bt["ln1"]), attention(bt["attn"]), ln2, **ffn)
+
+    def biased_attention(d):        # Whisper's: every projection has a bias
+        return Attention(*(lin(d[n], bias=True) for n in ("wq", "wk", "wv", "wo")))
 
     def mamba_block(bt):
         return MambaBlock(norm(bt["ln"]), module(bt["mix"], Mamba2))
 
     embed = Embed(put(tree["embed"]["emb"]))
-    if cfg.family == "hybrid":
+    if cfg.family == "encdec":
+        try:
+            enc = [EncBlock(norm(bt["ln1"], True), biased_attention(bt["attn"]),
+                            norm(bt["ln2"], True), mlp(bt["mlp"], "gelu", bias=True))
+                   for bt in stack("enc_blocks", cfg.n_enc_layers)]
+            dec = [DecBlock(norm(bt["ln1"], True), biased_attention(bt["self"]),
+                            norm(bt["ln2"], True), biased_attention(bt["cross"]),
+                            norm(bt["ln3"], True), mlp(bt["mlp"], "gelu", bias=True))
+                   for bt in stack("dec_blocks", cfg.n_layers)]
+            model = Whisper(embed, put(tree["dec_pos"]), enc, norm(tree["enc_ln"], True), dec,
+                            norm(tree["dec_ln"], True))
+        except KeyError as e:
+            fail(f"no {e}")
+    elif cfg.family == "hybrid":
         g, m, t = cfg.n_attn_groups, cfg.mamba_per_group, cfg.trailing_mamba
         try:
             sh = tree["shared"]
             shared = SharedBlock(norm(sh["ln1"]), attention(sh["attn"]), norm(sh["ln2"]),
-                                 MLP("swiglu", **{k: lin(v) for k, v in sh["mlp"].items()}),
+                                 mlp(sh["mlp"], "swiglu"),
                                  lin(sh["out"]))
             lora = [LoRASet(*(LoRA(put(lt[n]["a"]), put(lt[n]["b"])) for n in "qkv"))
                     for lt in stack("lora", g)]
@@ -154,6 +183,7 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Decoder | RWKV
         model = RWKV(embed, norm(tree["ln0"]), blocks, norm(tree["ln_f"]),
                      Embed(put(tree["unembed"]["emb"])))
     else:
+        check_family(cfg)
         n_dense = cfg.first_dense if cfg.moe else 0
         try:
             blocks = [block(bt, cfg.moe) for bt in stack("blocks", cfg.n_layers - n_dense)]

@@ -1,19 +1,22 @@
-"""Decoder-only LM assembly: the dense and MoE families.
+"""Decoder-only LM assembly: the dense, MoE and VLM families.
 
-The counterpart of `repro.models.transformer` for ``family="dense"`` and
-``family="moe"``: blocks are `nn.Module`s in an `nn.ModuleList` walked by
-a Python loop (the counterpart of `repro`'s ``lax.scan`` over a stacked
-``[L, ...]`` layer axis; `repro_torch.models.convert` splits that axis). A
-block's attention is GQA (`attention.Attention`) or DeepSeek-V2's MLA
-(`mla.MLA`), its FFN an `MLP` or an `MoE`; ``cfg.first_dense`` leading
+The counterpart of `repro.models.transformer` for ``family="dense"``,
+``"moe"`` and ``"vlm"``: blocks are `nn.Module`s in an `nn.ModuleList`
+walked by a Python loop (the counterpart of `repro`'s ``lax.scan`` over a
+stacked ``[L, ...]`` layer axis; `repro_torch.models.convert` splits that
+axis). A block's attention is GQA (`attention.Attention`) or DeepSeek-V2's
+MLA (`mla.MLA`), its FFN an `MLP` or an `MoE`; ``cfg.first_dense`` leading
 layers of an MoE config (DeepSeek-V2's dense layer 0) form a second stack,
 ``dense_blocks``, walked before ``blocks``. A sliding-window config keeps a
-ring buffer of the window's width as its cache. The Mamba2 hybrid is
-`repro_torch.models.zamba`. Not ported yet, each raising
-`NotImplementedError`: the VLM frontend, the encoder-decoder family and
-the parallel attention/MLP block (ROADMAP queue 1 item 13).
-`repro`'s ``maybe_gather_hidden`` / ``maybe_shard_hidden`` are the
-identity on one device and have no counterpart.
+ring buffer of the window's width as its cache. A parallel block (Cohere's
+``parallel_block``) feeds one ``ln1`` to attention and FFN alike, has no
+``ln2``, and returns ``h + attn + ffn``. A VLM puts its stub patch
+embeddings (``frontend`` [B, n_patches, d]) before the token embeddings;
+positions count the patches, so the cache holds them and decode starts at
+n_patches + P. The Mamba2 hybrid is `repro_torch.models.zamba`, the
+encoder-decoder `repro_torch.models.whisper`. `repro`'s
+``maybe_gather_hidden`` / ``maybe_shard_hidden`` are the identity on one
+device and have no counterpart.
 
 Paths:
   decoder_hidden       tokens -> final hidden (the teacher-forced pass)
@@ -33,15 +36,14 @@ from repro_torch.models.mlp import MLP, apply_mlp, init_mlp
 from repro_torch.models.moe import MoE, MoESpec, apply_moe, init_moe
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config this module cannot run."""
-    unported = [(cfg.family not in ("dense", "moe"), f"family={cfg.family!r}"),
-                (cfg.parallel_block, "parallel_block=True")]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet; it comes with ROADMAP "
-                "queue 1 item 13")
+FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise ValueError for a config of another family than this module's."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a decoder family "
+                         f"{FAMILIES}; `repro_torch.models.api` dispatches it")
 
 
 def attn_spec(cfg: ModelConfig) -> attn.AttnSpec:
@@ -74,9 +76,10 @@ def moe_spec(cfg: ModelConfig) -> MoESpec:
 class Block(nn.Module):
     """Pre-norm block: ``h + attn(ln1(h))``, then ``+ ffn(ln2(.))``, where
     ``attn`` is an `Attention` or an `MLA` and the FFN is ``mlp`` (an
-    `MLP`) or ``moe`` (an `MoE`)."""
+    `MLP`) or ``moe`` (an `MoE`); a parallel block has no ``ln2`` and
+    returns ``h + attn(a) + ffn(a)``, a = ln1(h)."""
 
-    def __init__(self, ln1: Norm, attn_: nn.Module, ln2: Norm, mlp: MLP | None = None,
+    def __init__(self, ln1: Norm, attn_: nn.Module, ln2: Norm | None, mlp: MLP | None = None,
                  moe: MoE | None = None):
         super().__init__()
         if (mlp is None) == (moe is None):
@@ -91,7 +94,8 @@ def _init_block(cfg: ModelConfig, moe_layer: bool, gen: torch.Generator) -> Bloc
         attn_ = mla_mod.init_mla(gen, mla_spec(cfg), cfg.pdt)
     else:
         attn_ = attn.init_attention(gen, attn_spec(cfg), cfg.pdt)
-    ln2 = norm_init(cfg.d_model, cfg.pdt, dev, kind=cfg.norm, bias=cfg.norm_bias)
+    ln2 = (None if cfg.parallel_block else
+           norm_init(cfg.d_model, cfg.pdt, dev, kind=cfg.norm, bias=cfg.norm_bias))
     if moe_layer:
         return Block(ln1, attn_, ln2, moe=init_moe(gen, moe_spec(cfg), cfg.pdt))
     return Block(ln1, attn_, ln2,
@@ -117,8 +121,11 @@ def _apply_block(cfg: ModelConfig, p: Block, h, positions, *, return_kv=False):
     else:
         out = attn.apply_attention(p.attn, attn_spec(cfg), a, positions, return_kv=return_kv)
     attn_out, kv = out if return_kv else (out, None)
-    h = h + attn_out
-    h = h + _ffn(cfg, p, _norm(cfg, p.ln2, h))
+    if cfg.parallel_block:
+        h = h + attn_out + _ffn(cfg, p, a)
+    else:
+        h = h + attn_out
+        h = h + _ffn(cfg, p, _norm(cfg, p.ln2, h))
     return (h, kv) if return_kv else h
 
 
@@ -131,6 +138,8 @@ def _decode_block(cfg: ModelConfig, p: Block, h1, cache_a, cache_b, pos):
     else:
         attn_out, _, _ = attn.decode_self_attention(p.attn, attn_spec(cfg), a, cache_a,
                                                     cache_b, pos)
+    if cfg.parallel_block:
+        return h1 + attn_out + _ffn(cfg, p, a)
     h1 = h1 + attn_out
     return h1 + _ffn(cfg, p, _norm(cfg, p.ln2, h1))
 
@@ -165,7 +174,7 @@ def _n_dense(cfg: ModelConfig) -> int:
 
 def init_decoder(cfg: ModelConfig, gen: torch.Generator) -> Decoder:
     """Random parameters on the generator's device, drawn in a fixed order."""
-    check_ported(cfg)
+    check_family(cfg)
     n_dense = _n_dense(cfg)
     embed = embed_init(gen, cfg.vocab, cfg.d_model, cfg.pdt)
     ln_f = norm_init(cfg.d_model, cfg.pdt, gen.device, kind=cfg.norm,
@@ -184,13 +193,23 @@ def _embed_tokens(cfg: ModelConfig, model: Decoder, tokens) -> torch.Tensor:
     return model.embed.emb[tokens.long()].to(cfg.cdt)
 
 
+def _embed_inputs(cfg: ModelConfig, model: Decoder, tokens, frontend) -> torch.Tensor:
+    """[B, S(+n_patches), d]: a VLM's patch embeddings, then the tokens'."""
+    h = _embed_tokens(cfg, model, tokens)
+    if cfg.family != "vlm":
+        return h
+    if frontend is None:
+        raise ValueError(f"{cfg.name}: a VLM needs its patch embeddings (frontend)")
+    return torch.cat([frontend.to(cfg.cdt), h], dim=1)
+
+
 def _logits(cfg: ModelConfig, model: Decoder, h: torch.Tensor) -> torch.Tensor:
     return (h @ _out_emb(cfg, model).T).float() * cfg.logit_scale
 
 
-def decoder_hidden(model: Decoder, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """tokens [B,S] -> final hidden [B, S, d]."""
-    h = _embed_tokens(cfg, model, tokens)
+def decoder_hidden(model: Decoder, cfg: ModelConfig, tokens, frontend=None) -> torch.Tensor:
+    """tokens [B,S] -> final hidden [B, S(+n_patches), d]."""
+    h = _embed_inputs(cfg, model, tokens, frontend)
     positions = torch.arange(h.shape[1], device=h.device)
     for _, stack in model.stacks():
         for blk in stack:
@@ -207,7 +226,7 @@ def decoder_init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict
     dtype: GQA's (k, v) [L, B, Hkv, S, D] (S = the window for a
     sliding-window config shorter than ``s_max``: a ring buffer), or MLA's
     (c_kv [L, B, S, R], k_pe [L, B, S, d_rope])."""
-    check_ported(cfg)
+    check_family(cfg)
     n_dense = _n_dense(cfg)
     if cfg.attn_kind == "mla":
         shapes = ((batch, s_max, cfg.kv_lora_rank), (batch, s_max, cfg.mla_d_rope))
@@ -245,10 +264,10 @@ def _write_prefill(cfg: ModelConfig, cache_pair, layer: int, kv, s: int) -> None
         cv[layer, :, :, :s] = v
 
 
-def decoder_prefill(model: Decoder, cfg: ModelConfig, tokens, cache: dict):
-    """Run the prompt, fill the cache in place, return (last-position logits
-    [B, V] f32, cache)."""
-    h = _embed_tokens(cfg, model, tokens)
+def decoder_prefill(model: Decoder, cfg: ModelConfig, tokens, cache: dict, frontend=None):
+    """Run the prompt (after a VLM's patches), fill the cache in place,
+    return (last-position logits [B, V] f32, cache)."""
+    h = _embed_inputs(cfg, model, tokens, frontend)
     s_tot = h.shape[1]
     positions = torch.arange(s_tot, device=h.device)
     for key, stack in model.stacks():

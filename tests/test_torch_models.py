@@ -74,14 +74,19 @@ def test_config_and_reduced_match_repro(arch, overrides):
         assert ours.pdt == getattr(torch, theirs.pdt.name)
 
 
-def test_registry_knows_every_arch_and_refuses_the_unported():
+def test_registry_knows_every_arch_and_refuses_the_unported(monkeypatch):
+    """Every arch of `repro` is ported (``UNPORTED`` is empty since ROADMAP
+    queue 1 item 13 closed); an arch entered there still raises naming its
+    item."""
     assert set(registry.ARCHS) == set(jregistry.ARCHS)
+    assert registry.UNPORTED == {}
     for arch in registry.ARCHS:
-        if arch in registry.UNPORTED:
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-                registry.get_config(arch)
-        else:
-            assert registry.get_config(arch).family in ("dense", "moe", "ssm", "hybrid")
+        assert registry.get_config(arch).family in ("dense", "moe", "ssm", "hybrid", "vlm",
+                                                    "encdec")
+    monkeypatch.setitem(registry.UNPORTED, "whisper-base",
+                        ("the encoder-decoder family", "queue 1 item 13"))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+        registry.get_config("whisper-base")
     with pytest.raises(KeyError):
         registry.get_config("gpt-5")
 
@@ -303,6 +308,9 @@ def test_serve_entry_points_default_to_cuda(monkeypatch):
           capacity_factor=4.0), "item 13"),
     (dict(attn_kind="mla", kv_lora_rank=16, mla_d_nope=8, mla_d_rope=8, mla_d_v=16),
      "item 13"),
+    # the VLM frontend and the parallel block were ported with item 13's
+    # last bullets: these cases now build internvl2-1b's reduced config and
+    # a parallel-block tinyllama and serve them
     (dict(family="vlm"), "item 13"),
     (dict(parallel_block=True), "item 13"),
     # the Mamba2 hybrid was ported with item 13's third bullet: this case
@@ -310,54 +318,58 @@ def test_serve_entry_points_default_to_cuda(monkeypatch):
     (dict(family="hybrid"), "item 13"),
 ])
 def test_unported_model_features_raise(overrides, item):
-    """The features item 13 has not ported yet raise naming it; MoE FFNs
-    (with their leading dense stack) and MLA attention build, and a prefill
-    and a decode step through them give finite logits, as through the
-    hybrid (zamba2-7b reduced)."""
+    """Every feature item 13 named is ported: MoE FFNs (with their leading
+    dense stack), MLA attention, a VLM's patches, the parallel block and
+    the hybrid (zamba2-7b reduced) build, and a prefill and a decode step
+    through them give finite logits."""
     cfg = dataclasses.replace(registry.get_config("tinyllama-1.1b").reduced(), **overrides)
+    batch = {"tokens": torch.ones((2, 8), dtype=torch.int32)}
     if cfg.family == "hybrid":
         cfg = registry.get_config("zamba2-7b").reduced()
-        model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    if cfg.family == "vlm":
+        cfg = registry.get_config("internvl2-1b").reduced()
+        batch["frontend"] = torch.randn((2, cfg.n_patches, cfg.d_model),
+                                        generator=torch.Generator().manual_seed(1))
+    model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    if cfg.family == "hybrid":
         assert [len(group) for group in model.mamba] == [2, 2] and len(model.trailing) == 1
-        cache = init_cache(cfg, 2, 12, "cpu")
-        logits, cache = lm_prefill(model, cfg, cache, {"tokens": torch.ones((2, 8), dtype=torch.int32)})
-        logits, cache = lm_decode_step(model, cfg, cache, logits.argmax(-1).int())
-        assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
-        return
-    if cfg.moe or cfg.attn_kind == "mla":
-        model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    else:
         assert len(model.dense_blocks) == (1 if cfg.moe else 0)
         assert all((blk.moe is not None) == cfg.moe for blk in model.blocks)
+        assert all((blk.ln2 is None) == cfg.parallel_block for blk in model.blocks)
         assert all(type(blk.attn).__name__ == ("MLA" if cfg.attn_kind == "mla" else "Attention")
                    for blk in model.blocks)
-        cache = init_cache(cfg, 2, 12, "cpu")
-        logits, cache = lm_prefill(model, cfg, cache, {"tokens": torch.ones((2, 8), dtype=torch.int32)})
-        logits, cache = lm_decode_step(model, cfg, cache, logits.argmax(-1).int())
-        assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        init_lm(cfg, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        init_cache(cfg, 1, 8, "cpu")
+    cache = init_cache(cfg, 2, cfg.n_patches + 12, "cpu")
+    logits, cache = lm_prefill(model, cfg, cache, batch)
+    assert int(cache["pos"][0]) == cfg.n_patches + 8
+    logits, cache = lm_decode_step(model, cfg, cache, logits.argmax(-1).int())
+    assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
 
 
-def test_serve_cli_refuses_checkpoints_and_unported_archs(tmp_path):
+def test_serve_cli_refuses_checkpoints_and_unported_archs(tmp_path, monkeypatch, capsys):
     """``--ckpt-dir`` restores parameters (tests/test_torch_checkpoint.py);
     a checkpoint that holds no parameters (here a partitioner's) is
-    refused, as an unported arch is."""
+    refused, as an arch entered in ``UNPORTED`` is; whisper-base, the last
+    arch item 13 ported, serves."""
     from repro.checkpoint import save_checkpoint as jax_save_checkpoint
 
     jax_save_checkpoint(str(tmp_path), 1, {"labels": np.zeros(8, np.int32)})
     with pytest.raises(ValueError, match="holds no params tree"):
         serve_cli.main(["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
                         "--ckpt-dir", str(tmp_path)])
+    res = serve_cli.main(["--arch", "whisper-base", "--reduced", "--device", "cpu",
+                          "--batch", "2", "--prompt-len", "4", "--max-new", "3"])
+    assert res.tokens.shape == (2, 3) and "generated 6 tokens" in capsys.readouterr().out
+    monkeypatch.setitem(registry.UNPORTED, "whisper-base",
+                        ("the encoder-decoder family", "queue 1 item 13"))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
         serve_cli.main(["--arch", "whisper-base", "--reduced", "--device", "cpu"])
 
 
 def test_serving_on_the_cpu_builds_and_loads_nothing():
     """Import every module of the LM paths and serve the dense (a
-    sliding-window one too), the RWKV and the hybrid family on the CPU,
+    sliding-window and a parallel-block one too), the RWKV, the hybrid, the
+    VLM and the encoder-decoder family on the CPU,
     with the compiler and the library loader made to fail: neither may be
     reached, and no kernel launch is counted."""
     code = textwrap.dedent("""
@@ -369,7 +381,8 @@ def test_serving_on_the_cpu_builds_and_loads_nothing():
         ctypes.CDLL = boom
         from repro_torch.kernels import _build, ops
         from repro_torch.launch import serve
-        for arch in ("tinyllama-1.1b", "rwkv6-3b", "h2o-danube-3-4b", "zamba2-7b"):
+        for arch in ("tinyllama-1.1b", "rwkv6-3b", "h2o-danube-3-4b", "zamba2-7b",
+                     "command-r-plus-104b", "internvl2-1b", "whisper-base"):
             serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                         "--batch", "1", "--prompt-len", "4", "--max-new", "2"])
         assert _build._libs == {}

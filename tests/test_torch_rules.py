@@ -234,7 +234,7 @@ def test_static_baselines_match_reference(cliques, name):
     ours = {"hash": hash_partition, "range": range_partition}[name]
     ref = {"hash": jax_hash, "range": jax_range}[name]
     for n, k in ((96, 4), (1001, 7), (3_000_000, 8)):
-        np.testing.assert_array_equal(ours(n, k).numpy(), np.asarray(ref(n, k)))
+        np.testing.assert_array_equal(ours(n, k, device="cpu").numpy(), np.asarray(ref(n, k)))
     g = load_dataset("WIKI", scale=0.0005)
     r = run_partitioner(name, g, RK, device="cpu")
     want = jax_run_partitioner(name, jax_load_dataset("WIKI", scale=0.0005), RK)
@@ -243,6 +243,17 @@ def test_static_baselines_match_reference(cliques, name):
     assert r.local_edges == pytest.approx(want.local_edges, abs=1e-6)
     assert r.max_norm_load == pytest.approx(want.max_norm_load, rel=1e-6)
     assert run_partitioner(name, cliques, RK, device="cpu").labels.shape == (cliques.n,)
+
+
+@pytest.mark.parametrize("name", ["hash", "range"])
+def test_static_baselines_default_to_cuda(monkeypatch, name):
+    """Without a device the closed forms go to the card, and raise on a
+    host without CUDA, as every entry point of the port does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ours = {"hash": hash_partition, "range": range_partition}[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ours(96, 4)
+    assert ours(96, 4, device="cpu").device.type == "cpu"
 
 
 def test_static_and_stateless_arguments_raise(cliques):
