@@ -82,8 +82,36 @@ failure raises and the script exits non-zero without printing a result:
               argmax equal on every row whose top-two gap exceeds one bf16
               ulp of its top logit), then with f32 weights and activations
               (relative L2 < 1e-3, greedy argmax equal on every row)
-  7d. deepseek  (in the host build's wait, after the side legs of phases
-              16, 17, 17h and 11e) deepseek-v2-lite-16b at full width and
+  7c. train  (in the host build's wait, after the side legs of phases
+              16, 17, 17h and 11e) every launch counter set to 0 first;
+              (a) each of the ten archs reduced, f32 (TF32 off): `lm_loss`
+              and every gradient leaf on the card against the port on the
+              CPU from one set of weights (redrawn as in phase 4) and one
+              batch of the data pipeline (loss to 1e-5 relative, each leaf
+              within 1e-4 of its L2 norm, a leaf zero up to rounding below
+              1e-6 of the global norm on both), a second backward on the
+              card bit-equal, one train step at microbatch 2 against 1
+              (loss and grad norm to 1e-5 relative, the first moments leaf
+              by leaf as the gradients); the
+              Trainer on reduced tinyllama (GQA) with a failure injected at
+              step 4 resumes to a state and losses bit-equal to an
+              uninterrupted run's; (b) tinyllama-1.1b at full width and
+              depth (22 layers, d 2048, vocab 32000), bf16 parameters,
+              remat, batch 8 x 512 tokens, 4 steps at lr 1e-3 through
+              ``launch/train.py``'s `main` with a temporary checkpoint
+              directory (a checkpoint at step 4): every loss finite, the
+              first within 5 % of ln 32000, the last below the first; the
+              checkpoint's parameters read back bit-equal; a second run
+              from the seed bit-equal; the median step time of steps 2-4, tokens/s, the
+              model-FLOP share (6 N tokens over the step time and 989
+              TFLOP/s), peak memory, the train state's bytes, one more
+              step profiled (busy share, kernels), the checkpoint's save
+              and restore seconds; no kernel launched in (a) or (b); (c)
+              ``launch/serve.py --ckpt-dir`` on that checkpoint (batch 8,
+              1024-token prompts, 16 new tokens, greedy: K4 22, K5 330)
+              gives the tokens of an ``Engine`` on the trainer's
+              parameters in memory; the directory removed in any case
+  7d. deepseek  (in the same wait, after 7c) deepseek-v2-lite-16b at full width and
               depth (27 layers, 64 routed experts top-6 + 2 shared, MLA),
               bf16, random weights from seed 0: 15,706,484,224 parameters
               (`repro`'s count); prefill(1024) + decode(token 1025) against
@@ -194,14 +222,15 @@ failure raises and the script exits non-zero without printing a result:
  11c. stream  (run after phase 15, as 11d: the card idles through their
               host work, after which torch.profiler loses the kernel events
               of short windows, which phases 13 and 15 count)
-              ``StreamRunner`` on phase 8's graph: Revolver over 8 insertion
-              deltas in random arrival order (k=8, 15 supersteps and
-              patience 3 a delta, warm_sharpen 0.5), every launch counter
-              set to 0 just before each delta and read just after (K1 and
-              K2 8 times a superstep, nothing else); after the last
-              insertion the incremental layout equals the batch layout
-              (each slab's live prefix, blk_row_ptr, blk_spans); then a
-              delta deleting 1 % of the directed edges; local_edges > 0.5
+              ``StreamRunner`` on phase 8's graph: Revolver over the
+              first 4 of 8 insertion deltas (cut from all 8 for time) in
+              random arrival order (k=8, 15 supersteps and patience 3 a
+              delta, warm_sharpen 0.5), every launch counter set to 0 just
+              before each delta and read just after (K1 and K2 8 times a
+              superstep, nothing else); after the last insertion the
+              incremental layout equals the batch layout of the graph the
+              deltas make (each slab's live prefix, blk_row_ptr,
+              blk_spans); then a delta deleting 1 % of its directed edges; local_edges > 0.5
               and max_norm_load <= 1.30 after both; then Spinner and
               restream over the first of those deltas each (K3 once a
               Spinner and 8 times a restream superstep, nothing else; the
@@ -282,7 +311,9 @@ failure raises and the script exits non-zero without printing a result:
               or kv_len mask); their launches are phases 7e's and 7f's;
               then K4 and K5 at the shapes of phases 7g-7i (whisper-base's
               encoder [8,8,1500,64] and cross prefill [8,8,64|1500,64]
-              without a mask, its cross decode on the 1500-row cache;
+              without a mask, its cross decode on the 1500-row cache, its
+              causal self prefill [8,8,64,64] and self decode on the
+              448-row cache at kv_len 256;
               internvl2-1b's group 7 and command-r-plus-104b's group 12 at
               D 128, prefill and decode) the same way, each with its
               launches at that shape in phases 7g-7i
@@ -484,6 +515,18 @@ COHERE = "command-r-plus-104b"
 COHERE_LAYERS = 8
 COHERE_PARAMS = 15_728_750_592          # at 8 layers
 COHERE_FULL_PARAMS = 103_809_822_720    # at its 64
+# the train phase: reduced legs of every arch, f32 (TF32 off), card against
+# the CPU; then tinyllama-1.1b at full width and depth through the CLI
+# phase 11c: Revolver streams the first 4 of WIKI's 8 insertion deltas, then
+# the deleting delta (cut from all 8 for time: deltas 5-8 ran 4-8
+# supersteps each behind 16-22 s host merges on an H100 host)
+STREAM_INSERTS = 4
+TRAIN_LOSS_RTOL = 1e-5        # card vs CPU loss
+TRAIN_LEAF_TOL = 1e-4         # each gradient leaf within this of its L2 norm
+TRAIN_ZERO_TOL = 1e-6         # a leaf zero up to rounding: below this x the global norm
+TRAIN_MB_RTOL = 1e-5          # microbatch 2 against 1: loss and grad norm
+TRAIN_FULL = dict(arch="tinyllama-1.1b", batch=8, seq=512, steps=4, lr=1e-3)
+TRAIN_SERVE = dict(batch=8, prompt=1024, new=16)
 # the golden-worker graph of the JAX package's tests
 PARITY_GRAPH = dict(n=1024, m=8192, n_comm=16, mixing=0.25,
                     degree_exponent=0.5, seed=3)
@@ -1097,18 +1140,37 @@ def stream_delta(torch, ops, runner, delta, per_step: dict, what: str) -> dict:
             "refine_s": refine_s, "supersteps_per_s": rep.steps / refine_s, "launches": counts}
 
 
-def check_stream_layout(torch, np, g, dg) -> dict:
-    """The incremental layout after the last insertion delta against a
-    batch layout of the same graph: each slab's live prefix equals
-    `block_edges`' (the tails zero), and `blk_row_ptr` and `blk_spans`
-    equal those `slab_row_ptr` and `SpanPlan.from_row_ptr` derive."""
-    from repro_torch.core.device_graph import SpanPlan
+def stream_reference_layout(np, g, seed: int) -> dict:
+    """The batch layout phase 11c's incremental layout is held against:
+    the graph its first `STREAM_INSERTS` insertion deltas make, built anew
+    (``build_graph``), its `block_edges` at the stream's block width (8
+    blocks, a multiple of 8 rows) and their `slab_row_ptr`. Numpy only; the
+    host worker builds it."""
     from repro_torch.graphs.blocking import block_edges, slab_row_ptr
+    from repro_torch.graphs.csr import build_graph
+    from repro_torch.streaming import stream_from_graph
 
-    be = block_edges(g, block_v=dg.block_v)
-    require((be.n_blocks, dg.m, dg.n) == (dg.n_blocks, g.m, g.n),
+    deltas = list(itertools.islice(stream_from_graph(g, 8, seed=seed), STREAM_INSERTS))
+    g_in = build_graph(np.concatenate([d.add_src for d in deltas]),
+                       np.concatenate([d.add_dst for d in deltas]), g.n)
+    block_v = -(-(-(-g.n // N_BLOCKS)) // 8) * 8
+    be = block_edges(g_in, block_v=block_v)
+    return {"n": g_in.n, "m": g_in.m, "be": be,
+            "ptr": slab_row_ptr(be.edge_row, be.edge_w, be.block_v)}
+
+
+def check_stream_layout(torch, np, ref: dict, dg) -> dict:
+    """The incremental layout after the last insertion delta against the
+    batch layout of the same graph (`stream_reference_layout`): each slab's
+    live prefix equals `block_edges`' (the tails zero), and `blk_row_ptr`
+    and `blk_spans` equal those `slab_row_ptr` and `SpanPlan.from_row_ptr`
+    derive."""
+    from repro_torch.core.device_graph import SpanPlan
+
+    be, ptr = ref["be"], ref["ptr"]
+    require((be.n_blocks, be.block_v, dg.m, dg.n) == (dg.n_blocks, dg.block_v, ref["m"],
+                                                      ref["n"]),
             "stream layout: block count or graph size differs from the batch layout")
-    ptr = slab_row_ptr(be.edge_row, be.edge_w, be.block_v)
     require(np.array_equal(dg.blk_row_ptr.cpu().numpy(), ptr),
             "stream layout: blk_row_ptr differs from the batch layout's")
     plan = SpanPlan.from_row_ptr(ptr, "cpu")
@@ -1126,16 +1188,16 @@ def check_stream_layout(torch, np, g, dg) -> dict:
             "spans": int(plan.spans.shape[1]), "hub_rows": int(plan.hubs.shape[1])}
 
 
-def stream_phase(torch, np, ops, g, flat: dict) -> dict:
+def stream_phase(torch, np, ops, g, flat: dict, host=None) -> dict:
     """Phase 11c: `StreamRunner` on full WIKI through the entry point a
-    user calls. Revolver over 8 insertion deltas in random arrival order
-    (the settings of benchmarks/streaming_bench.py), the incremental layout
-    then held against the batch layout, then a delta deleting 1 % of the
-    directed edges; then Spinner and restream over the first of the 8
-    deltas each. K1 and K2 launch 8 times a Revolver superstep, K3 once a
-    Spinner and 8 times a restream superstep, nothing else. Returns the
-    phase's rows."""
-    from repro_torch.graphs.generators import edge_split
+    user calls. Revolver over the first `STREAM_INSERTS` of 8 insertion
+    deltas in random arrival order (the settings of
+    benchmarks/streaming_bench.py), the incremental layout then held
+    against the batch layout of the graph they make (from the ``host``
+    worker, else built here), then a delta deleting 1 % of its directed
+    edges; then Spinner and restream over the first of the 8 deltas each.
+    K1 and K2 launch 8 times a Revolver superstep, K3 once a Spinner and 8
+    times a restream superstep, nothing else. Returns the phase's rows."""
     from repro_torch.streaming import EdgeDelta, StreamConfig, StreamRunner, stream_from_graph
 
     t0 = time.perf_counter()
@@ -1143,17 +1205,25 @@ def stream_phase(torch, np, ops, g, flat: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     runner = StreamRunner(g.n, StreamConfig(**settings, warm_sharpen=0.5), seed=SEED)
     per_step = {n: N_BLOCKS for n in PARTITIONER_KERNELS}
-    rows = [stream_delta(torch, ops, runner, d, per_step, "revolver stream")
-            for d in stream_from_graph(g, 8, seed=SEED)]
+    deltas = list(itertools.islice(stream_from_graph(g, 8, seed=SEED), STREAM_INSERTS))
+    rows = [stream_delta(torch, ops, runner, d, per_step, "revolver stream") for d in deltas]
     inserted = rows[-1]
-    layout = check_stream_layout(torch, np, g, runner.idg.device_graph)
-    src, dst = edge_split(g)
-    gone = np.random.default_rng(1).choice(g.m, g.m // 100, replace=False)
+    src = np.concatenate([d.add_src for d in deltas])
+    dst = np.concatenate([d.add_dst for d in deltas])
+    t = time.perf_counter()
+    ref, ref_s = (host.stream_layout() if host is not None
+                  else (stream_reference_layout(np, g, SEED), None))
+    require(ref["m"] == src.size == inserted["m"], f"stream: {ref['m']} edges inserted, "
+            f"{src.size} in the deltas, {inserted['m']} in the runner")
+    layout = {**check_stream_layout(torch, np, ref, runner.idg.device_graph),
+              "wait_and_check_s": time.perf_counter() - t, "worker_build_s": ref_s}
+    del ref
+    gone = np.random.default_rng(1).choice(src.size, src.size // 100, replace=False)
     empty = np.empty(0, np.int32)
     rows.append(stream_delta(torch, ops, runner,
                              EdgeDelta(empty, empty, src[gone], dst[gone]), per_step,
                              "revolver stream"))
-    require(rows[-1]["deleted"] == gone.size and rows[-1]["m"] == g.m - gone.size,
+    require(rows[-1]["deleted"] == gone.size and rows[-1]["m"] == src.size - gone.size,
             f"deletion delta removed {rows[-1]['deleted']} of {gone.size} edges")
     for row in (inserted, rows[-1]):
         require(row["local_edges"] > 0.5, f"stream local_edges {row['local_edges']} <= 0.5")
@@ -3579,6 +3649,316 @@ def serve_leg(torch, ops, arch: str, serve: dict, n_params_want: int, **changes)
     return {"full": full, "serve": row, "serve_profile": prof}, counts, row["attention_shapes"]
 
 
+# --------------------------------------------------------------------------
+# the train phase
+# --------------------------------------------------------------------------
+def train_batch(torch, cfg, b: int, s: int, seed: int, device, mask: bool = True) -> dict:
+    """A batch of the port's data pipeline (tokens, labels with row 0's
+    first 5 masked unless not ``mask``, a VLM's or Whisper's stub frontend)
+    on ``device``."""
+    from repro_torch.data import DataConfig, make_batch
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=s, batch_per_host=b, seed=seed, v_eff=cfg.vocab,
+                      frontend=((cfg.n_patches or cfg.enc_seq, cfg.d_model)
+                                if cfg.family in ("vlm", "encdec") else None))
+    batch = make_batch(data, 0)
+    if mask:
+        batch["labels"][0, :5] = -100
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def lm_grads(torch, cfg, model, batch) -> tuple[float, dict]:
+    """(the loss, {name: gradient}) of `lm_loss` through autograd."""
+    from repro_torch.models import lm_loss
+
+    names, params = zip(*model.named_parameters())
+    loss, _ = lm_loss(model, cfg, batch)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return float(loss.detach()), {n: torch.zeros_like(p) if g is None else g
+                                  for n, p, g in zip(names, params, grads)}
+
+
+def grads_agree(torch, got: dict, want: dict, what: str) -> tuple[float, int]:
+    """Each leaf of ``got`` within `TRAIN_LEAF_TOL` of the L2 norm of
+    ``want``'s (max abs error); a leaf of ``want`` zero up to rounding
+    (below `TRAIN_ZERO_TOL` of the global norm: Whisper's key biases, to
+    which the row softmax is blind) is held to that on both sides.
+    Returns (the worst error over its norm, the zero leaves)."""
+    gnorm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in want.values())))
+    worst, zero = 0.0, 0
+    for name, w in want.items():
+        g, w = got[name].detach().cpu(), w.detach().cpu()
+        wn = float(w.norm())
+        if wn < TRAIN_ZERO_TOL * gnorm:
+            zero += 1
+            require(float(g.norm()) < TRAIN_ZERO_TOL * gnorm,
+                    f"{what} {name}: norm {float(g.norm())} where it is 0 up to rounding")
+            continue
+        rel = float((g - w).abs().max()) / wn
+        require(rel <= TRAIN_LEAF_TOL, f"{what} {name}: max abs err {rel} x its norm")
+        worst = max(worst, rel)
+    return worst, zero
+
+
+def reduced_train_leg(torch, arch: str, b: int = 4, s: int = 32) -> dict:
+    """Leg (a) for ``arch``, reduced, f32: `lm_loss` and every gradient
+    leaf on the card against the port on the CPU from one set of weights
+    (redrawn by `randomize_params`) and one batch; a second backward on the
+    card bit-equal to the first; one train step at microbatch 2 against
+    microbatch 1 (loss and grad norm to `TRAIN_MB_RTOL`, the first moments,
+    which hold the step's gradients, leaf by leaf as the gradients)."""
+    import copy
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import make_train_step, train_state
+
+    t = time.perf_counter()
+    cfg = get_config(arch).reduced()
+    cpu = init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    randomize_params(torch, cpu, SEED + 9)
+    card = copy.deepcopy(cpu).to("cuda")
+    cpu.requires_grad_(True)
+    card.requires_grad_(True)
+    batch = train_batch(torch, cfg, b, s, SEED + 2, "cpu")
+    cbatch = {k: v.cuda() for k, v in batch.items()}
+    loss_c, grads_c = lm_grads(torch, cfg, cpu, batch)
+    loss_g, grads_g = lm_grads(torch, cfg, card, cbatch)
+    loss_g2, grads_g2 = lm_grads(torch, cfg, card, cbatch)
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    require(loss_rel < TRAIN_LOSS_RTOL, f"{arch} reduced train loss: card {loss_g} CPU {loss_c}")
+    worst, zero_leaves = grads_agree(torch, grads_g, grads_c, f"{arch} reduced grad")
+    differ = {n: max_err(torch, grads_g2[n], g) for n, g in grads_g.items()
+              if not torch.equal(grads_g2[n], g)}
+    require(not differ and loss_g2 == loss_g,
+            f"{arch}: two backward passes on the card differ: {differ}")
+    del grads_c, grads_g, grads_g2
+    # no label masked here: `repro`'s microbatch loss is the mean of the
+    # microbatches' means, the whole batch's mean only where each
+    # microbatch counts as many labels
+    mbatch = train_batch(torch, cfg, b, s, SEED + 2, "cuda", mask=False)
+    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=10, eps=1e-6)
+    out = {}
+    for mb in (1, 2):
+        state = train_state(copy.deepcopy(card))
+        state, metrics = make_train_step(cfg, opt, microbatch=mb)(state, mbatch)
+        out[mb] = ({k: float(v) for k, v in metrics.items()}, state["opt"]["m"])
+    for key in ("loss", "grad_norm"):
+        rel = abs(out[2][0][key] - out[1][0][key]) / abs(out[1][0][key])
+        require(rel <= TRAIN_MB_RTOL, f"{arch}: microbatch 2 {key} {out[2][0][key]} vs "
+                f"{out[1][0][key]}")
+    mb_err, _ = grads_agree(torch, out[2][1], out[1][1], f"{arch} microbatch 2 first moment")
+    return {"arch": arch, "loss": loss_g, "loss_rel_err": loss_rel,
+            "worst_leaf_err_over_norm": worst, "zero_leaves": zero_leaves,
+            "leaves": len(out[1][1]), "backward_bit_equal": True,
+            "microbatch2_loss": out[2][0]["loss"], "microbatch2_loss_rel_err": abs(
+                out[2][0]["loss"] - out[1][0]["loss"]) / abs(out[1][0]["loss"]),
+            "microbatch2_worst_leaf_err_over_norm": mb_err,
+            "seconds": time.perf_counter() - t}
+
+
+def state_arrays_equal(torch, a: dict, b: dict) -> bool:
+    """Two train states' parameters, masters, moments and count bit-equal."""
+    pa, pb = dict(a["params"].named_parameters()), dict(b["params"].named_parameters())
+    same = all(torch.equal(p, pb[n]) for n, p in pa.items())
+    for key in ("master", "m", "v"):
+        same = same and all(torch.equal(t, b["opt"][key][n]) for n, t in a["opt"][key].items())
+    return same and torch.equal(a["opt"]["count"], b["opt"]["count"])
+
+
+def train_resume_leg(torch) -> dict:
+    """Leg (a)'s resume: the port's Trainer on the card (reduced tinyllama
+    with GQA, checkpoints every 2 steps), a failure injected at step 4 and
+    a new Trainer resuming: the losses and the state bit-equal to an
+    uninterrupted 6-step run's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import SimulatedFailure, Trainer
+    from repro_torch.utils import MetricLogger
+
+    cfg = get_config("tinyllama-1.1b").reduced(**GQA)
+    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    data = DataConfig(vocab=cfg.vocab, seq_len=32, batch_per_host=4, seed=SEED, v_eff=cfg.vocab)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_resume_"))
+    try:
+        def trainer(name, **kw):
+            return Trainer(cfg, opt, data, ckpt_dir=str(work / name), ckpt_every=2,
+                           logger=MetricLogger(stream=io.StringIO()), device="cuda", **kw)
+
+        whole = trainer("a").init_or_resume(SEED)
+        hist = whole.run(6)
+        first = trainer("b", inject_failure_at=4).init_or_resume(SEED)
+        try:
+            first.run(6)
+            require(False, "train resume: the injected failure did not fire")
+        except SimulatedFailure:
+            pass
+        second = trainer("b").init_or_resume(SEED)
+        require(second.step == 4, f"train resume: resumed at step {second.step}, expected 4")
+        tail = second.run(6)
+        require(tail == hist[4:], f"train resume: losses {tail} vs {hist[4:]}")
+        require(state_arrays_equal(torch, second.state, whole.state),
+                "train resume: the resumed state differs from the uninterrupted run's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"config": "tinyllama-1.1b reduced(GQA) f32", "steps": 6, "failed_at": 4,
+            "resumed_at": 4, "losses": hist, "bit_equal": True}
+
+
+def train_full_leg(torch, ops) -> dict:
+    """Legs (b) and (c): tinyllama-1.1b at full width and depth, bf16
+    parameters, remat, ``TRAIN_FULL`` through ``launch/train.py``'s `main`
+    with a temporary checkpoint directory (one checkpoint, at the last
+    step); the losses gated; the checkpoint's parameters read back (the
+    serving restore) bit-equal; a second run from the same seed (the step
+    function alone) bit-equal; one more step profiled. Then ``launch/serve.py --ckpt-dir`` on the checkpoint
+    against an `Engine` on the trainer's parameters in memory: the same
+    greedy tokens. The directory is removed in any case."""
+    import math
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import load_checkpoint_tensors, unflatten
+    from repro_torch.data import make_batch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_lm
+    from repro_torch.models.convert import tree_to_named
+    from repro_torch.serve import Engine, cache_rows
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.utils import tree_bytes, tree_param_count
+
+    f = TRAIN_FULL
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        trainer = train_cli.main([
+            "--arch", f["arch"], "--steps", str(f["steps"]), "--batch", str(f["batch"]),
+            "--seq", str(f["seq"]), "--lr", str(f["lr"]), "--ckpt-dir", str(work),
+            "--ckpt-every", str(f["steps"]), "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        cfg, state = trainer.cfg, trainer.state
+        losses = trainer.losses
+        ln_v = math.log(cfg.vocab)
+        require(all(math.isfinite(x) for x in losses), f"train: non-finite loss {losses}")
+        require(abs(losses[0] - ln_v) <= 0.05 * ln_v,
+                f"train: first loss {losses[0]} not within 5% of ln {cfg.vocab} = {ln_v}")
+        require(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+        n_params = tree_param_count(state["params"])
+        tokens = f["batch"] * f["seq"]
+        step_s = sorted(trainer.step_seconds[1:])[len(trainer.step_seconds[1:]) // 2]
+        param_bytes = tree_bytes(state["params"])
+        opt_bytes = sum(tree_bytes(state["opt"][k]) for k in ("master", "m", "v"))
+        ckpt = dict(trainer.checkpoints[-1])
+        ckpt_bytes = sum(p.stat().st_size for p in work.rglob("*") if p.is_file())
+
+        # the serving restore (what leg (c)'s CLI reads): the parameters
+        # alone, bit-equal to the trainer's
+        t = time.perf_counter()
+        loaded = load_checkpoint_tensors(str(work), f["steps"], "cuda", prefix="params")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        params = tree_to_named(state["params"], unflatten(loaded)["params"])
+        require(all(torch.equal(params[n], p) for n, p in state["params"].named_parameters()),
+                "train: the checkpoint's parameters differ from the trainer's")
+        del loaded, params
+
+        # a second run from the same seed: the step function over the same
+        # batches, bit-equal parameters and masters
+        state2 = init_train_state(cfg, trainer.opt_cfg, SEED, "cuda")
+        step_fn = make_train_step(cfg, trainer.opt_cfg)
+        for i in range(f["steps"]):
+            state2, _ = step_fn(state2, make_batch(trainer.data_cfg, i))
+        require(state_arrays_equal(torch, state2, state),
+                "train: two runs from the same seed differ")
+        batch = make_batch(trainer.data_cfg, f["steps"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state2, _ = step_fn(state2, batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        step_profile = {"wall_ms": wall_us / 1e3, **device_busy(prof, wall_us, 1, "step")}
+        del state2, prof
+        next_model(torch)
+        train_counts = ops.launch_counts()
+
+        # (c) serve from the checkpoint through the CLI, against an Engine
+        # on the trainer's parameters in memory
+        s = TRAIN_SERVE
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        res = serve_cli.main(["--arch", f["arch"], "--ckpt-dir", str(work),
+                              "--batch", str(s["batch"]), "--prompt-len", str(s["prompt"]),
+                              "--max-new", str(s["new"]), "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        serve_counts = ops.launch_counts()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        init_lm(cfg, gen, "cuda")                  # the CLI's draws before its prompts
+        prompts = torch.randint(0, cfg.vocab, (s["batch"], s["prompt"]), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        want = Engine(cfg, state["params"],
+                      s_max=cache_rows(cfg, s["prompt"], s["new"]) + 1).generate(
+                          prompts, max_new=s["new"])
+        require(torch.equal(res.tokens, want.tokens),
+                "train: tokens served from the checkpoint differ from the in-memory model's")
+        require(serve_counts["flash_attention"] == cfg.n_layers
+                and serve_counts["decode_attention"] == cfg.n_layers * (s["new"] - 1),
+                f"train: serving from the checkpoint launched {serve_counts}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {
+        "arch": cfg.name, "params": n_params, "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+        "batch": f["batch"], "seq": f["seq"], "steps": f["steps"], "lr": f["lr"],
+        "losses": losses, "ln_vocab": ln_v, "run_s": run_s,
+        "step_ms": [x * 1e3 for x in trainer.step_seconds],
+        "median_step_ms_2_4": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "model_flop_share": 6 * n_params * tokens / step_s / BF16_FLOPS,
+        "peak_memory_bytes": peak, "param_bytes": param_bytes, "opt_bytes": opt_bytes,
+        "train_state_bytes": param_bytes + opt_bytes,
+        "checkpoint": {**ckpt, "bytes_on_disk": ckpt_bytes, "params_restore_s": restore_s,
+                       "params_restore_bit_equal": True},
+        "two_runs_bit_equal": True, "profiled_step": step_profile,
+        "train_launches": train_counts,
+        "serve_from_checkpoint": {"batch": s["batch"], "prompt": s["prompt"],
+                                  "new_tokens": s["new"], "cli_s": serve_s,
+                                  "launches": serve_counts, "tokens_equal_in_memory": True},
+    }
+
+
+def train_phase(torch, ops) -> tuple[dict, dict]:
+    """The train phase: leg (a) on the ten reduced archs and the resume,
+    leg (b) at full width, leg (c) serving its checkpoint (module
+    docstring). Training launches no K4, K5 or K6 (none of the kernels).
+    Returns (rows, leg (c)'s launches)."""
+    from repro_torch.configs.registry import ARCHS
+
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    reduced = [reduced_train_leg(torch, arch) for arch in sorted(ARCHS)]
+    resume = train_resume_leg(torch)
+    reduced_s = time.perf_counter() - t
+    next_model(torch)
+    full = train_full_leg(torch, ops)
+    counts = full.pop("train_launches")
+    require(all(c == 0 for c in counts.values()), f"training launched kernels: {counts}")
+    return {"reduced": reduced, "resume": resume, "reduced_s": reduced_s, "full": full,
+            "train_launches": counts, "seconds": time.perf_counter() - t}, \
+        full["serve_from_checkpoint"]["launches"]
+
+
 def sass_counts(lib_path) -> dict:
     """Tensor-core instructions in a built kernel library's SASS."""
     from repro_torch.kernels import _build
@@ -3898,6 +4278,8 @@ def encdec_vlm_attention_kernels(torch, flush) -> dict:
     """K4 and K5 at the serving shapes of phases 7g-7i: whisper-base's
     encoder ([8,8,1500,64], no mask), its cross prefill (q [8,8,64,64]
     against 1500 keys, no mask) and cross decode (the full 1500-row cache),
+    its causal self prefill (q = kv = [8,8,64,64]) and self decode (a
+    448-row cache at kv_len 256, mid-generate),
     internvl2-1b's group 7 at D 64 and command-r-plus-104b's group 12 at D
     128 (prefill causal over 1024 positions, decode against 1024 of 1152
     cache rows). Each held against its plain version (every output row
@@ -3922,6 +4304,8 @@ def encdec_vlm_attention_kernels(torch, flush) -> dict:
          "whisper-base encoder"),
         ("flash_attention_whisper_cross", 8, 8, 8, WHISPER_SERVE["prompt"], 1500, 64, False,
          "whisper-base cross prefill"),
+        ("flash_attention_whisper_self", 8, 8, 8, WHISPER_SERVE["prompt"],
+         WHISPER_SERVE["prompt"], 64, True, "whisper-base causal self prefill"),
         ("flash_attention_group7", 8, 14, 2, 1024, 1024, 64, True,
          "internvl2-1b: 256 patches + 768 tokens"),
         ("flash_attention_group12", 8, 96, 8, 1024, 1024, 128, True,
@@ -3945,6 +4329,10 @@ def encdec_vlm_attention_kernels(torch, flush) -> dict:
     k5_cases = [  # name, b, hq, hkv, s_max, kv, d, what
         ("decode_attention_whisper_cross", 8, 8, 8, 1500, 1500, 64,
          "whisper-base cross decode"),
+        # the self cache at mid-generate: 64 prompt + 192 of 384 new tokens
+        ("decode_attention_whisper_self", 8, 8, 8, WHISPER_SERVE["s_max"],
+         WHISPER_SERVE["prompt"] + WHISPER_SERVE["new"] // 2, 64,
+         "whisper-base self decode"),
         ("decode_attention_group7", 8, 14, 2, INTERNVL_SERVE["s_max"], 1024, 64,
          "internvl2-1b"),
         ("decode_attention_group12", 8, 96, 8, SERVE["s_max"], 1024, 128,
@@ -4146,7 +4534,8 @@ def host_worker(conn, seed: int) -> None:
     """Builds WIKI at full size and sends it; then builds phase 17h's host
     hub plans (`hub_plans`), writes them to a file and sends its path (a
     small message: the pipe does not block until phase 17h reads it);
-    then coarsens the graph as the V-cycle does
+    then phase 11c's reference layout (`stream_reference_layout`) the same
+    way; then coarsens the graph as the V-cycle does
     (`build_level_stack(g, DEFAULT_COARSE_N)`) and sends the levels one at
     a time. Numpy on one core, in a process of its own, so it shares no
     interpreter lock with the phases that issue the launches. A failure is
@@ -4156,6 +4545,8 @@ def host_worker(conn, seed: int) -> None:
 
     try:
         sys.path.insert(0, str(SRC))
+        import numpy as np
+
         from repro_torch.core import multilevel
         from repro_torch.graphs import load_dataset
 
@@ -4169,6 +4560,13 @@ def host_worker(conn, seed: int) -> None:
             pickle.dump(plans, f, protocol=5)
         del plans
         send_raw(conn, ("hubplan", str(path), time.perf_counter() - t))
+        t = time.perf_counter()
+        ref = stream_reference_layout(np, g, seed)
+        path = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_stream_")) / "layout.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(ref, f, protocol=5)
+        del ref
+        send_raw(conn, ("streamlayout", str(path), time.perf_counter() - t))
         t = time.perf_counter()
         graphs, cmaps = multilevel.build_level_stack(g, multilevel.DEFAULT_COARSE_N)
         send_raw(conn, ("levels", len(cmaps), time.perf_counter() - t))
@@ -4221,6 +4619,17 @@ class HostWorker:
         path.unlink()
         path.parent.rmdir()
         return spec8, spec1, seconds
+
+    def stream_layout(self):
+        """(phase 11c's reference layout, the worker's seconds building
+        it); the file it came in is removed."""
+        path, seconds = self._recv("streamlayout")
+        path = pathlib.Path(path)
+        with open(path, "rb") as f:
+            ref = pickle.load(f)
+        path.unlink()
+        path.parent.rmdir()
+        return ref, seconds
 
     def level_stack(self):
         """(levels 1 and up, their coarse maps, the worker's seconds
@@ -4414,6 +4823,19 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
           **stream_sharded_side_legs(np, side_results)})
     side.stop()
     spawned.remove(side)
+
+    # 7c. training: the ten archs reduced on the card against the CPU, the
+    # trainer's resume, tinyllama-1.1b at full width through the CLI, then
+    # served from its checkpoint; in the host build's wait, after the side
+    # legs
+    next_model(torch)
+    train_rows, _ = train_phase(torch, ops)
+    for row in train_rows.pop("reduced"):
+        emit({"phase": "train-reduced", **row})
+    emit({"phase": "train-resume", **train_rows.pop("resume")})
+    emit({"phase": "train-full", "graph_built": host.ready(), **train_rows.pop("full")})
+    emit({"phase": "train", **train_rows})
+    del train_rows
 
     # 7d. deepseek-v2-lite-16b at full width (MoE + MLA, K4 at D 192): the
     # consistency gate, then served through Engine.generate; in the host
@@ -4690,7 +5112,7 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
     # minutes torch.profiler loses the kernel events of short windows, which
     # phases 13 and 15 count
     next_model(torch)
-    stream = stream_phase(torch, np, ops, g, flat)
+    stream = stream_phase(torch, np, ops, g, flat, host)
     le_11c = [row["local_edges"] for row in stream["revolver"]]
     for algo in ("revolver", "spinner", "restream"):
         for row in stream.pop(algo):

@@ -334,22 +334,28 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def load_checkpoint_arrays(ckpt_dir: str, step: int):
+def _under(path: str, prefix: Optional[str]) -> bool:
+    return prefix is None or path == prefix or path.startswith(prefix + "/")
+
+
+def load_checkpoint_arrays(ckpt_dir: str, step: int, prefix: Optional[str] = None):
     """Raw host-side load: ``(arrays, manifest)`` with numpy arrays keyed
     by the flattened tree path, as ``np.load`` returns them (bf16 leaves as
     ``|V2``). The entry point for callers whose array shapes are
     data-dependent (the streaming state) and for tools inspecting a
-    checkpoint directly."""
+    checkpoint directly. With ``prefix`` (a subtree's path, e.g.
+    ``"params"``) only that subtree's arrays are read from the file."""
     manifest = load_manifest(ckpt_dir, step)
     path = os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz")
     try:
         with np.load(path) as z:
-            arrays = {k.replace("::", "/"): z[k] for k in z.files}
+            arrays = {k.replace("::", "/"): z[k] for k in z.files
+                      if _under(k.replace("::", "/"), prefix)}
     except Exception as e:
         raise CheckpointError(
             f"corrupt checkpoint payload for step {step} in {ckpt_dir}: "
             f"{e}") from e
-    missing = set(manifest["keys"]) - set(arrays)
+    missing = {k for k in manifest["keys"] if _under(k, prefix)} - set(arrays)
     if missing:
         raise CheckpointError(
             f"checkpoint payload for step {step} lacks arrays listed in its "
@@ -357,10 +363,11 @@ def load_checkpoint_arrays(ckpt_dir: str, step: int):
     return arrays, manifest
 
 
-def load_checkpoint_tensors(ckpt_dir: str, step: int, device="cpu") -> dict:
+def load_checkpoint_tensors(ckpt_dir: str, step: int, device="cpu",
+                            prefix: Optional[str] = None) -> dict:
     """``{path: tensor}`` on ``device``, bf16 leaves rebuilt (see
-    `tensor_from_array`)."""
-    arrays, manifest = load_checkpoint_arrays(ckpt_dir, step)
+    `tensor_from_array`); with ``prefix``, only that subtree's."""
+    arrays, manifest = load_checkpoint_arrays(ckpt_dir, step, prefix)
     return {k: tensor_from_array(a, manifest["keys"].get(k, {}).get("dtype", "")).to(device)
             for k, a in arrays.items()}
 

@@ -3,6 +3,14 @@
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel or raises. There is no other route and no fallback: a
 kernel that fails to build or launch raises to the caller.
+
+The attention kernels K4 and K5 and the recurrence K6 have no backward:
+their outputs carry no ``grad_fn``. So `flash_attention`,
+`decode_attention` and `wkv6` raise a RuntimeError when grad mode is on
+and an input requires grad (`needs_grad`), on either device, rather than
+hand autograd a result whose inputs would get zero gradients. The models
+take their differentiable plain forms on that route instead
+(`repro_torch.models.attention.attend`, `repro_torch.models.rwkv6`).
 """
 from __future__ import annotations
 
@@ -36,6 +44,18 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for c in LAUNCH_COUNTERS.values():
         c.reset()
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether a forward over ``tensors`` would be recorded by autograd:
+    grad mode on and one of them requires grad (the training route)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_backward(what: str, *tensors: torch.Tensor) -> None:
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{what} has no backward; a forward under autograd takes the "
+                           f"model's differentiable plain form (ops.needs_grad)")
 
 
 def _route(t: torch.Tensor, what: str) -> str:
@@ -118,7 +138,8 @@ def edge_histogram(slots, rows, vals, *, row_ptr, block_v: int, k: int, spans=No
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """Causal / sliding-window GQA attention, q [B,Hq,Sq,D] against k, v
     [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in q's dtype — see
-    `repro_torch.kernels.flash_attention`."""
+    `repro_torch.kernels.flash_attention`. Raises under autograd."""
+    _no_backward("flash_attention", q, k, v)
     if _route(q, "flash_attention") == "cpu":
         return _flash_attention.flash_attention_plain(q, k, v, causal=causal,
                                                       window=window)
@@ -130,7 +151,8 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, return_lse: bool = False):
     """One query token per sequence, q [B,Hq,D], against the first
     ``kv_len[b]`` positions of caches [B,Hkv,S,D] -> o [B,Hq,D] (and, with
     ``return_lse``, m and l [B,Hq] f32) — see
-    `repro_torch.kernels.decode_attention`."""
+    `repro_torch.kernels.decode_attention`. Raises under autograd."""
+    _no_backward("decode_attention", q, k_cache, v_cache)
     if _route(q, "decode_attention") == "cpu":
         return _decode_attention.decode_attention_plain(
             q, k_cache, v_cache, kv_len, return_lse=return_lse)
@@ -141,7 +163,8 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, return_lse: bool = False):
 def wkv6(r, k, v, logw, u, state0):
     """RWKV6 recurrence, r/k/v/logw [B,S,H,N], u [H,N], state0 [B,H,N,N],
     all f32 -> (y [B,S,H,N] f32, state0), the final state written over
-    ``state0`` — see `repro_torch.kernels.wkv6`."""
+    ``state0`` — see `repro_torch.kernels.wkv6`. Raises under autograd."""
+    _no_backward("wkv6", r, k, v, logw, u, state0)
     if _route(r, "wkv6") == "cpu":
         return _wkv6.wkv6_plain(r, k, v, logw, u, state0)
     return _wkv6.wkv6_cuda(r, k, v, logw, u, state0)

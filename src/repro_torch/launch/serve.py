@@ -15,7 +15,9 @@ without a CUDA device. Parameters, prompts and, for the VLM and the
 encoder-decoder, the stub frontend ([B, n_patches or enc_seq, d]
 embeddings) are drawn from `--seed`; `--ckpt-dir D` then replaces the
 parameters with the ``params`` tree of D's newest checkpoint (the store's
-format, as `repro`'s trainer writes it; bf16 leaves included). The cache
+format, as `repro`'s trainer and the port's write it; bf16 leaves
+included). Only the ``params/`` leaves are read: a trainer checkpoint's
+masters and moments stay on disk. The cache
 holds a VLM's patches too: n_patches + prompt + max_new rows, where
 `repro`'s launcher sizes it as prompt + max_new (ROADMAP §3).
 """
@@ -57,7 +59,8 @@ def main(argv=None):
     if args.ckpt_dir:
         step = latest_step(args.ckpt_dir)
         if step is not None:
-            tree = unflatten(load_checkpoint_tensors(args.ckpt_dir, step, dev))
+            tree = unflatten(load_checkpoint_tensors(args.ckpt_dir, step, dev,
+                                                     prefix="params"))
             if "params" not in tree:
                 raise ValueError(f"checkpoint step {step} in {args.ckpt_dir} holds no "
                                  f"params tree (keys: {sorted(tree)})")

@@ -1,18 +1,21 @@
 """Unified model API — dispatch on cfg.family.
 
   init_lm(cfg, generator, device)            -> model
+  lm_loss(model, cfg, batch)                 -> (loss, metrics)   [train]
   init_cache(cfg, batch, s_max, device)      -> cache dict
   lm_prefill(model, cfg, cache, batch)       -> (logits, cache)
   lm_decode_step(model, cfg, cache, token)   -> (logits, cache)
 
-batch = {"tokens": [B,S] int32, "frontend": [B, n_patches|enc_seq, d]
-(the ``vlm`` and ``encdec`` families' stub embeddings only)}. Every family
+batch = {"tokens": [B,S] int32, "labels": [B,S] int32 (-100 masked;
+training only), "frontend": [B, n_patches|enc_seq, d] (the ``vlm`` and
+``encdec`` families' stub embeddings only)}. Every family
 of `repro` is ported: the decoder families ``dense``, ``moe`` and ``vlm``
 (`transformer`: GQA, sliding-window or MLA attention, MLP or MoE FFNs,
 Cohere's parallel block, a VLM's patches before the tokens), the RWKV6
 ``ssm`` family (`rwkv_model`), the Mamba2 ``hybrid`` family with its
 shared attention block (`zamba`) and the ``encdec`` family (`whisper`).
-`repro`'s ``lm_loss`` (training) comes with queue 1 item 14.
+`lm_loss` trains every family through the differentiable plain forms
+(`repro_torch.kernels.ops.needs_grad`).
 """
 from __future__ import annotations
 
@@ -36,6 +39,17 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
     if cfg.family == "encdec":
         return whisper.init_whisper(cfg, generator)
     return transformer.init_decoder(cfg, generator)
+
+
+def lm_loss(model, cfg: ModelConfig, batch: dict):
+    """Mean next-token CE of ``batch`` -> (loss 0-dim f32, {"loss": loss})."""
+    if cfg.family == "ssm":
+        return rwkv_model.rwkv_loss(model, cfg, batch)
+    if cfg.family == "hybrid":
+        return zamba.zamba_loss(model, cfg, batch)
+    if cfg.family == "encdec":
+        return whisper.whisper_loss(model, cfg, batch)
+    return transformer.decoder_loss(model, cfg, batch)
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:

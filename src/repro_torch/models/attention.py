@@ -1,9 +1,14 @@
 """GQA / MHA / sliding-window and cross attention: prefill and decode paths.
 
 The counterpart of `repro.models.attention`, in the same [B, H, S, D]
-layout. Routing is by device, not by an ``impl`` knob:
+layout. Routing is by device and by autograd, not by an ``impl`` knob:
 
-  `attend`                  CPU -> `flash_attention_plain`, CUDA -> K4
+  `attend`                  under autograd (grad mode on and an input
+                            requiring grad, `ops.needs_grad`) ->
+                            `flash_attention_chunked` on either device, the
+                            counterpart of `repro`'s training
+                            ``impl="xla"``: K4 has no backward. Else CPU ->
+                            `flash_attention_plain`, CUDA -> K4
                             (`repro_torch.kernels.ops.flash_attention`);
                             self-attention and `apply_cross_attention`
   `decode_self_attention`   CPU -> `decode_attention_plain`, CUDA -> K5, for
@@ -13,7 +18,7 @@ layout. Routing is by device, not by an ``impl`` knob:
 
 `naive_attention` and `flash_attention_chunked` are the plain counterparts
 of `repro`'s ``impl="naive"`` and ``impl="xla"`` paths. Nothing on the
-serving path calls them; they pin the port's semantics to `repro`'s.
+serving path calls them; the training route runs the second.
 
 Decode keeps keys post-RoPE in a [B, Hkv, S, D] cache (or a [B, Hkv, W, D]
 ring buffer) and writes the new token's k and v into it in place. A ring's
@@ -141,8 +146,11 @@ def flash_attention_chunked(q, k, v, *, causal=True, window=None,
 
 
 def attend(q, k, v, *, causal=True, window=None):
-    """[B,Hq,Sq,D] attention of right-aligned queries: K4 on a CUDA tensor,
+    """[B,Hq,Sq,D] attention of right-aligned queries: under autograd the
+    differentiable `flash_attention_chunked`, else K4 on a CUDA tensor and
     its plain version on a CPU tensor."""
+    if ops.needs_grad(q, k, v):
+        return flash_attention_chunked(q, k, v, causal=causal, window=window)
     return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, window=window)
 

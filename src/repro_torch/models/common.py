@@ -1,13 +1,17 @@
 """Shared model primitives: parameter modules, inits, norms, rotary and
-sinusoidal position embeddings and the SwiGLU activation.
+sinusoidal position embeddings, the SwiGLU activation, the training loss
+(`chunked_cross_entropy`) and per-block rematerialisation (`maybe_remat`).
 
 `repro.models.common` keeps parameters in nested dicts with a stacked
 ``[L, ...]`` layer axis; the port keeps them in small `nn.Module`s whose
 attribute names are `repro`'s dict keys (``w``/``b``, ``g``/``b``, ``emb``),
 so that a `repro` parameter tree maps onto `state_dict` names one to one
 (`repro_torch.models.convert`). Dense weights are ``[d_in, d_out]`` and
-applied as ``x @ w``, as in `repro`. Parameters never need gradients here:
-the port has no training path yet.
+applied as ``x @ w``, as in `repro`. Parameters are made with
+``requires_grad=False``, so serving builds no autograd graph;
+`repro_torch.train.step.train_state` turns them on
+(``model.requires_grad_(True)``) for training. Serving runs under
+`torch.inference_mode` either way.
 
 Rounding points are `repro`'s: norms take f32 statistics and apply them in
 the activation dtype, RoPE rotates in f32 and casts back, SiLU runs in f32.
@@ -21,6 +25,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -150,3 +155,54 @@ def sinusoid_pos(n: int, d: int, dtype=torch.float32, device=None) -> torch.Tens
 # --------------------------------------------------------------------------
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
+
+
+# --------------------------------------------------------------------------
+# training: rematerialisation and the loss
+# --------------------------------------------------------------------------
+def maybe_remat(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` and grad mode on, under
+    `torch.utils.checkpoint` (non-reentrant), so the backward pass
+    recomputes ``fn``'s activations instead of keeping them: `repro`'s
+    ``jax.checkpoint`` around a block."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _ce_chunk(hc: torch.Tensor, emb: torch.Tensor, lc: torch.Tensor, logit_scale: float):
+    """(sum of the chunk's unmasked NLLs f32, count of its unmasked labels)."""
+    logits = (hc @ emb.T).float() * logit_scale                  # [B, c, V]
+    mask = lc >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    nll = torch.where(mask, lse - tgt, 0.0)
+    return nll.sum(), mask.sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, *,
+                          chunk: int = 256, logit_scale: float = 1.0) -> torch.Tensor:
+    """Mean next-token CE without materializing [B, S, V] logits.
+
+    h [B, S, d]; emb [V, d]; labels [B, S] int (-100 = masked). Walks
+    sequence chunks (halved until the chunk divides S, as a VLM's S
+    needs); each chunk's logits are ``h_chunk @ emb.T`` in the compute
+    dtype, then cast to f32 and scaled by ``logit_scale``, `repro`'s
+    rounding. Under grad each chunk is recomputed in backward, so no
+    [B, chunk, V] f32 tensor stays alive per chunk. The count of unmasked
+    labels is an integer; the loss is ``total / max(count, 1)``. `repro`'s
+    one-hot contraction for the target logit (there for a vocab-sharded
+    logits chunk) is a gather here: the same value.
+    """
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    for c0 in range(0, s, chunk):
+        nll, n = maybe_remat(True, _ce_chunk, h[:, c0:c0 + chunk], emb,
+                             labels[:, c0:c0 + chunk], logit_scale)
+        tot = tot + nll
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1)

@@ -1,18 +1,22 @@
 """ModelConfig — the single config surface for every architecture family.
 
 A copy of `repro.models.config.ModelConfig` with the same fields, defaults
-and `reduced()`, except that `pdt` / `cdt` return `torch.dtype`s and the
+and `reduced()`, except that `pdt` / `cdt` return `torch.dtype`s and these
 XLA execution knobs are gone:
 
   impl, block_q, block_k   the attention implementation and its tiles: the
-                           port routes by device instead (a CPU tensor takes
-                           the plain version, a CUDA tensor the hand-written
-                           kernel, which picks its own tiles)
-  remat                    rematerialisation in the backward pass: the port
-                           has no training path yet
-  seq_chunk, logits_chunk  sequence and logits chunking for XLA's memory
-                           planning: the port runs eagerly and computes only
-                           the last position's logits when serving
+                           port routes by device and by autograd instead (a
+                           CPU tensor takes the plain version, a CUDA tensor
+                           the hand-written kernel, which picks its own
+                           tiles; a forward under autograd the chunked
+                           plain form, `repro_torch.models.attention`)
+  seq_chunk                mixer sequence chunking for XLA's memory planning
+
+``remat`` (recompute each block in the backward pass,
+`torch.utils.checkpoint` where `repro` wraps it in ``jax.checkpoint``) and
+``logits_chunk`` (the sequence chunk of the training loss,
+`repro_torch.models.common.chunked_cross_entropy`) are `repro`'s, with its
+defaults and its ``reduced()`` values; serving reads neither.
 
 Family-specific fields are kept even where the family is not ported yet
 (`repro_torch.configs.registry` says which are).
@@ -84,6 +88,8 @@ class ModelConfig:
     rwkv_chunk: int = 64
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: bool = True
+    logits_chunk: int = 512
     max_pos: int = 1 << 20       # learned-pos table bound (whisper decoder)
 
     @property
@@ -137,7 +143,9 @@ class ModelConfig:
             n_patches=min(self.n_patches, 8) or 0,
             window=min(self.window, 16) if self.window else None,
             ssm_chunk=8, rwkv_chunk=8,
+            logits_chunk=16,
             param_dtype="float32", compute_dtype="float32",
+            remat=False,
         )
         if self.family == "ssm":
             small["d_model"] = 64

@@ -13,11 +13,22 @@ without ``ln2``), of an RWKV6 model, of the Mamba2 hybrid (``lora``
 ``dec_blocks``, each stacked, biased ``attn`` / ``self`` / ``cross`` and
 ``mlp`` leaves, ``dec_pos``), and returns the port's `Decoder`, `RWKV`,
 `Zamba` or `Whisper`, which computes what `repro` computes from them.
+
+The other way, `lm_params_to_tree` takes the port's model (or a mapping of
+its parameter names to tensors, such as their gradients or an optimizer's
+moments) and stacks it back into `repro`'s tree, tensor leaves;
+`lm_params_to_numpy` gives the same tree with numpy leaves. The trainer's
+checkpoints are written in that layout, and `tree_to_named` splits such a
+tree back onto parameter names.
 """
 from __future__ import annotations
 
+import itertools
+from typing import Mapping
+
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.device_graph import resolve_device
 from repro_torch.models.attention import Attention
@@ -177,11 +188,14 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
         model = Zamba(embed, shared, lora, mamba, trailing, norm(tree["ln_f"]),
                       Embed(put(tree["unembed"]["emb"])))
     elif cfg.family == "ssm":
-        blocks = [RWKVBlock(norm(bt["ln1"]), norm(bt["ln2"]), module(bt["time"], TimeMix),
-                            module(bt["chan"], ChannelMix))
-                  for bt in stack("blocks", cfg.n_layers)]
-        model = RWKV(embed, norm(tree["ln0"]), blocks, norm(tree["ln_f"]),
-                     Embed(put(tree["unembed"]["emb"])))
+        try:
+            blocks = [RWKVBlock(norm(bt["ln1"]), norm(bt["ln2"]), module(bt["time"], TimeMix),
+                                module(bt["chan"], ChannelMix))
+                      for bt in stack("blocks", cfg.n_layers)]
+            model = RWKV(embed, norm(tree["ln0"]), blocks, norm(tree["ln_f"]),
+                         Embed(put(tree["unembed"]["emb"])))
+        except KeyError as e:
+            fail(f"no {e}")
     else:
         check_family(cfg)
         n_dense = cfg.first_dense if cfg.moe else 0
@@ -203,3 +217,84 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
                          f"unused {sorted(_paths(tree) - used)}, "
                          f"missing {sorted(used - _paths(tree))}")
     return model
+
+
+def param_path(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """A port parameter name -> (its leaf's path in `repro`'s tree, its
+    indices along that leaf's stacked layer axes): ``blocks.3.attn.wq.w``
+    -> ((blocks, attn, wq, w), (3,)), ``mamba.1.0.ln.g`` -> ((mamba, ln,
+    g), (1, 0)), ``embed.emb`` -> ((embed, emb), ())."""
+    parts = name.split(".")
+    n = STACKS.get(parts[0], 0)
+    return (parts[0],) + tuple(parts[1 + n:]), tuple(int(i) for i in parts[1:1 + n])
+
+
+def _named(src) -> dict:
+    if isinstance(src, nn.Module):
+        return {name: p.detach() for name, p in src.named_parameters()}
+    return {name: t.detach() for name, t in src.items()}
+
+
+def lm_params_to_tree(src: nn.Module | Mapping[str, torch.Tensor], device=None) -> dict:
+    """`repro`'s parameter tree from the port's model ``src`` (or a mapping
+    of its parameter names to tensors of the parameters' shapes): the
+    layer axes stacked (``mamba`` [G, M, ...]), dense weights [d_in,
+    d_out], every family's layout as `lm_params_from_numpy` reads it.
+    Leaves are tensors on ``device`` (default: where ``src``'s are);
+    stacked leaves are new tensors, the others ``src``'s own (detached)."""
+    groups: dict = {}
+    for name, t in _named(src).items():
+        path, idx = param_path(name)
+        groups.setdefault(path, {})[idx] = t if device is None else t.to(device)
+    tree: dict = {}
+    for path, items in groups.items():
+        dims = [1 + max(i[a] for i in items) for a in range(len(next(iter(items))))]
+        if set(items) != set(itertools.product(*map(range, dims))):
+            raise ValueError(f"{'.'.join(path)}: layers {sorted(items)} are not a full stack")
+
+        def stacked(prefix: tuple, items=items, dims=dims):
+            if len(prefix) == len(dims):
+                return items[prefix]
+            return torch.stack([stacked(prefix + (j,)) for j in range(dims[len(prefix)])])
+
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = stacked(())
+    return tree
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                   # bf16 numpy arrays, as `repro` holds them
+        return t.view(torch.uint16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def lm_params_to_numpy(src: nn.Module | Mapping[str, torch.Tensor]) -> dict:
+    """`lm_params_to_tree` with numpy leaves (copies; bf16 leaves as
+    ``ml_dtypes.bfloat16``, which must then be importable): the inverse of
+    `lm_params_from_numpy`, and what `repro`'s functions take."""
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else _to_numpy(v) for k, v in node.items()}
+    return walk(lm_params_to_tree(src, device="cpu"))
+
+
+def tree_to_named(names, tree: dict) -> dict:
+    """``{name: tensor}`` for each parameter name in ``names`` (a model's
+    `named_parameters` names, or the model itself) from `repro`'s tree:
+    the leaf at the name's path, indexed along its stacked axes (views)."""
+    if isinstance(names, nn.Module):
+        names = [name for name, _ in names.named_parameters()]
+    out = {}
+    for name in names:
+        path, idx = param_path(name)
+        node = tree
+        try:
+            for key in path:
+                node = node[key]
+        except KeyError as e:
+            raise KeyError(f"tree holds no {'/'.join(path)} for {name}") from e
+        out[name] = node[idx] if idx else node
+    return out

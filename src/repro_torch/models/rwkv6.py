@@ -8,12 +8,16 @@ Core recurrence per head (state [N, V] = key-dim x value-dim):
 
 with w_t = exp(-exp(w0 + lora(x))), the data-dependent decay.
 
-The counterpart of `repro.models.rwkv6`. The recurrence always goes through
-`repro_torch.kernels.ops.wkv6`: a CPU tensor takes the token-by-token plain
-version, a CUDA tensor the hand-written kernel K6, for any sequence length.
-`repro`'s ``impl`` switch and its ``"chunked"`` form (an XLA
-memory-planning variant whose result equals the scan's) have no
-counterpart, nor has the spec's ``chunk``.
+The counterpart of `repro.models.rwkv6`. Serving runs the recurrence
+through `repro_torch.kernels.ops.wkv6`: a CPU tensor takes the
+token-by-token plain version, a CUDA tensor the hand-written kernel K6,
+for any sequence length; a given state is updated in place. Under autograd
+(training: `ops.needs_grad`) it takes `wkv6_scan`, the same token-by-token
+recurrence out of place, on either device: K6 has no backward, and an
+in-place state update would break autograd. `repro`'s ``impl`` switch and
+its ``"chunked"`` form (an XLA memory-planning variant whose result equals
+the scan's, which `repro` trains through) have no counterpart, nor has the
+spec's ``chunk``.
 
 Rounding points are `repro`'s: the LoRA ``tanh`` and the ``mix`` product in
 f32, cast back to the activation dtype; the decay LoRA as an f32 product;
@@ -133,6 +137,21 @@ def _ddlerp(p: TimeMix, x: torch.Tensor, xs: torch.Tensor) -> list[torch.Tensor]
     return [x + xx * (p.mu[i] + mix[i].to(x.dtype)) for i in range(5)]
 
 
+def wkv6_scan(r, k, v, logw, u, state0):
+    """The recurrence of `ops.wkv6` (f32 r, k, v, logw [B,S,H,N], u [H,N],
+    state0 [B,H,N,N]) token by token, out of place and differentiable:
+    (y [B,S,H,N] f32, the final state, a new tensor). `repro`'s
+    ``_wkv_scan``."""
+    state = state0
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], torch.exp(logw[:, t])
+        att = state + u[None, :, :, None] * kt[..., None] * vt[..., None, :]
+        ys.append(torch.einsum("bhn,bhnm->bhm", rt, att))
+        state = state * wt[..., None] + kt[..., None] * vt[..., None, :]
+    return torch.stack(ys, 1), state
+
+
 def apply_rwkv6_time(p: TimeMix, spec: RWKV6Spec, x: torch.Tensor, *,
                      x_prev: torch.Tensor | None = None,
                      wkv_state: torch.Tensor | None = None):
@@ -140,7 +159,8 @@ def apply_rwkv6_time(p: TimeMix, spec: RWKV6Spec, x: torch.Tensor, *,
 
     A given ``wkv_state`` ([B,H,N,N] f32, contiguous) is updated in place and
     returned (the serving cache's layer slice); without one the recurrence
-    starts from zeros.
+    starts from zeros. Under autograd the recurrence is `wkv6_scan`, which
+    returns a new state and leaves ``wkv_state`` as it was.
     """
     b, s, d = x.shape
     h, n = spec.n_heads, spec.d_head
@@ -155,7 +175,10 @@ def apply_rwkv6_time(p: TimeMix, spec: RWKV6Spec, x: torch.Tensor, *,
     if wkv_state is None:
         wkv_state = torch.zeros((b, h, n, n), dtype=torch.float32, device=x.device)
     rf, kf, vf = (t.float() for t in (r, k, v))
-    y, state = ops.wkv6(rf, kf, vf, logw, p.u, wkv_state)
+    if ops.needs_grad(rf, kf, vf, logw, p.u):
+        y, state = wkv6_scan(rf, kf, vf, logw, p.u, wkv_state)
+    else:
+        y, state = ops.wkv6(rf, kf, vf, logw, p.u, wkv_state)
 
     # per-head group norm, then silu(g) gate and output proj
     mu = torch.mean(y, dim=-1, keepdim=True)

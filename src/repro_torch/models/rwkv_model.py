@@ -10,18 +10,21 @@ length. Prefill and decode both run the recurrence through K6 on the card,
 decode with S = 1: one launch per layer and step.
 
 Paths:
-  rwkv_hidden       tokens -> final hidden (the teacher-forced pass)
+  rwkv_hidden       tokens -> final hidden (the teacher-forced pass; each
+                    block rematerialised in backward where ``cfg.remat``;
+                    under autograd the recurrence is the out-of-place
+                    `rwkv6.wkv6_scan`)
+  rwkv_loss         train: mean next-token CE over the hidden
   rwkv_prefill      tokens -> (last-position logits, cache)
   rwkv_decode_step  one token against the cache
-
-`repro`'s ``rwkv_loss`` (training) comes with ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models.common import Embed, Norm, apply_norm, embed_init, norm_init
+from repro_torch.models.common import (Embed, Norm, apply_norm, chunked_cross_entropy,
+                                       embed_init, maybe_remat, norm_init)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rwkv6 import (
     ChannelMix,
@@ -103,8 +106,16 @@ def rwkv_hidden(model: RWKV, cfg: ModelConfig, tokens) -> torch.Tensor:
     """tokens [B,S] -> final hidden [B, S, d]."""
     h = _embed(cfg, model, tokens)
     for blk in model.blocks:
-        h = _block(cfg, blk, h)[0]
+        h = maybe_remat(cfg.remat, lambda x, blk=blk: _block(cfg, blk, x)[0], h)
     return _norm(cfg, model.ln_f, h)
+
+
+def rwkv_loss(model: RWKV, cfg: ModelConfig, batch: dict):
+    """batch: tokens [B,S], labels [B,S] (-100 masked) -> (loss, {"loss"})."""
+    h = rwkv_hidden(model, cfg, batch["tokens"])
+    loss = chunked_cross_entropy(h, model.unembed.emb, batch["labels"],
+                                 chunk=cfg.logits_chunk)
+    return loss, {"loss": loss}
 
 
 # --------------------------------------------------------------------------

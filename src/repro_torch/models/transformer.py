@@ -19,7 +19,12 @@ encoder-decoder `repro_torch.models.whisper`. `repro`'s
 device and have no counterpart.
 
 Paths:
-  decoder_hidden       tokens -> final hidden (the teacher-forced pass)
+  decoder_hidden       tokens -> final hidden (the teacher-forced pass;
+                       each block rematerialised in backward where
+                       ``cfg.remat``)
+  decoder_loss         train: mean next-token CE over the hidden
+                       (`chunked_cross_entropy`; a VLM's patch positions
+                       take no loss, Cohere's ``logit_scale`` applies)
   decoder_prefill      tokens -> (last-position logits, decode cache)
   decoder_decode_step  one token against the cache
 """
@@ -30,7 +35,8 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
-from repro_torch.models.common import Embed, Norm, apply_norm, embed_init, norm_init
+from repro_torch.models.common import (Embed, Norm, apply_norm, chunked_cross_entropy,
+                                       embed_init, maybe_remat, norm_init)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import MLP, apply_mlp, init_mlp
 from repro_torch.models.moe import MoE, MoESpec, apply_moe, init_moe
@@ -213,8 +219,23 @@ def decoder_hidden(model: Decoder, cfg: ModelConfig, tokens, frontend=None) -> t
     positions = torch.arange(h.shape[1], device=h.device)
     for _, stack in model.stacks():
         for blk in stack:
-            h = _apply_block(cfg, blk, h, positions)
+            h = maybe_remat(cfg.remat, lambda x, blk=blk: _apply_block(cfg, blk, x, positions), h)
     return _norm(cfg, model.ln_f, h)
+
+
+def decoder_loss(model: Decoder, cfg: ModelConfig, batch: dict):
+    """batch: tokens [B,S], labels [B,S] (-100 masked), a VLM's frontend
+    -> (loss, {"loss": loss}). `repro`'s MoE adds no auxiliary loss here,
+    nor does the port."""
+    h = decoder_hidden(model, cfg, batch["tokens"], batch.get("frontend"))
+    labels = batch["labels"]
+    if cfg.family == "vlm":                       # patch positions: no loss
+        pad = torch.full((labels.shape[0], cfg.n_patches), -100, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss = chunked_cross_entropy(h, _out_emb(cfg, model), labels, chunk=cfg.logits_chunk,
+                                 logit_scale=cfg.logit_scale)
+    return loss, {"loss": loss}
 
 
 # --------------------------------------------------------------------------

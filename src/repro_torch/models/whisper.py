@@ -16,8 +16,11 @@ decoder's self-attention prefill through K4 causal, its decode through
 
 Kept from `repro` for parity: the k projections' bias (Whisper's own has
 none) and the ``max_pos`` (36,864) rows of ``dec_pos`` (Whisper's text
-context is 448). `repro`'s ``whisper_loss`` (training) comes with ROADMAP
-queue 1 item 14.
+context is 448).
+
+Training (`whisper_loss`): the encoder over the stub frames, then the
+decoder teacher-forced, each block of both rematerialised in backward
+where ``cfg.remat``, and the mean next-token CE over the tied embedding.
 
 Parameters: ``embed``, ``dec_pos``, ``enc_blocks`` (``ln1``, ``attn``,
 ``ln2``, ``mlp``), ``enc_ln``, ``dec_blocks`` (``ln1``, ``self``, ``ln2``,
@@ -36,8 +39,9 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (Embed, Norm, _normal, _param, apply_norm, dense,
-                                       embed_init, norm_init, sinusoid_pos)
+from repro_torch.models.common import (Embed, Norm, _normal, _param, apply_norm,
+                                       chunked_cross_entropy, dense, embed_init, maybe_remat,
+                                       norm_init, sinusoid_pos)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import MLP, apply_mlp, init_mlp
 
@@ -121,9 +125,13 @@ def encode(model: Whisper, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tens
     """frames [B, enc_seq, d] (stub embeddings) -> memory [B, enc_seq, d]."""
     h = frames.to(cfg.cdt) + sinusoid_pos(frames.shape[1], cfg.d_model, cfg.cdt, frames.device)
     positions = torch.arange(h.shape[1], device=h.device)
+
+    def block(x, blk):
+        x = x + attn.apply_attention(blk.attn, enc_spec(cfg), _norm(cfg, blk.ln1, x), positions)
+        return x + apply_mlp(blk.mlp, _norm(cfg, blk.ln2, x), kind="gelu")
+
     for blk in model.enc_blocks:
-        h = h + attn.apply_attention(blk.attn, enc_spec(cfg), _norm(cfg, blk.ln1, h), positions)
-        h = h + apply_mlp(blk.mlp, _norm(cfg, blk.ln2, h), kind="gelu")
+        h = maybe_remat(cfg.remat, lambda x, blk=blk: block(x, blk), h)
     return _norm(cfg, model.enc_ln, h)
 
 
@@ -143,13 +151,24 @@ def whisper_hidden(model: Whisper, cfg: ModelConfig, tokens, frames) -> torch.Te
     memory = encode(model, cfg, frames)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     h = _embed_dec(cfg, model, tokens, positions)
+
+    def block(x, mem, blk):
+        x = x + attn.apply_attention(blk.self, dec_spec(cfg), _norm(cfg, blk.ln1, x), positions)
+        x = x + attn.apply_cross_attention(blk.cross, enc_spec(cfg), _norm(cfg, blk.ln2, x),
+                                           mem)
+        return x + apply_mlp(blk.mlp, _norm(cfg, blk.ln3, x), kind="gelu")
+
     for blk in model.dec_blocks:
-        h = h + attn.apply_attention(blk.self, dec_spec(cfg),
-                                     _norm(cfg, blk.ln1, h), positions)
-        h = h + attn.apply_cross_attention(blk.cross, enc_spec(cfg), _norm(cfg, blk.ln2, h),
-                                           memory)
-        h = h + apply_mlp(blk.mlp, _norm(cfg, blk.ln3, h), kind="gelu")
+        h = maybe_remat(cfg.remat, lambda x, mem, blk=blk: block(x, mem, blk), h, memory)
     return _norm(cfg, model.dec_ln, h)
+
+
+def whisper_loss(model: Whisper, cfg: ModelConfig, batch: dict):
+    """batch: tokens [B,S], labels [B,S] (-100 masked), frontend [B,
+    enc_seq, d] -> (loss, {"loss": loss})."""
+    h = whisper_hidden(model, cfg, batch["tokens"], batch["frontend"])
+    loss = chunked_cross_entropy(h, model.embed.emb, batch["labels"], chunk=cfg.logits_chunk)
+    return loss, {"loss": loss}
 
 
 # --------------------------------------------------------------------------

@@ -38,7 +38,8 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (Dense, Embed, Norm, _normal, _param, apply_norm,
-                                       apply_rope, dense, dense_init, embed_init, norm_init)
+                                       apply_rope, chunked_cross_entropy, dense, dense_init,
+                                       embed_init, maybe_remat, norm_init)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import MLP, apply_mlp, init_mlp
 from repro_torch.models.ssm import (Mamba2, Mamba2Spec, apply_mamba2, apply_mamba2_with_state,
@@ -222,18 +223,38 @@ def _logits(model: Zamba, h: torch.Tensor) -> torch.Tensor:
     return (h @ model.unembed.emb.T).float()
 
 
+def _mamba_stack(cfg: ModelConfig, blocks, h):
+    """Mamba2 layers in turn, each rematerialised where ``cfg.remat``."""
+    for blk in blocks:
+        h = maybe_remat(cfg.remat, lambda x, blk=blk: _apply_mamba_block(cfg, blk, x), h)
+    return h
+
+
 def zamba_hidden(model: Zamba, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """tokens [B,S] -> final hidden [B, S, d] (the teacher-forced pass)."""
+    """tokens [B,S] -> final hidden [B, S, d] (the teacher-forced pass).
+    Where ``cfg.remat``, `repro`'s nested rematerialisation: each group
+    (the shared block and its Mamba2 layers) outside, each Mamba2 layer
+    inside."""
     h = _embed_tokens(cfg, model, tokens)
     h0 = h
     positions = torch.arange(h.shape[1], device=h.device)
+
+    def group_fn(x, lora, group):
+        x, _ = _apply_shared(cfg, model.shared, lora, x, h0, positions)
+        return _mamba_stack(cfg, group, x)
+
     for lora, group in zip(model.lora, model.mamba):
-        h, _ = _apply_shared(cfg, model.shared, lora, h, h0, positions)
-        for blk in group:
-            h = _apply_mamba_block(cfg, blk, h)
-    for blk in model.trailing:
-        h = _apply_mamba_block(cfg, blk, h)
+        h = maybe_remat(cfg.remat, lambda x, lora=lora, group=group: group_fn(x, lora, group), h)
+    h = _mamba_stack(cfg, model.trailing, h)
     return _norm(cfg, model.ln_f, h)
+
+
+def zamba_loss(model: Zamba, cfg: ModelConfig, batch: dict):
+    """batch: tokens [B,S], labels [B,S] (-100 masked) -> (loss, {"loss"})."""
+    h = zamba_hidden(model, cfg, batch["tokens"])
+    loss = chunked_cross_entropy(h, model.unembed.emb, batch["labels"],
+                                 chunk=cfg.logits_chunk)
+    return loss, {"loss": loss}
 
 
 # --------------------------------------------------------------------------

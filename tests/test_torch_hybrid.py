@@ -47,7 +47,7 @@ MIXER_TOL = dict(atol=1e-5, rtol=1e-5)
 FORM_TOL = dict(atol=1e-4, rtol=1e-4)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = "zamba2-7b"
-DROPPED = {"impl", "block_q", "block_k", "remat", "seq_chunk", "logits_chunk"}
+DROPPED = {"impl", "block_q", "block_k", "seq_chunk"}
 
 
 def _np_tree(tree):

@@ -46,7 +46,7 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 
 LAYER_TOL = dict(atol=2e-5, rtol=2e-5)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 GQA = dict(n_heads=8, n_kv=2, d_model=128)   # reduced() alone makes tinyllama MHA
-DROPPED = {"impl", "block_q", "block_k", "remat", "seq_chunk", "logits_chunk"}
+DROPPED = {"impl", "block_q", "block_k", "seq_chunk"}
 
 
 def _np_tree(tree):

@@ -46,7 +46,7 @@ from repro_torch.models.convert import lm_params_from_numpy
 TOL = dict(atol=2e-5, rtol=2e-5)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = "h2o-danube-3-4b"
-DROPPED = {"impl", "block_q", "block_k", "remat", "seq_chunk", "logits_chunk"}
+DROPPED = {"impl", "block_q", "block_k", "seq_chunk"}
 
 
 def _t(*arrays):

@@ -47,7 +47,7 @@ from repro_torch.serve import Engine
 LAYER_TOL = dict(atol=2e-5, rtol=2e-5)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = "whisper-base"
-DROPPED = {"impl", "block_q", "block_k", "remat", "seq_chunk", "logits_chunk"}
+DROPPED = {"impl", "block_q", "block_k", "seq_chunk"}
 
 
 def _np_tree(tree):
