@@ -131,6 +131,39 @@ failure raises and the script exits non-zero without printing a result:
               dropped pairs and max / mean expert load at the prefill, and
               none dropped in decode. No f32 leg: its weights alone would
               take 62.8 GB
+  7j. placement  (right after 7d, on its model) Revolver expert placement
+              and the LM mesh: (a) each of the 26 MoE layers' routing
+              ``top_idx`` [8192, 6] from the serving prefill (K4 27), the
+              unplaced logits and generate kept; (b) ``place_experts`` (64
+              experts on 8 ranks, up to 120 supersteps) on every layer, K1
+              and K2 once a superstep each, 8 experts a rank, the cross-rank
+              co-activation naive and Revolver's printed; the clustered
+              routing of ``examples/expert_placement_torch.py``: Revolver at most
+              the naive fraction less 0.3; (c) every MoE replaced by its
+              ``apply_placement`` copy layer by layer: logits and the
+              generate bit-equal to (a)'s; (d) under
+              ``use_activation_sharding(LMMesh((1, 8), ("data", "model"),
+              [cuda:0] * 8))`` every MoE layer through the expert-parallel
+              path in prefill and decode (counted by ``record_dispatch``),
+              rank r's experts views of placed experts [8r, 8r + 8):
+              prefill and decode logits against (c)'s by the bf16 rule,
+              drops equal a layer on the single-device run's layer inputs
+              (end to end printed: bf16 rounding flips near-tie routing
+              picks downstream) and each layer there within relative L2
+              1e-2 (each rank's routed and shared pieces' sizes printed:
+              what a psum that lost one would read), ``Engine.generate`` of 32 new tokens
+              timed with K4 27 launches, a second generate of 16 tokens
+              bit-equal to its first 16, peak memory within 4 GB of 7d's,
+              its busy share over 2 decode steps; (e) one MoE layer across pods (mesh
+              (2, 1, 4), batch 8 x 512) against the local path at dropless
+              capacity, relative L2 < 5e-2; then (f) K5 with (m, l) on 4
+              sequence shards of tinyllama-1.1b's decode cache merged by
+              ``sharded_decode_attention`` against K5 on the whole cache,
+              each row within 1e-2 of its norm, the shards' launches timed
+              beside the whole cache's; (g) ``ef_int8_psum`` over 4 ranks
+              of f32 [32000, 2048]: codes and scales bit-equal to the
+              CPU's, the error within half a step, 50 feedback rounds
+              within one step of the input
   7e. h2o   (in the same wait) h2o-danube-3-4b at full width and depth
               (24 layers, d 3840, 32 q / 8 KV heads of 120, sliding window
               4096), bf16, random weights from seed 0: 3,961,839,360
@@ -253,8 +286,8 @@ failure raises and the script exits non-zero without printing a result:
               mesh on phase 8's graph: phase 11c's stream settings on phase
               17h's layout (32 blocks on ``BlocksMesh([cuda:0] * 8)``,
               ``chunk_schedule="halo"``, the per-vertex plan with fallback
-              off, hubs at outdegree quantile 0.95) over the first 4 of
-              phase 11c's deltas (a cold start and re-pads; cut from 8 for
+              off, hubs at outdegree quantile 0.95) over the first 2 of
+              phase 11c's deltas (a cold start and a re-pad; cut from 8 for
               time), every launch counter set to 0 just before each delta
               and read just after (K1 and K2 32 times a superstep, H1 once,
               nothing else); each delta's local_edges >= 0.90x phase 11c's
@@ -442,6 +475,7 @@ F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 K2_TOL = dict(atol=5e-6, rtol=5e-5)
 PROFILE_PAD_S = 0.2           # idle time around a short profiled window
+PROFILE_TRIES = 3             # windows tried while one records no device event
 PARTITIONER_KERNELS = ("fused_edge_phase", "la_update")
 # K3 against its plain version on random float values: both sum a row's
 # entries in f32, in other orders, so up to one rounding per entry
@@ -527,6 +561,24 @@ TRAIN_ZERO_TOL = 1e-6         # a leaf zero up to rounding: below this x the glo
 TRAIN_MB_RTOL = 1e-5          # microbatch 2 against 1: loss and grad norm
 TRAIN_FULL = dict(arch="tinyllama-1.1b", batch=8, seq=512, steps=4, lr=1e-3)
 TRAIN_SERVE = dict(batch=8, prompt=1024, new=16)
+# phase 7j: deepseek-v2-lite-16b's 64 experts placed on 8 expert-parallel
+# ranks of the card (Revolver, up to PLACE_STEPS supersteps a layer); the
+# expert-parallel generate's peak may exceed 7d's by EP_PEAK_SLACK bytes
+# (its shards are views; the ranks' transient buffers and the psum's f64
+# partials are the rest); EP2D runs batch 8 x EP2D_TOKENS through one layer
+EP_RANKS = 8
+PLACE_STEPS = 120
+SYNTH_EXPERTS = 64            # examples/expert_placement_torch.py's clustered routing
+EP_PEAK_SLACK = 4 * 10**9
+# each expert-parallel MoE layer against the local path on the same input:
+# sound ~0.0035 on an H100 (PERF.md); one rank's routed partial or shared-expert share
+# left out of the psum reads that piece's size (`rank_piece_sizes`)
+EP_LAYER_REL_TOL = 1e-2
+EP2D_TOKENS = 512
+EP_NEW = 32                   # the timed expert-parallel generate's new tokens
+EP_REPEAT_NEW = 16            # the second expert-parallel generate's new tokens
+SHARDED_DECODE_SHARDS = 4
+EF_RANKS = 4
 # the golden-worker graph of the JAX package's tests
 PARITY_GRAPH = dict(n=1024, m=8192, n_comm=16, mixing=0.25,
                     degree_exponent=0.5, seed=3)
@@ -1264,7 +1316,10 @@ def stream_phase(torch, np, ops, g, flat: dict, host=None) -> dict:
 # phase 11e: the stream over a mesh
 # --------------------------------------------------------------------------
 STREAM_SETTINGS = dict(k=K, refine_max_steps=15, refine_patience=3, sync_every=2)
-STREAM_SHARDED_DELTAS = 4     # phase 11e's main leg: the first 4 of 8 deltas
+# phase 11e's main leg: the first 2 of 8 deltas (4 before phase 7j; with 4
+# and 7j the script took 1,217 s on an H100 host whose host-bound phases
+# ran 1.4-2x slower than on the fastest seen)
+STREAM_SHARDED_DELTAS = 2
 
 
 def stream_halo_kw(cuda, shards: int = SHARDS, hubs: bool = True, **extra) -> dict:
@@ -1341,7 +1396,8 @@ def stream_sharded_phase(torch, np, ops, g, le_11c: list, dev: str = "cuda") -> 
     11c's stream settings (k 8, 15 supersteps and patience 3 a delta,
     sync_every 2, warm_sharpen 0.5) on phase 17h's layout (32 blocks on
     ``BlocksMesh([cuda:0] * 8)``, the per-vertex halo plan, hubs at
-    quantile 0.95), over the first 4 deltas of phase 11c's stream. Every
+    quantile 0.95), over the first STREAM_SHARDED_DELTAS deltas of phase
+    11c's stream. Every
     launch counter set to 0 just before each delta and read just after: K1
     and K2 32 times a superstep and H1 once, nothing else; each delta's
     local_edges >= 0.90x phase 11c's at the same delta (``le_11c``),
@@ -3363,12 +3419,14 @@ class MoEStats:
     """While active, every MoE layer the model runs (`transformer`'s
     ``apply_moe``) also returns its ``return_stats``, appended to ``calls``
     with its capacity (and, with ``router``, each token's router
-    probabilities and margin: its K-th probability less its (K+1)-th); the
-    layer's output is the one it gives without stats."""
+    probabilities and margin: its K-th probability less its (K+1)-th; with
+    ``keep_inputs``, the layer's input to ``inputs``); the layer's output
+    is the one it gives without stats (the single-device path)."""
 
-    def __init__(self, router: bool = False):
-        self.router = router
+    def __init__(self, router: bool = False, keep_inputs: bool = False):
+        self.router, self.keep_inputs = router, keep_inputs
         self.calls: list = []
+        self.inputs: list = []
 
     def __enter__(self):
         from repro_torch.models import moe, transformer
@@ -3376,6 +3434,8 @@ class MoEStats:
         self._mod, self._orig = transformer, transformer.apply_moe
 
         def hooked(p, x, spec):
+            if self.keep_inputs:
+                self.inputs.append(x)
             y, st = moe.apply_moe(p, x, spec, return_stats=True)
             t = x.numel() // x.shape[-1]
             st["capacity"] = moe.moe_capacity(t, spec)
@@ -3501,7 +3561,378 @@ def deepseek_phase(torch, ops) -> tuple[dict, dict]:
              "prefill_pairs": SERVE["batch"] * SERVE["prompt"] * cfg.top_k * len(prefill_rows),
              "decode_layers_dropped": [r["dropped"] for r in decode_rows],
              "decode_load_max": max(r["load_max"] for r in decode_rows)}
-    return {"full": full, "serve": serve, "serve_profile": serve_prof, "moe": stats}, counts
+    return ({"full": full, "serve": serve, "serve_profile": serve_prof, "moe": stats}, counts,
+            (cfg, model, toks))
+
+
+# --------------------------------------------------------------------------
+# phase 7j: Revolver expert placement and expert-parallel serving
+# --------------------------------------------------------------------------
+def serve_logits(torch, cfg, model, prompts) -> tuple:
+    """(prefill logits, one greedy decode step's logits) at the serving
+    batch: the logits a generate's first two tokens come from."""
+    from repro_torch.models import init_cache, lm_decode_step, lm_prefill
+
+    with torch.inference_mode():
+        cache = init_cache(cfg, SERVE["batch"], SERVE["s_max"], "cuda")
+        first, cache = lm_prefill(model, cfg, cache, {"tokens": prompts})
+        dec, _ = lm_decode_step(model, cfg, cache, first.argmax(-1).int())
+    return first, dec
+
+
+def rank_piece_sizes(torch, layer, x_in, spec, mesh) -> tuple[list, list]:
+    """The L2 norms of each expert-parallel rank's two pieces of one MoE
+    layer's output on ``x_in`` (its routed experts' gated combine and its
+    share of the shared experts): the error the per-layer gate reads, up to
+    the sound error, if the psum over the model ranks left that piece
+    out."""
+    from repro_torch.models import moe
+    from repro_torch.models.mlp import apply_mlp
+    from repro_torch.parallel.sharding import shard_tree
+
+    k, e_loc = spec.top_k, spec.n_experts // EP_RANKS
+    x2 = x_in.reshape(-1, x_in.shape[-1])
+    t = x2.shape[0]
+    gates, idx, _ = moe.route(layer.router, x2, spec)
+    flat = idx.reshape(-1).long()
+    routed, shared = [], []
+    for r, sh in enumerate(shard_tree(moe._moe_tree(layer), moe._moe_pspec(spec, "model"), mesh)):
+        pr = moe._rank_params(sh)
+        out, _, _ = moe._pair_dispatch(x2, moe._foreign_key(flat - r * e_loc, e_loc), k, e_loc,
+                                       moe.moe_capacity(t, spec), pr.w_gate, pr.w_up,
+                                       pr.w_down, foreign=True)
+        routed.append(moe._combine(out, gates, t, k).float().norm())
+        shared.append(apply_mlp(pr.shared, x2).float().norm())
+    return routed, shared
+
+
+def placement_legs(torch, np, ops, cfg, model, toks, ds_serve: dict) -> dict:
+    """deepseek-v2-lite-16b (phase 7d's model, full width and depth):
+    (a) each MoE layer's routing ``top_idx`` [8192, 6] from a prefill of the
+    serving batch, K4 27 times; the unplaced model's logits and one
+    generate as the reference; (b) ``place_experts`` on every MoE layer (64
+    experts, 8 devices, up to PLACE_STEPS supersteps; K1 and K2 once a
+    superstep each), the cross-rank co-activation fraction naive against
+    Revolver's, then the clustered synthetic routing (Revolver at most the
+    naive fraction less 0.3, 8 experts a rank); (c) every MoE replaced by
+    its placed copy layer by layer: logits and the generate bit-equal to
+    (a)'s; (d) expert-parallel on ``LMMesh((1, 8), ("data", "model"),
+    [cuda:0] * 8)``: every MoE layer through ``_apply_moe_shardmap`` in
+    prefill and decode, rank r holding placed experts [8r, 8r + 8) (views),
+    held to (c) by the bf16 rule, the same drops per layer, two generates
+    bit-equal, peak memory within EP_PEAK_SLACK of 7d's; (e) one MoE layer
+    through ``_apply_moe_ep2d`` on (pod 2, data 1, model 4) against the
+    local path at dropless capacity. Returns the legs' rows; the model's
+    MoE layers are placed in place."""
+    from examples import expert_placement_torch
+    from repro_torch.core.placement import (_cross_fraction, apply_placement,
+                                            coactivation_graph, place_experts)
+    from repro_torch.launch.mesh import LMMesh
+    from repro_torch.models import init_cache, lm_prefill, moe
+    from repro_torch.models.transformer import moe_spec
+    from repro_torch.parallel.act_sharding import use_activation_sharding
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.serve import Engine
+
+    rows: dict = {}
+    e, k, new = cfg.n_experts, cfg.top_k, SERVE["new"]
+    n_moe = cfg.n_layers - cfg.first_dense
+    prompts = toks[:, :SERVE["prompt"]].contiguous()
+    serve_want = {"flash_attention": cfg.n_layers}
+    gen_want = {"flash_attention": cfg.n_layers}   # MLA decodes in plain PyTorch
+
+    # (a) routing, and the unplaced reference
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    with MoEStats() as st, torch.inference_mode():
+        lm_prefill(model, cfg, init_cache(cfg, SERVE["batch"], SERVE["s_max"], "cuda"),
+                   {"tokens": prompts})
+    expect_launches(ops.launch_counts(), serve_want, "placement routing prefill")
+    require(len(st.calls) == n_moe, f"{len(st.calls)} MoE layers routed, expected {n_moe}")
+    tops = [c["top_idx"].cpu().numpy() for c in st.calls]
+    n_tok = SERVE["batch"] * SERVE["prompt"]
+    require(all(x.shape == (n_tok, k) for x in tops), "routing: top_idx shape")
+    del st
+    ref_first, ref_dec = serve_logits(torch, cfg, model, prompts)
+    eng = Engine(cfg, model, s_max=SERVE["s_max"])
+    ops.reset_launch_counts()
+    ref = eng.generate(prompts, max_new=new)
+    expect_launches(ops.launch_counts(), gen_want, "placement reference generate")
+    rows["routing"] = {"layers": n_moe, "tokens": n_tok, "top_k": k,
+                       "ordered_pairs_a_layer": n_tok * k * (k - 1),
+                       "seconds": time.perf_counter() - t}
+
+    # (b) placement: Revolver on each layer's co-activation graph
+    t = time.perf_counter()
+    naive = np.arange(e) // (e // EP_RANKS)
+    ops.reset_launch_counts()
+    placements, layers = [], []
+    for i, top in enumerate(tops):
+        t_layer = time.perf_counter()
+        pl = place_experts(top, e, EP_RANKS, max_steps=PLACE_STEPS, device="cuda")
+        secs = time.perf_counter() - t_layer
+        counts = np.bincount(pl.expert_to_device, minlength=EP_RANKS)
+        require(counts.min() == counts.max() == e // EP_RANKS, f"layer {i}: ranks hold {counts}")
+        g, _ = coactivation_graph(top, e)
+        layers.append({"layer": i, "seconds": secs, "supersteps": pl.result.steps,
+                       "graph_edges": g.m, "naive_cross": _cross_fraction(top, naive),
+                       "revolver_cross": pl.cross_coactivation,
+                       "local_edges": pl.result.local_edges,
+                       "max_norm_load": pl.result.max_norm_load})
+        placements.append(pl)
+    counts = ops.launch_counts()
+    steps = sum(r["supersteps"] for r in layers)
+    expect_launches(counts, {n: steps for n in PARTITIONER_KERNELS}, "placement")
+    ops.reset_launch_counts()
+    top = expert_placement_torch.synth_routing(SEED)
+    pl = place_experts(top, SYNTH_EXPERTS, EP_RANKS, max_steps=PLACE_STEPS, device="cuda")
+    synth_counts = ops.launch_counts()
+    expect_launches(synth_counts, {n: pl.result.steps for n in PARTITIONER_KERNELS},
+                    "placement, clustered routing")
+    synth = {"naive_cross": _cross_fraction(top, np.arange(SYNTH_EXPERTS)
+                                            // (SYNTH_EXPERTS // EP_RANKS)),
+             "revolver_cross": pl.cross_coactivation, "supersteps": pl.result.steps,
+             "experts_a_rank": np.bincount(pl.expert_to_device, minlength=EP_RANKS).tolist()}
+    require(synth["revolver_cross"] <= synth["naive_cross"] - 0.3,
+            f"clustered routing: Revolver's cross fraction {synth}")
+    require(set(synth["experts_a_rank"]) == {SYNTH_EXPERTS // EP_RANKS},
+            f"clustered routing: {synth}")
+    rows["place"] = {"layers": layers, "supersteps": steps, "launches": counts,
+                     "seconds_total": sum(r["seconds"] for r in layers),
+                     "naive_cross_mean": float(np.mean([r["naive_cross"] for r in layers])),
+                     "revolver_cross_mean": float(np.mean([r["revolver_cross"] for r in layers])),
+                     "clustered": {**synth, "launches": synth_counts},
+                     "seconds": time.perf_counter() - t}
+
+    # (c) every MoE layer replaced by its placed copy, layer by layer
+    t = time.perf_counter()
+    e_loc = e // EP_RANKS
+    for blk, pl in zip(model.blocks, placements):
+        blk.moe = apply_placement(blk.moe, pl)      # the old layer's experts go
+        for r in range(EP_RANKS):
+            mine = pl.permutation[r * e_loc:(r + 1) * e_loc]
+            require(bool((pl.expert_to_device[mine] == r).all()),
+                    f"placed order: rank {r}'s experts are not Revolver's group {r}")
+    with MoEStats(keep_inputs=True) as single:
+        first, dec = serve_logits(torch, cfg, model, prompts)
+    require(torch.equal(first, ref_first) and torch.equal(dec, ref_dec),
+            "placed model: logits differ from the unplaced model's "
+            f"(max abs {max_err(torch, first, ref_first)}, {max_err(torch, dec, ref_dec)})")
+    ops.reset_launch_counts()
+    placed = eng.generate(prompts, max_new=new)
+    expect_launches(ops.launch_counts(), gen_want, "placed generate")
+    require(torch.equal(placed.tokens, ref.tokens) and torch.equal(placed.logprobs, ref.logprobs),
+            "placed model: its generate differs from the unplaced model's")
+    rows["permuted"] = {"logits_bit_equal": True, "generate_bit_equal": True,
+                        "seconds": time.perf_counter() - t}
+
+    # (d) expert-parallel serving over 8 ranks on the one card
+    t = time.perf_counter()
+    mesh = LMMesh((1, EP_RANKS), ("data", "model"), ["cuda:0"] * EP_RANKS)
+    spec = moe_spec(cfg)
+    layer0 = model.blocks[0].moe
+    shards = shard_tree(moe._moe_tree(layer0), moe._moe_pspec(spec, "model"), mesh)
+    for r, sh in enumerate(shards):
+        for name in ("w_gate", "w_up", "w_down"):
+            src = getattr(layer0, name)
+            require(sh[name].untyped_storage().data_ptr() == src.untyped_storage().data_ptr()
+                    and torch.equal(sh[name], src[r * e_loc:(r + 1) * e_loc]),
+                    f"rank {r}'s {name} is not a view of placed experts [{r * e_loc}, "
+                    f"{(r + 1) * e_loc})")
+        require(sh["shared"]["w_gate"]["w"].untyped_storage().data_ptr()
+                == layer0.shared.w_gate.w.untyped_storage().data_ptr(), "shared shard copied")
+    del shards
+    with use_activation_sharding(mesh), moe.record_dispatch() as rec_ep:
+        ops.reset_launch_counts()
+        ep_first, ep_dec = serve_logits(torch, cfg, model, prompts)
+        expect_launches(ops.launch_counts(), gen_want, "expert-parallel prefill + decode")
+    paths = collections.Counter(r["path"] for r in rec_ep)
+    require(paths == {"shardmap": 2 * n_moe}, f"expert-parallel dispatch paths {dict(paths)}")
+    gate_prefill = consistency_gate(torch, cfg, ep_first, first)
+    gate_decode = consistency_gate(torch, cfg, ep_dec, dec)
+    # each layer on the single-device run's own input: with data = 1 every
+    # rank sizes its capacity from all the tokens, so the ranks drop what
+    # the local path drops; end to end the layers' inputs differ by the
+    # partials' bf16 rounding, and near-tie routing picks flip
+    drops_single = [int(c["dropped"]) for c in single.calls[:n_moe]]
+    drops_ep, layer_rel, pieces = [], [], []
+    with torch.inference_mode():
+        for blk, x_in in zip(model.blocks, single.inputs[:n_moe]):
+            y_loc = moe.apply_moe(blk.moe, x_in, spec)
+            with use_activation_sharding(mesh), moe.record_dispatch() as rec_layer:
+                y_ep = moe.apply_moe(blk.moe, x_in, spec)
+            drops_ep.append(int(rec_layer[0]["dropped"]))
+            y_norm = y_loc.float().norm()
+            layer_rel.append(float((y_ep.float() - y_loc.float()).norm() / y_norm))
+            pieces.append([[float(n / y_norm) for n in ns]
+                           for ns in rank_piece_sizes(torch, blk.moe, x_in, spec, mesh)])
+    del single, y_loc, y_ep
+    require(drops_ep == drops_single,
+            f"drops a layer on the same input: EP {drops_ep}, single {drops_single}")
+    require(max(layer_rel) < EP_LAYER_REL_TOL,
+            f"an MoE layer's EP output: relative L2 {layer_rel}")
+    drops_e2e = [int(r["dropped"]) for r in rec_ep[:n_moe]]
+    checks_s = time.perf_counter() - t
+    next_model(torch)
+    with use_activation_sharding(mesh):
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter()
+        eng.generate(prompts, max_new=1)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t_gen
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t_gen = time.perf_counter()
+        ep = eng.generate(prompts, max_new=EP_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_gen
+        gen_counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        # the second generate, shorter (for time): its tokens and
+        # log-probabilities against the first generate's first EP_REPEAT_NEW
+        with moe.record_dispatch() as rec_gen:
+            again = eng.generate(prompts, max_new=EP_REPEAT_NEW)
+    expect_launches(gen_counts, gen_want, "expert-parallel generate")
+    paths = collections.Counter(r["path"] for r in rec_gen)
+    require(paths == {"shardmap": n_moe * EP_REPEAT_NEW},
+            f"expert-parallel generate's dispatch paths {dict(paths)}")
+    require(torch.equal(again.tokens, ep.tokens[:, :EP_REPEAT_NEW])
+            and torch.equal(again.logprobs, ep.logprobs[:, :EP_REPEAT_NEW]),
+            "expert-parallel: two generates differ")
+    require(peak <= ds_serve["peak_memory_bytes"] + EP_PEAK_SLACK,
+            f"expert-parallel peak memory {peak} beyond 7d's "
+            f"{ds_serve['peak_memory_bytes']} + {EP_PEAK_SLACK}")
+    t_prof = time.perf_counter()
+    with use_activation_sharding(mesh):
+        prof = serve_profile(torch, cfg, model, toks, steps=2)
+    prof_s = time.perf_counter() - t_prof
+    decode_s = wall - ttft
+    rows["expert-parallel"] = {
+        "mesh": {"data": 1, "model": EP_RANKS}, "prefill_gate": gate_prefill,
+        "decode_gate": gate_decode, "drops_a_layer_same_input": drops_ep,
+        "drops_equal_same_input": True, "layer_rel_l2_same_input_max": max(layer_rel),
+        "layer_tol_rel_l2": EP_LAYER_REL_TOL,
+        "rank_routed_piece_rel_min": min(min(r) for r, _ in pieces),
+        "rank_shared_piece_rel_min": min(min(s) for _, s in pieces),
+        "drops_a_layer_end_to_end": drops_e2e,
+        "drops_a_layer_end_to_end_single": drops_single,
+        "dispatch_paths": dict(paths), "ttft_s": ttft, "wall_s": wall,
+        "new_tokens": EP_NEW, "decode_ms_per_step": decode_s / (EP_NEW - 1) * 1e3,
+        "decode_ms_per_step_7d": ds_serve["decode_ms_per_step"],
+        "tokens_equal_placed_share": float((ep.tokens == placed.tokens[:, :EP_NEW])
+                                           .float().mean()),
+        "launches": gen_counts, "peak_memory_bytes": peak,
+        "peak_memory_bytes_7d": ds_serve["peak_memory_bytes"],
+        "serve_profile": prof, "two_generates_bit_equal": True,
+        "repeat_new_tokens": EP_REPEAT_NEW, "checks_s": checks_s, "profile_s": prof_s,
+        "seconds": time.perf_counter() - t}
+
+    # (e) one MoE layer across pods: EP over (pod 2) x (model 4)
+    t = time.perf_counter()
+    dropless = dataclasses.replace(spec, capacity_factor=e / k * 1.001)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x = torch.randn((SERVE["batch"], EP2D_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.cdt)
+    mesh2 = LMMesh((2, 1, 4), ("pod", "data", "model"), ["cuda:0"] * EP_RANKS)
+    with torch.inference_mode():
+        y_local = moe.apply_moe(layer0, x, dropless)
+        with use_activation_sharding(mesh2, moe_ep2d=True), moe.record_dispatch() as rec2:
+            y = moe.apply_moe(layer0, x, dropless)
+    require([r["path"] for r in rec2] == ["ep2d"], f"EP2D dispatch {rec2}")
+    rel = float((y.float() - y_local.float()).norm() / y_local.float().norm())
+    require(bool(torch.isfinite(y).all()) and rel < FULL_REL_TOL,
+            f"EP2D against the local path: relative L2 {rel}")
+    rows["ep2d"] = {"mesh": {"pod": 2, "data": 1, "model": 4}, "x": list(x.shape),
+                    "capacity_factor": dropless.capacity_factor, "rel_l2_err": rel,
+                    "tol_rel_l2": FULL_REL_TOL, "dropped": int(rec2[0]["dropped"]),
+                    "seconds": time.perf_counter() - t}
+    return rows
+
+
+def lm_collective_legs(torch, np, ops, flush) -> dict:
+    """(f) flash-decode over a seq-sharded cache at tinyllama-1.1b's decode
+    shape (q [8,32,64], cache [8,4,1152,64] bf16, kv_len 1024) in
+    SHARDED_DECODE_SHARDS shards of 288 rows (local lengths 288, 288, 288,
+    160): K5 with (m, l) on each shard, merged, against K5 on the whole
+    cache, each row within SERVE_ROW_REL_TOL of its norm; the shards'
+    launches timed beside the whole cache's. (g) ``ef_int8_psum`` over
+    EF_RANKS ranks of f32 [32000, 2048] (tinyllama's largest leaf): codes
+    and scales bit-equal to the CPU's on the same inputs, the error within
+    half a step, 50 feedback rounds averaging to the input within one
+    step."""
+    from repro_torch.parallel.collectives import (_quantize_int8, ef_int8_psum,
+                                                  sharded_decode_attention)
+
+    rows: dict = {}
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    b, hq, hkv, s_rows, d, kv = 8, 32, 4, 1152, 64, 1024
+    n_sh = SHARDED_DECODE_SHARDS
+    width = s_rows // n_sh
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kc, vc = (torch.randn((b, hkv, s_rows, d), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    kv_len = torch.full((b,), kv, dtype=torch.int32, device="cuda")
+    ks = [kc[:, :, i * width:(i + 1) * width].contiguous() for i in range(n_sh)]
+    vs = [vc[:, :, i * width:(i + 1) * width].contiguous() for i in range(n_sh)]
+    lens = [torch.clamp(kv_len - i * width, 0, width).to(torch.int32) for i in range(n_sh)]
+    ops.reset_launch_counts()
+    got = sharded_decode_attention(q, ks, vs, lens)[0]
+    expect_launches(ops.launch_counts(), {"decode_attention": n_sh}, "sharded decode")
+    whole = ops.decode_attention(q, kc, vc, kv_len)
+    shards_only = lambda: [ops.decode_attention(q, k_, v_, n_, return_lse=True)  # noqa: E731
+                           for k_, v_, n_ in zip(ks, vs, lens)]
+    rows["sharded-decode"] = {
+        "q": [b, hq, d], "cache": [b, hkv, s_rows, d], "kv_len": kv, "shards": n_sh,
+        "local_lengths": [int(n[0]) for n in lens],
+        **check_rows(torch, got, whole, SERVE_ROW_REL_TOL, "sharded decode vs whole cache"),
+        "shard_launches_ms": graph_ms(torch, shards_only, flush),
+        "sharded_with_combine_ms": graph_ms(
+            torch, lambda: sharded_decode_attention(q, ks, vs, lens), flush),
+        "whole_cache_ms": graph_ms(torch, lambda: ops.decode_attention(q, kc, vc, kv_len), flush),
+        "seconds": time.perf_counter() - t}
+    del q, kc, vc, ks, vs, got, whole
+
+    t = time.perf_counter()
+    shape = (32000, 2048)
+    gs = [torch.randn(shape, generator=gen, device="cuda") * 1e-2 for _ in range(EF_RANKS)]
+    errs = [torch.randn(shape, generator=gen, device="cuda") * 1e-5 for _ in range(EF_RANKS)]
+    g_hat, new_errs = ef_int8_psum(gs, errs)
+    worst, half_steps = 0.0, 0.0
+    for g, err, new_err in zip(gs, errs, new_errs):
+        x = g + err
+        codes, scale = _quantize_int8(x)
+        cpu_codes, cpu_scale = _quantize_int8(x.cpu())
+        require(torch.equal(codes.cpu(), cpu_codes) and scale.item() == cpu_scale.item(),
+                "ef_int8: codes or scale differ from the CPU's")
+        deq = codes.float() * scale
+        require(torch.equal(new_err, x - deq), "ef_int8: the carried error is not x - deq")
+        # half a step, and the roundings of x / scale and of deq (2^-24 of
+        # up to 127 steps each)
+        steps = float((x - deq).abs().max() / scale)
+        require(steps <= 0.5 + 1e-4, f"ef_int8: error {steps} steps, beyond half a step")
+        worst, half_steps = max(worst, steps), half_steps + float(scale) * 0.5
+        del x, deq, codes
+    x_mean = torch.stack([g + err for g, err in zip(gs, errs)]).mean(0)
+    mean_err = float((g_hat[0] - x_mean).abs().max())
+    require(mean_err <= half_steps / EF_RANKS * (1 + 1e-3),
+            f"ef_int8: the mean-reduced gradient is {mean_err} off the ranks' mean, beyond "
+            f"the mean half step {half_steps / EF_RANKS}")
+    del x_mean
+    x, err, acc = gs[0], torch.zeros_like(gs[0]), torch.zeros_like(gs[0])
+    for _ in range(50):
+        xe = x + err
+        codes, scale = _quantize_int8(xe)
+        deq = codes.float() * scale
+        err, acc = xe - deq, acc + deq
+    avg_err = float((acc / 50 - x).abs().max())
+    require(avg_err <= float(scale), f"ef_int8: 50 rounds average {avg_err} off, step "
+            f"{float(scale)}")
+    rows["ef-int8"] = {"ranks": EF_RANKS, "shape": list(shape), "codes_bit_equal_cpu": True,
+                       "worst_error_in_steps": worst, "mean_max_abs_err": mean_err,
+                       "feedback_50_max_abs_err": avg_err, "step": float(scale),
+                       "seconds": time.perf_counter() - t}
+    return rows
 
 
 def h2o_phase(torch, ops) -> tuple[dict, dict]:
@@ -3831,6 +4262,7 @@ def train_full_leg(torch, ops) -> dict:
     from repro_torch.launch import train as train_cli
     from repro_torch.models import init_lm
     from repro_torch.models.convert import tree_to_named
+    from repro_torch.parallel import roofline
     from repro_torch.serve import Engine, cache_rows
     from repro_torch.train import init_train_state, make_train_step
     from repro_torch.utils import tree_bytes, tree_param_count
@@ -3856,8 +4288,12 @@ def train_full_leg(torch, ops) -> dict:
                 f"train: first loss {losses[0]} not within 5% of ln {cfg.vocab} = {ln_v}")
         require(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
         n_params = tree_param_count(state["params"])
+        total, active = roofline.param_counts(cfg)
+        require(total == active == n_params,
+                f"train: the roofline counts {total} / {active} parameters, the state {n_params}")
         tokens = f["batch"] * f["seq"]
         step_s = sorted(trainer.step_seconds[1:])[len(trainer.step_seconds[1:]) // 2]
+        step_flops = roofline.model_flops(cfg, "train", f["batch"], f["seq"], n_active=active)
         param_bytes = tree_bytes(state["params"])
         opt_bytes = sum(tree_bytes(state["opt"][k]) for k in ("master", "m", "v"))
         ckpt = dict(trainer.checkpoints[-1])
@@ -3925,7 +4361,8 @@ def train_full_leg(torch, ops) -> dict:
         "losses": losses, "ln_vocab": ln_v, "run_s": run_s,
         "step_ms": [x * 1e3 for x in trainer.step_seconds],
         "median_step_ms_2_4": step_s * 1e3, "tokens_per_s": tokens / step_s,
-        "model_flop_share": 6 * n_params * tokens / step_s / BF16_FLOPS,
+        "model_flops": step_flops,
+        "model_flop_share": step_flops / step_s / roofline.PEAK_FLOPS,
         "peak_memory_bytes": peak, "param_bytes": param_bytes, "opt_bytes": opt_bytes,
         "train_state_bytes": param_bytes + opt_bytes,
         "checkpoint": {**ckpt, "bytes_on_disk": ckpt_bytes, "params_restore_s": restore_s,
@@ -3975,19 +4412,29 @@ def device_events(torch, fn, calls: int, cpu: bool) -> list:
     call) under torch.profiler. The profiler on the card loses kernel
     events near the edges of a window, more the longer the process has run
     (a window of 20 short calls lost them all late in a run), so the window
-    is padded with idle time on both sides."""
+    is padded with idle time on both sides; a window that recorded no
+    device event at all (the instrument's loss: every call launches a
+    kernel) is profiled again, up to PROFILE_TRIES times, the pad doubled
+    each time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] if cpu else []
-    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_PAD_S)
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_PAD_S)
-    return [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    pad = PROFILE_PAD_S
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        events = [e for e in prof.events()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if events:
+            return events
+        pad *= 2
+    return events
 
 
 def profiled_kernel_names(torch, fn, calls: int = 20) -> set:
@@ -4842,12 +5289,26 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
     # build's wait, with the side legs' processes stopped
     next_model(torch)
     t = time.perf_counter()
-    ds_rows, ds_counts = deepseek_phase(torch, ops)
+    ds_rows, ds_counts, ds_model = deepseek_phase(torch, ops)
     emit({"phase": "deepseek-full", "graph_built": host.ready(), **ds_rows["full"]})
     emit({"phase": "deepseek-serve", **ds_rows["serve"]})
     emit({"phase": "deepseek-serve-profile", **ds_rows["serve_profile"]})
     emit({"phase": "deepseek-moe", **ds_rows["moe"], "seconds": time.perf_counter() - t})
-    del ds_rows
+
+    # 7j. on 7d's model: its experts placed by Revolver (K1, K2), served
+    # permuted, then expert-parallel on 8 ranks of the card and across pods;
+    # then the sharded flash-decode (K5) and the int8 all-reduce
+    t = time.perf_counter()
+    for leg, row in placement_legs(torch, np, ops, *ds_model, ds_rows["serve"]).items():
+        emit({"phase": f"placement-{leg}", **row})
+    del ds_rows, ds_model
+    next_model(torch)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
+    for leg, row in lm_collective_legs(torch, np, ops, flush).items():
+        emit({"phase": f"placement-{leg}", **row})
+    del flush
+    emit({"phase": "placement", "graph_built": host.ready(),
+          "seconds": time.perf_counter() - t})
 
     # 7e. h2o-danube-3-4b at full width (sliding window 4096, K4 and K5 at
     # head dim 120, the ring decode through K5), in the same wait

@@ -4,8 +4,9 @@
 (d_ff=12288); q_lora_rank=1536.
 
 Pure full attention over the (compressed) cache. 235.7 B parameters (471
-GB in bf16) fit neither one card nor four: the port runs it reduced only,
-until expert and tensor parallelism (ROADMAP queue 1 item 18).
+GB in bf16) fit neither one card nor four: the port runs it reduced only.
+Its expert-parallel path exists (`repro_torch.models.moe` over an
+`LMMesh`); a host with the cards to hold it does not (ROADMAP item 18).
 """
 from repro_torch.models.config import ModelConfig
 

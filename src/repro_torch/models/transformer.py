@@ -15,8 +15,9 @@ embeddings (``frontend`` [B, n_patches, d]) before the token embeddings;
 positions count the patches, so the cache holds them and decode starts at
 n_patches + P. The Mamba2 hybrid is `repro_torch.models.zamba`, the
 encoder-decoder `repro_torch.models.whisper`. `repro`'s
-``maybe_gather_hidden`` / ``maybe_shard_hidden`` are the identity on one
-device and have no counterpart.
+``maybe_gather_hidden`` / ``maybe_shard_hidden`` only constrain XLA's
+layout and have no counterpart (`repro_torch.parallel.act_sharding`); under
+a mesh context an MoE block takes its expert-parallel path.
 
 Paths:
   decoder_hidden       tokens -> final hidden (the teacher-forced pass;

@@ -1,6 +1,9 @@
-"""The sharded partitioner superstep's collectives, in one process.
+"""Collectives of the port's single-process meshes.
 
-The port of `repro.parallel.collectives`' partitioner primitives
+The port of `repro.parallel.collectives`: the LM collectives
+(``lse_combine`` and ``sharded_decode_attention``, flash-decode over a
+seq-sharded KV cache through K5; ``ef_int8_psum``, the error-feedback
+int8 gradient all-reduce) and the partitioner primitives
 (``gather_shards``, ``psum_delta_merge``, ``vertex_halo_exchange``,
 ``hub_gather``, ``shard_chain_key``) and the hub vote merge of `repro`'s
 reconcile (``hub_votes``). `repro` runs them inside ``shard_map``
@@ -10,6 +13,11 @@ the per-shard tensor list (shard s's tensor on ``mesh.device_of(s)``) and
 the mesh, made of concatenations, indexed gathers and
 ``.to(dst, non_blocking=True)`` copies. Results come back as per-shard
 lists in shard order; shards on one device may share a read-only result.
+The LM collectives take an `LMMesh` or a `BlocksMesh` (its ranks are the
+shards) for the group they reduce over, or ``None`` for one result.
+
+Division is by 0-dim device tensors, never by a host scalar: CUDA turns
+the latter into a multiply by the reciprocal, which rounds otherwise.
 """
 from __future__ import annotations
 
@@ -50,10 +58,14 @@ def psum(xs: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
     order, and equal `repro`'s f32 psum below 2^24."""
     home = xs[0].device
 
-    def acc_dtype(x):
+    def acc(x):
         return torch.float64 if x.is_floating_point() else torch.int64
 
-    total = torch.stack([_to(x, home).to(acc_dtype(x)) for x in xs]).sum(0).to(xs[0].dtype)
+    if len({x.dtype for x in xs}) == 1:         # one stack, one widening cast
+        total = torch.stack([_to(x, home) for x in xs]).to(acc(xs[0])).sum(0)
+    else:
+        total = torch.stack([_to(x, home).to(acc(x)) for x in xs]).sum(0)
+    total = total.to(xs[0].dtype)
     if mesh is None:
         return [total]
     return _per_device(mesh, lambda dev: _to(total, dev))
@@ -143,6 +155,98 @@ def hub_votes(labels: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
     return total.to(torch.int32).view(hub_pad, k)
 
 
+def _div(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` as an IEEE division by a cached 0-dim f32 tensor on
+    ``x``'s device (module docstring)."""
+    from repro_torch.core.device_graph import scalar_device
+    return x / scalar_device(float(value), x.device)
+
+
+# --------------------------------------------------------------------------
+# flash-decode over a seq-sharded KV cache
+# --------------------------------------------------------------------------
+def lse_combine(os: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
+                ls: Sequence[torch.Tensor], mesh=None) -> List[torch.Tensor]:
+    """Merge per-shard partial attention — outputs ``os[s]`` [..., D], running
+    maxima ``ms[s]`` and sums ``ls[s]`` [...] — into the full softmax output
+    (f32), `repro`'s ``lse_combine_psum``: each shard's normalised output is
+    reweighted by its mass ``exp(m_s - max_s m) * l_s``. The sums run in
+    shard order on shard 0's device; every shard gets the result on its
+    device (``mesh=None``: one entry)."""
+    home = os[0].device
+    o = [_to(x, home).float() for x in os]
+    m = [_to(x, home) for x in ms]
+    l_ = [_to(x, home) for x in ls]
+    m_g = torch.stack(m).amax(0)
+    scale = [torch.exp(mi - m_g) * li for mi, li in zip(m, l_)]
+    denom = scale[0]
+    num = o[0] * scale[0][..., None]
+    for oi, si in zip(o[1:], scale[1:]):
+        denom = denom + si
+        num = num + oi * si[..., None]
+    out = num / torch.clamp_min(denom, 1e-30)[..., None]
+    if mesh is None:
+        return [out]
+    return _per_device(mesh, lambda dev: _to(out, dev))
+
+
+def sharded_decode_attention(q: torch.Tensor, k_shards: Sequence[torch.Tensor],
+                             v_shards: Sequence[torch.Tensor],
+                             kv_len_locals: Sequence[torch.Tensor], mesh=None) -> List[torch.Tensor]:
+    """Flash-decode where the cache's seq axis is split into shards:
+    q [B,Hq,D] (replicated), ``k_shards[s]`` / ``v_shards[s]``
+    [B,Hkv,S_s,D] on shard s's device, ``kv_len_locals[s]`` [B] int32 the
+    valid length within shard s. Each shard runs K5
+    (`ops.decode_attention` with ``return_lse``); the partials merge in
+    f32 (`lse_combine`) and are cast to q's dtype. Returns [B,Hq,D] for
+    each shard (``mesh=None``: one entry). A shard with no valid row adds
+    nothing (K5 gives it l = 0)."""
+    from repro_torch.kernels import ops
+
+    os, ms, ls = [], [], []
+    for k, v, n in zip(k_shards, v_shards, kv_len_locals):
+        o, m, l_ = ops.decode_attention(_to(q, k.device), k, v, n, return_lse=True)
+        os.append(o)
+        ms.append(m)
+        ls.append(l_)
+    return [x.to(q.dtype) for x in lse_combine(os, ms, ls, mesh)]
+
+
+# --------------------------------------------------------------------------
+# error-feedback int8 compressed all-reduce (gradient compression)
+# --------------------------------------------------------------------------
+def _quantize_int8(x: torch.Tensor):
+    """Symmetric per-tensor int8 codes of f32 ``x`` and their scale (0-dim
+    f32): scale = (max |x| + 1e-12) / 127, codes = round-half-even(x /
+    scale) clipped to [-127, 127], as `repro`'s."""
+    amax = x.abs().amax() + 1e-12
+    scale = _div(amax, 127.0)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def ef_int8_psum(gs: Sequence[torch.Tensor], errs: Sequence[torch.Tensor], mesh=None):
+    """`repro`'s ``ef_int8_psum`` over the ranks of ``gs``: each rank
+    quantises its gradient plus its carried error to int8 (the wire format,
+    4x smaller than f32), the dequantised values are summed across ranks
+    (`psum`) and divided by the rank count. Returns (the mean-reduced f32
+    gradient for each rank, each rank's new error ``g + err - deq``); the
+    residual carried to the next step keeps the compression unbiased in
+    the long run."""
+    deqs, new_errs = [], []
+    for g, err in zip(gs, errs):
+        x = g.float() + err
+        q, scale = _quantize_int8(x)
+        deq = q.float() * scale
+        new_errs.append(x - deq)
+        deqs.append(deq)
+    total = psum(deqs, None)[0]
+    mean = _div(total, float(len(deqs)))
+    if mesh is None:
+        return [mean], new_errs
+    return _per_device(mesh, lambda dev: _to(mean, dev)), new_errs
+
+
 def _derived_seed(gen: torch.Generator, s: int) -> int:
     """A 63-bit seed from the generator's state bytes and ``s``. Reading a
     CUDA generator's state reads its host-side seed and offset: no sync."""
@@ -177,6 +281,7 @@ def replicated_key(gen: torch.Generator, mesh) -> List[torch.Generator]:
     return out
 
 
-__all__ = ["gather_shards", "psum", "psum_delta_merge", "halo_exchange",
+__all__ = ["lse_combine", "sharded_decode_attention", "ef_int8_psum",
+           "gather_shards", "psum", "psum_delta_merge", "halo_exchange",
            "vertex_halo_exchange", "hub_gather", "hub_votes", "shard_chain_key",
            "replicated_key"]
