@@ -104,7 +104,9 @@ failure raises and the script exits non-zero without printing a result:
               checkpoint's parameters read back bit-equal; a second run
               from the seed bit-equal; the median step time of steps 2-4, tokens/s, the
               model-FLOP share (6 N tokens over the step time and 989
-              TFLOP/s), peak memory, the train state's bytes, one more
+              TFLOP/s), peak memory (within 1.25x either way of the dry
+              run's argument + output + temp bytes at batch 8 x 512 on the
+              one-rank host mesh, as in 7k), the train state's bytes, one more
               step profiled (busy share, kernels), the checkpoint's save
               and restore seconds; no kernel launched in (a) or (b); (c)
               ``launch/serve.py --ckpt-dir`` on that checkpoint (batch 8,
@@ -218,6 +220,22 @@ failure raises and the script exits non-zero without printing a result:
               (from one layer's count), both `repro`'s; batch 8, 1024-token
               prompts, 128 new tokens, gated and served as 7g: K4 8, K5
               1,016
+  7k. dryrun (after 7i) the dry run (`repro_torch.launch.dryrun`, meta
+              tensors on the CPU) of tinyllama-1.1b's prefill_32k and
+              decode_32k on the production single-pod mesh and, at the
+              card's batch, on the one-rank host mesh; then tinyllama-1.1b
+              at full width and depth, bf16, random weights from seed 0:
+              (a) one prefill step of 32,768 tokens at batch 1 (K4 22),
+              (b) a prefill of 32,760 tokens at batch 8 into a 32,768-row
+              cache (5.9 GB), then 4 decode steps (K4 22, K5 88), every
+              launch counter set to 0 just before each leg and read just
+              after, the logits finite; each leg's peak memory within 1.25x
+              of the host row's argument + output + temp bytes either way,
+              its step time printed beside the row's roofline bound; then
+              K4 at S 32,768 against its plain version in query blocks of
+              1,024 and K5 at kv_len 32,764 (on the leg's cache) against
+              its plain version, each row within 1e-2 of its norm and
+              within ATTN_TOL["bfloat16"], timed as in phase 13 beside SDPA
  8. graph    the paper's WIKI graph at full size (1.79M vertices), built on
               the host (by a worker process started before phase 2,
               overlapping phases 2-7, which then coarsens it for phase 11d
@@ -561,6 +579,15 @@ TRAIN_ZERO_TOL = 1e-6         # a leaf zero up to rounding: below this x the glo
 TRAIN_MB_RTOL = 1e-5          # microbatch 2 against 1: loss and grad norm
 TRAIN_FULL = dict(arch="tinyllama-1.1b", batch=8, seq=512, steps=4, lr=1e-3)
 TRAIN_SERVE = dict(batch=8, prompt=1024, new=16)
+# phase 7k: tinyllama-1.1b at the dry run's prefill_32k (batch 1) and
+# decode_32k (batch 8: a prefill of seq - decode_headroom tokens, then
+# decode_steps decode steps into a seq-row cache); the dry run's bytes
+# against the card's peak within DRYRUN_MEM_FACTOR either way; K4's plain
+# version at S 32,768 in query blocks of DRYRUN_PLAIN_BLOCK rows ([1,4,8,
+# 1024,32768] f32 scores, 4.3 GB, at the last)
+DRYRUN = dict(seq=32_768, prefill_batch=1, decode_batch=8, decode_headroom=8, decode_steps=4)
+DRYRUN_MEM_FACTOR = 1.25
+DRYRUN_PLAIN_BLOCK = 1024
 # phase 7j: deepseek-v2-lite-16b's 64 experts placed on 8 expert-parallel
 # ranks of the card (Revolver, up to PLACE_STEPS supersteps a layer); the
 # expert-parallel generate's peak may exceed 7d's by EP_PEAK_SLACK bytes
@@ -4081,6 +4108,205 @@ def serve_leg(torch, ops, arch: str, serve: dict, n_params_want: int, **changes)
 
 
 # --------------------------------------------------------------------------
+# phase 7k: the dry run's counts against the card
+# --------------------------------------------------------------------------
+def dryrun_rows(cells) -> dict:
+    """`repro_torch.launch.dryrun` rows (CPU work on the meta device): each
+    of ``cells`` (arch, shape name, mesh name, ShapeSpec or None)."""
+    from repro_torch.launch.dryrun import dryrun_cell
+
+    rows = {}
+    for arch, shape_name, mesh_name, shape in cells:
+        t = time.perf_counter()
+        row = dryrun_cell(arch, shape_name, mesh_name, shape=shape, verbose=False)
+        row.pop("provenance")
+        row["wall_s"] = time.perf_counter() - t
+        rows[f"{arch}/{shape_name}/{mesh_name}"] = row
+    return rows
+
+
+def dry_run_vs_card(row: dict, peak: int, step_s: float) -> dict:
+    """A dry-run row beside the card: its per-rank bytes (argument +
+    output + temp) against ``torch.cuda.max_memory_allocated`` over the
+    step (within DRYRUN_MEM_FACTOR either way), and the step's wall time
+    against the roofline bound max(compute_s, memory_s)."""
+    mem = row["mem"]
+    counted = (mem["argument_gb"] + mem["output_gb"] + mem["temp_gb"]) * 1e9
+    ratio = counted / peak
+    require(1 / DRYRUN_MEM_FACTOR <= ratio <= DRYRUN_MEM_FACTOR,
+            f"{row['arch']} {row['shape']}: the dry run counts {counted:.4e} bytes, the card "
+            f"peaked at {peak} (ratio {ratio:.4f}, allowed {DRYRUN_MEM_FACTOR})")
+    bound_s = max(row["compute_s"], row["memory_s"])
+    return {"dryrun_bytes": counted, "peak_memory_bytes": peak, "bytes_ratio": ratio,
+            "mem_factor": DRYRUN_MEM_FACTOR, "dryrun_mem_gb": mem,
+            "step_s": step_s, "bound_s": bound_s, "bound_by": row["bottleneck"],
+            "compute_s": row["compute_s"], "memory_s": row["memory_s"],
+            "step_over_bound": step_s / bound_s, "dryrun_flops": row["flops"],
+            "dryrun_bytes_moved": row["bytes"], "dryrun_kernel_calls": row["kernel_calls"]}
+
+
+def k4_blocked_plain(torch, q, k, v, block: int = DRYRUN_PLAIN_BLOCK):
+    """K4's plain version at a causal shape too long for its whole score
+    matrix, in query blocks: block i's queries against the keys up to its
+    last row (the right-aligned causal rows of the whole), concatenated."""
+    from repro_torch.kernels import flash_attention as k4
+
+    s = q.shape[2]
+    return torch.cat([k4.flash_attention_plain(q[:, :, i:i + block], k[:, :, :i + block],
+                                               v[:, :, :i + block])
+                      for i in range(0, s, block)], dim=2)
+
+
+def dryrun_phase(torch, ops) -> tuple[dict, dict]:
+    """Phase 7k: tinyllama-1.1b at full width and depth (bf16, random
+    weights from SEED), its dry-run rows on the one-rank host mesh beside
+    the card. (a) prefill_32k at batch 1: one prefill step of 32,768
+    tokens (K4 causal at D 64, 22 launches); (b) decode_32k at batch 8:
+    a prefill of 32,760 tokens into a 32,768-row cache, then 4 decode
+    steps (K5 at kv_len up to 32,764, 88 launches). Every launch counter
+    set to 0 just before each leg and read just after; the logits finite;
+    each leg's peak memory against the row's bytes and its step time
+    against the row's bound (`dry_run_vs_card`). Then K4 at S 32,768 held
+    against its plain version in query blocks, K5 at kv_len 32,764 against
+    its plain version, each timed beside the plain version and SDPA, with
+    its bound. Also the same two cells on the production single-pod mesh.
+    Returns (the phase's rows, the two kernel records)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    arch, s = "tinyllama-1.1b", DRYRUN["seq"]
+    pre_shape = ShapeSpec("prefill_32k", s, DRYRUN["prefill_batch"], "prefill")
+    dec_shape = ShapeSpec("decode_32k", s, DRYRUN["decode_batch"], "decode")
+    t = time.perf_counter()
+    rows = dryrun_rows([(arch, "prefill_32k", "host", pre_shape),
+                        (arch, "decode_32k", "host", dec_shape),
+                        (arch, "prefill_32k", "single", None),
+                        (arch, "decode_32k", "single", None)])
+    count_s = time.perf_counter() - t
+    out = {"dryrun_rows": rows, "dryrun_count_s": count_s}
+    cfg, model, _, n_params = full_width_model(torch, arch, serve=dict(batch=1, prompt=0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    # (a) prefill_32k at batch 1
+    toks = torch.randint(0, cfg.vocab, (pre_shape.global_batch, s), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg, s)
+    times = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if i == 0:
+            ops.reset_launch_counts()
+        t = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = prefill(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if i == 0:
+            pre_counts = ops.launch_counts()
+            pre_peak = torch.cuda.max_memory_allocated()
+            expect_launches(pre_counts, {"flash_attention": cfg.n_layers}, "7k prefill_32k")
+        require(bool(torch.isfinite(logits).all()), "7k prefill_32k: non-finite logits")
+        require(tuple(logits.shape) == (pre_shape.global_batch, cfg.vocab),
+                f"7k prefill_32k: logits {tuple(logits.shape)}")
+        del logits, cache
+    out["prefill_32k"] = {"arch": arch, "params": n_params, "batch": pre_shape.global_batch,
+                          "tokens": s, "launches": pre_counts, "step_s_runs": times,
+                          **dry_run_vs_card(rows[f"{arch}/prefill_32k/host"], pre_peak,
+                                            min(times))}
+    del toks
+    next_model(torch)
+
+    # (b) decode_32k at batch 8: prefill to 32,760, then 4 decode steps
+    b, p = dec_shape.global_batch, s - DRYRUN["decode_headroom"]
+    toks = torch.randint(0, cfg.vocab, (b, p + DRYRUN["decode_steps"]), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    decode = make_decode_step(cfg)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        t = time.perf_counter()
+        logits, cache = prefill(model, {"tokens": toks[:, :p]})
+        torch.cuda.synchronize()
+        dec_prefill_s = time.perf_counter() - t
+        require(bool(torch.isfinite(logits).all()), "7k decode_32k: non-finite prefill logits")
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        for j in range(DRYRUN["decode_steps"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = decode(model, cache, toks[:, p + j])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            require(bool(torch.isfinite(logits).all()), f"7k decode_32k: step {j} non-finite")
+        dec_peak = torch.cuda.max_memory_allocated()
+    dec_counts = ops.launch_counts()
+    expect_launches(dec_counts, {"flash_attention": cfg.n_layers,
+                                 "decode_attention": cfg.n_layers * DRYRUN["decode_steps"]},
+                    "7k decode_32k")
+    kv_len = int(cache["pos"][0])
+    require(kv_len == p + DRYRUN["decode_steps"], f"7k decode_32k: cache at {kv_len}")
+    out["decode_32k"] = {"arch": arch, "batch": b, "prefill_tokens": p,
+                         "prefill_s": dec_prefill_s, "kv_len_last": kv_len,
+                         "cache_bytes": sum(x.numel() * x.element_size()
+                                            for x in cache["main"]),
+                         "launches": dec_counts, "step_s_runs": step_s,
+                         **dry_run_vs_card(rows[f"{arch}/decode_32k/host"], dec_peak,
+                                           sorted(step_s)[len(step_s) // 2])}
+
+    # K5 at kv_len 32,764 on layer 0 of the live cache, against its plain version
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
+    el, hq, hkv, d = 2, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    kc, vc = cache["main"][0][0], cache["main"][1][0]
+    qd = torch.randn((b, hq, d), generator=gen, device="cuda").to(cfg.cdt)
+    lens = torch.full((b,), kv_len, dtype=torch.int32, device="cuda")
+    k5_fn = lambda: k5.decode_attention_cuda(qd, kc, vc, lens)  # noqa: E731
+    k5_plain = lambda: k5.decode_attention_plain(qd, kc, vc, lens)  # noqa: E731
+    want = k5_plain()
+    k5_err = check_rows(torch, k5_fn(), want, SERVE_ROW_REL_TOL, "K5 at kv_len 32,764")
+    check_close(torch, k5_fn(), want, ATTN_TOL["bfloat16"], "K5 at kv_len 32,764")
+    mask = (torch.arange(kc.shape[2], device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    k5_rec = attention_record(
+        torch, flush, "decode_attention_kv32764", "decode_attention", k5_fn, k5_plain,
+        lambda: F.scaled_dot_product_attention(qd[:, :, None], kc, vc, attn_mask=mask,
+                                               enable_gqa=True),
+        k5_err, el * (2 * b * hkv * kv_len * d + 2 * b * hq * d) + 4 * b,
+        4 * d * b * hq * kv_len,
+        f"q [{b},{hq},{d}] caches [{b},{hkv},{kc.shape[2]},{d}] bf16 kv_len {kv_len}")
+    k5_rec["launches"] = dec_counts["decode_attention"]
+    del cache, logits, toks, want, kc, vc, mask
+    del model
+    next_model(torch)
+
+    # K4 at S 32,768 (the prefill_32k shape), against its plain version in
+    # query blocks
+    q = torch.randn((pre_shape.global_batch, hq, s, d), generator=gen, device="cuda").to(cfg.cdt)
+    k = torch.randn((pre_shape.global_batch, hkv, s, d), generator=gen, device="cuda").to(cfg.cdt)
+    v = torch.randn((pre_shape.global_batch, hkv, s, d), generator=gen, device="cuda").to(cfg.cdt)
+    k4_fn = lambda: k4.flash_attention_cuda(q, k, v)  # noqa: E731
+    k4_plain = lambda: k4_blocked_plain(torch, q, k, v)  # noqa: E731
+    want = k4_plain()
+    got = k4_fn()
+    k4_err = check_rows(torch, got, want, SERVE_ROW_REL_TOL, "K4 at S 32,768")
+    check_close(torch, got, want, ATTN_TOL["bfloat16"], "K4 at S 32,768")
+    del got, want
+    pairs = k4.attention_pairs(s, s, causal=True, window=None)
+    k4_rec = attention_record(
+        torch, flush, "flash_attention_s32768", "flash_attention", k4_fn, k4_plain,
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        k4_err, el * (2 * q.numel() + 2 * k.numel()), 4 * d * pre_shape.global_batch * hq * pairs,
+        f"q [{pre_shape.global_batch},{hq},{s},{d}] kv [{pre_shape.global_batch},{hkv},{s},{d}] "
+        "bf16 causal", plain_reps=3)
+    k4_rec["launches"] = pre_counts["flash_attention"]
+    del q, k, v, flush
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out, {"flash_attention_s32768": k4_rec, "decode_attention_kv32764": k5_rec}
+
+
+# --------------------------------------------------------------------------
 # the train phase
 # --------------------------------------------------------------------------
 def train_batch(torch, cfg, b: int, s: int, seed: int, device, mask: bool = True) -> dict:
@@ -4249,7 +4475,10 @@ def train_full_leg(torch, ops) -> dict:
     serving restore) bit-equal; a second run from the same seed (the step
     function alone) bit-equal; one more step profiled. Then ``launch/serve.py --ckpt-dir`` on the checkpoint
     against an `Engine` on the trainer's parameters in memory: the same
-    greedy tokens. The directory is removed in any case."""
+    greedy tokens. The directory is removed in any case. The run's peak
+    memory is held to the dry run's row at its shape on the one-rank host
+    mesh (`dry_run_vs_card`), the one check of the counter's training
+    temporaries against the card."""
     import math
     import shutil
     import tempfile
@@ -4257,6 +4486,7 @@ def train_full_leg(torch, ops) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.checkpoint import load_checkpoint_tensors, unflatten
+    from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.data import make_batch
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
@@ -4294,6 +4524,11 @@ def train_full_leg(torch, ops) -> dict:
         tokens = f["batch"] * f["seq"]
         step_s = sorted(trainer.step_seconds[1:])[len(trainer.step_seconds[1:]) // 2]
         step_flops = roofline.model_flops(cfg, "train", f["batch"], f["seq"], n_active=active)
+        # the dry run's row at this shape on the one-rank host mesh: the
+        # counter's training temporaries (remat) against the card's peak
+        dry = dryrun_rows([(f["arch"], "train_512", "host",
+                            ShapeSpec("train_512", f["seq"], f["batch"], "train"))])
+        dry_vs_card = dry_run_vs_card(dry[f"{f['arch']}/train_512/host"], peak, step_s)
         param_bytes = tree_bytes(state["params"])
         opt_bytes = sum(tree_bytes(state["opt"][k]) for k in ("master", "m", "v"))
         ckpt = dict(trainer.checkpoints[-1])
@@ -4364,7 +4599,7 @@ def train_full_leg(torch, ops) -> dict:
         "model_flops": step_flops,
         "model_flop_share": step_flops / step_s / roofline.PEAK_FLOPS,
         "peak_memory_bytes": peak, "param_bytes": param_bytes, "opt_bytes": opt_bytes,
-        "train_state_bytes": param_bytes + opt_bytes,
+        "train_state_bytes": param_bytes + opt_bytes, "dryrun": dry_vs_card,
         "checkpoint": {**ckpt, "bytes_on_disk": ckpt_bytes, "params_restore_s": restore_s,
                        "params_restore_bit_equal": True},
         "two_runs_bit_equal": True, "profiled_step": step_profile,
@@ -4612,20 +4847,24 @@ def attention_serve_kernels(torch, flush) -> dict:
 
 
 def attention_record(torch, flush, name, source_kernel, fn, plain, library, err, nbytes,
-                     flops, shape) -> dict:
+                     flops, shape, plain_reps: int | None = None) -> dict:
     """A K4 or K5 call ``fn`` at one shape, already held to its plain
     version (``err``): two calls bit-equal, then it, the plain version and
     the ``library`` call timed replayed from a CUDA graph (the eager time
-    beside), with the bound of ``nbytes`` and ``flops`` (bf16)."""
+    beside), with the bound of ``nbytes`` and ``flops`` (bf16). With
+    ``plain_reps`` the plain version is timed eager over that many calls
+    (a graph would keep every block's buffers of a blocked plain version)."""
     require(torch.equal(fn(), fn()), f"{name}: two calls differ")
     ms = graph_ms(torch, fn, flush)
+    plain_ms = (graph_ms(torch, plain, flush) if plain_reps is None
+                else time_ms(torch, plain, flush, reps=plain_reps, warmup=1))
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
     rec = {"name": name, "route": "cuda",
            "source": f"src/repro_torch/kernels/csrc/{source_kernel}.cu",
            "replaces": ("src/repro/kernels/flash_attention.py:97"
                         if source_kernel == "flash_attention"
                         else "src/repro/kernels/decode_attention.py:78"),
-           **err, "ms": ms, "plain_ms": graph_ms(torch, plain, flush),
+           **err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
            "bound_ops_ms": flops / BF16_FLOPS * 1e3,
            "library_ms": graph_ms(torch, library, flush), "eager_ms": time_ms(torch, fn, flush),
@@ -5352,6 +5591,19 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
         del rows
     next_model(torch)
 
+    # 7k. the dry run of tinyllama-1.1b's prefill_32k and decode_32k beside
+    # the card: peak memory against its bytes, step time against its bound,
+    # K4 at S 32,768 and K5 at kv_len 32,764 against their plain versions
+    t = time.perf_counter()
+    dry, dry_records = dryrun_phase(torch, ops)
+    for cell, row in dry.pop("dryrun_rows").items():
+        emit({"phase": "dryrun-row", "cell": cell, **row})
+    for leg in ("prefill_32k", "decode_32k"):
+        emit({"phase": f"dryrun-{leg}", **dry.pop(leg)})
+    emit({"phase": "dryrun", "graph_built": host.ready(), **dry,
+          "seconds": time.perf_counter() - t})
+    next_model(torch)
+
     # 8. graph: full-size WIKI, host build (started above) then device layout
     t = time.perf_counter()
     g, gen_s = host.graph()
@@ -5519,6 +5771,10 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
         emit(rec)
     emit({"phase": "encdec-vlm-kernels",
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    # K4 at S 32,768 and K5 at kv_len 32,764: their launches in phase 7k
+    for name, rec in dry_records.items():
+        records[name] = rec
+        emit(rec)
 
     # 14. rwkv6-3b served through the same entry point: K6 once per layer in
     # prefill and once per layer and decode step

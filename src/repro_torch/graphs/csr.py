@@ -17,14 +17,15 @@ Two views of the graph are needed:
 Everything is built once on the host in numpy and then moved to device
 tensors (`repro_torch.core.device_graph`). This module is the port's own copy
 of `repro.graphs.csr`: the batch builder, the sorted-key merge primitives of
-the streaming subsystem and the contraction primitives of the V-cycle. The
+the streaming subsystem, the contraction primitives of the V-cycle and the
+Table-I statistics (`graph_stats`). The
 arithmetic is unchanged, so both packages build identical arrays from the
 same input (tests/test_torch_graphs.py pins that).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -341,3 +342,27 @@ def contract_graph(g: Graph, cmap: np.ndarray, n_coarse: int) -> Tuple[Graph, np
         deg_out=deg_out,
     )
     return coarse, self_w.astype(np.float32)
+
+
+def graph_stats(g: Graph) -> Dict[str, float]:
+    """Table I statistics: density and Pearson's 1st skewness coefficient.
+
+    density  D = |E| / (|V| * (|V|-1))
+    skewness = (mean - mode) / std     over the outdegree distribution
+    """
+    deg = g.deg_out.astype(np.float64)
+    mean = float(deg.mean())
+    std = float(deg.std())
+    # mode of the outdegree distribution
+    counts = np.bincount(g.deg_out)
+    mode = float(np.argmax(counts))
+    skew = 0.0 if std == 0 else (mean - mode) / std
+    density = g.m / (g.n * max(g.n - 1, 1))
+    return {
+        "n": float(g.n),
+        "m": float(g.m),
+        "density": density,
+        "skewness": skew,
+        "mean_deg": mean,
+        "max_deg": float(deg.max()) if g.n else 0.0,
+    }

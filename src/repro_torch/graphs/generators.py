@@ -144,6 +144,28 @@ def dc_sbm(
     return build_graph(src, dst, n_eff)
 
 
+def ring_of_cliques(n_cliques: int, clique_size: int, *, seed: int = 0) -> Graph:
+    """Planted-partition test graph: k dense cliques + a sparse ring.
+
+    Ground truth: the optimal k-way partition assigns one clique per part;
+    used by unit tests to check that Revolver recovers high local-edges.
+    """
+    n = n_cliques * clique_size
+    src, dst = [], []
+    for c in range(n_cliques):
+        base = c * clique_size
+        for i in range(clique_size):
+            for j in range(clique_size):
+                if i != j:
+                    src.append(base + i)
+                    dst.append(base + j)
+        # one ring edge to the next clique
+        nxt = ((c + 1) % n_cliques) * clique_size
+        src.append(base)
+        dst.append(nxt)
+    return build_graph(np.array(src), np.array(dst), n)
+
+
 def edge_split(g: Graph, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """Return (src, dst) arrays of the directed edge list (for re-generation)."""
     src = np.repeat(np.arange(g.n, dtype=np.int32), np.diff(g.row_ptr).astype(np.int64))

@@ -23,6 +23,10 @@ Two implementations of one function:
     combines the partials in split order over distributed shared memory.
     No scratch in device memory, no atomics: deterministic.
 
+On the meta device (the dry run) `decode_attention_meta` stands in for the
+kernel: it returns the outputs' shapes and the kernel's counted work, which
+`ops.decode_attention` reports to the cost counter.
+
 They differ in summation order (the kernel folds the cache in tiles and
 splits) and, for bf16, in the kernel's rounding of the probabilities to
 bf16 before P.V (at most 2^-9 relative a term; m and l are taken from the
@@ -67,6 +71,24 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     if return_lse:
         return o, m.reshape(b, hq), l.reshape(b, hq)
     return o
+
+
+def decode_attention_meta(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                          return_lse: bool = False):
+    """K5 on meta tensors: (outputs of the kernel's shapes, its counted
+    work (FLOPs, the tensors read once, the tensors written once)).
+    kv_len's values are unknown on meta, so every cache position counts:
+    the dry run's decode shapes attend a full cache. 4·D FLOPs a position
+    and q head; q, the caches and kv_len read, the outputs written
+    (``chip_smoke.py``'s K5 bound)."""
+    b, hq, d = q.shape
+    out = torch.empty_like(q)
+    m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    outs = (out, m, l) if return_lse else (out,)
+    return (outs if return_lse else out), (4 * d * b * hq * k_cache.shape[2],
+                                           (q, k_cache, v_cache, kv_len), outs)
 
 
 def split_plan(b: int, hkv: int, s_max: int, n_sm: int) -> tuple[int, int]:

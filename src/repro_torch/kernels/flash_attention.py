@@ -27,12 +27,18 @@ Two implementations of one function:
     the f32 parity checks need (the reduced MLA configs' heads are 24
     wide).
 
+On the meta device (the dry run) `flash_attention_meta` stands in for the
+kernel: it returns the output's shape and the kernel's counted work, which
+`ops.flash_attention` reports to the cost counter.
+
 They differ in summation order and, in the tensor-core body, in P's
 rounding to bf16 before P.V (at most 2^-9 relative a term, the order of
 the output's own bf16 rounding; ``tests/test_torch_attention.py`` repeats
 that body's arithmetic in PyTorch and holds it to the plain version).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -82,6 +88,33 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     o = o / torch.where(l > 0, l, 1.0)
     return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def attention_pairs(sq: int, skv: int, *, causal: bool, window: int | None) -> int:
+    """How many (query, key) pairs the mask keeps for Sq right-aligned
+    queries against Skv keys: the score and P.V work K4 must do (it skips
+    the tiles the mask kills)."""
+    total = 0
+    for i in range(sq):
+        p = i + skv - sq                        # the query's position
+        lo = 0 if window is None else max(0, p - window + 1)
+        hi = min(p + 1, skv) if causal else skv
+        total += max(0, hi - lo)
+    return total
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int | None = None):
+    """K4 on meta tensors: (an output of q's shape and dtype, the kernel's
+    counted work (FLOPs, the tensors read once, the tensors written once))
+    — 4·D FLOPs a kept (query, key) pair and head (q.k and p.v), q, k, v
+    read and the output written (``chip_smoke.py``'s K4 bound)."""
+    b, hq, sq, d = q.shape
+    out = torch.empty_like(q)
+    pairs = attention_pairs(sq, k.shape[2], causal=causal, window=window)
+    return out, (4 * d * b * hq * pairs, (q, k, v), (out,))
 
 
 def check_inputs(name: str, dev: torch.device, dtype: torch.dtype,

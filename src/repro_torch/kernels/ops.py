@@ -11,8 +11,15 @@ and an input requires grad (`needs_grad`), on either device, rather than
 hand autograd a result whose inputs would get zero gradients. The models
 take their differentiable plain forms on that route instead
 (`repro_torch.models.attention.attend`, `repro_torch.models.rwkv6`).
+
+On a meta tensor (the dry run) those three return outputs of the right
+shapes and report their counted FLOPs and the tensors they read and write
+through `count_kernel` instead of launching; the partitioner kernels have
+no meta route and raise.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -46,6 +53,20 @@ def reset_launch_counts() -> None:
         c.reset()
 
 
+# the dry run's hook (name, flops, reads, writes) while a cost counter
+# (`repro_torch.parallel.cost_count`) counts on this thread
+KERNEL_HOOK = threading.local()
+
+
+def count_kernel(name: str, work) -> None:
+    """Report a meta route's counted work (FLOPs over the whole call, the
+    tensors read once, the tensors written once) to the cost counter
+    counting on this thread; nothing happens when none is."""
+    hook = getattr(KERNEL_HOOK, "fn", None)
+    if hook is not None:
+        hook(name, *work)
+
+
 def needs_grad(*tensors: torch.Tensor) -> bool:
     """Whether a forward over ``tensors`` would be recorded by autograd:
     grad mode on and one of them requires grad (the training route)."""
@@ -58,8 +79,8 @@ def _no_backward(what: str, *tensors: torch.Tensor) -> None:
                            f"model's differentiable plain form (ops.needs_grad)")
 
 
-def _route(t: torch.Tensor, what: str) -> str:
-    if t.device.type in ("cpu", "cuda"):
+def _route(t: torch.Tensor, what: str, *, meta: bool = False) -> str:
+    if t.device.type in ("cpu", "cuda") or (meta and t.device.type == "meta"):
         return t.device.type
     raise ValueError(f"{what} has no implementation for device {t.device}")
 
@@ -140,7 +161,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in q's dtype — see
     `repro_torch.kernels.flash_attention`. Raises under autograd."""
     _no_backward("flash_attention", q, k, v)
-    if _route(q, "flash_attention") == "cpu":
+    route = _route(q, "flash_attention", meta=True)
+    if route == "meta":
+        out, work = _flash_attention.flash_attention_meta(q, k, v, causal=causal,
+                                                          window=window)
+        count_kernel("flash_attention", work)
+        return out
+    if route == "cpu":
         return _flash_attention.flash_attention_plain(q, k, v, causal=causal,
                                                       window=window)
     return _flash_attention.flash_attention_cuda(q, k, v, causal=causal,
@@ -153,7 +180,13 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, return_lse: bool = False):
     ``return_lse``, m and l [B,Hq] f32) — see
     `repro_torch.kernels.decode_attention`. Raises under autograd."""
     _no_backward("decode_attention", q, k_cache, v_cache)
-    if _route(q, "decode_attention") == "cpu":
+    route = _route(q, "decode_attention", meta=True)
+    if route == "meta":
+        out, work = _decode_attention.decode_attention_meta(
+            q, k_cache, v_cache, kv_len, return_lse=return_lse)
+        count_kernel("decode_attention", work)
+        return out
+    if route == "cpu":
         return _decode_attention.decode_attention_plain(
             q, k_cache, v_cache, kv_len, return_lse=return_lse)
     return _decode_attention.decode_attention_cuda(
@@ -165,7 +198,12 @@ def wkv6(r, k, v, logw, u, state0):
     all f32 -> (y [B,S,H,N] f32, state0), the final state written over
     ``state0`` — see `repro_torch.kernels.wkv6`. Raises under autograd."""
     _no_backward("wkv6", r, k, v, logw, u, state0)
-    if _route(r, "wkv6") == "cpu":
+    route = _route(r, "wkv6", meta=True)
+    if route == "meta":
+        out, work = _wkv6.wkv6_meta(r, k, v, logw, u, state0)
+        count_kernel("wkv6", work)
+        return out
+    if route == "cpu":
         return _wkv6.wkv6_plain(r, k, v, logw, u, state0)
     return _wkv6.wkv6_cuda(r, k, v, logw, u, state0)
 

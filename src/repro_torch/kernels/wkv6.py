@@ -24,6 +24,10 @@ Two implementations of one function:
     the token-serial one (a thread a value column). Any S >= 1, a ragged
     last chunk included.
 
+On the meta device (the dry run) `wkv6_meta` stands in for the kernels:
+it returns the outputs' shapes and the kernels' counted work, which
+`ops.wkv6` reports to the cost counter.
+
 They differ in rounding only: the kernels fuse multiply-adds, sum y in
 partial sums, and (prefill) add the state carried into a chunk as a
 separate term.
@@ -55,6 +59,18 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = torch.stack(ys, 1) if ys else torch.zeros_like(r, dtype=torch.float32)
     state0.copy_(state)
     return y, state0
+
+
+def wkv6_meta(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              logw: torch.Tensor, u: torch.Tensor, state0: torch.Tensor):
+    """K6 on meta tensors: ((y of r's shape, ``state0``), the kernels'
+    counted work (FLOPs, the tensors read once, the tensors written once))
+    — 5 N^2 + 5 N FLOPs a token and head; r, k, v, logw, u read and y
+    written, the state read and written (``chip_smoke.py``'s K6 bound)."""
+    b, s, h, n = r.shape
+    y = torch.empty_like(r, dtype=torch.float32)
+    return (y, state0), ((5 * n * n + 5 * n) * b * s * h, (r, k, v, logw, u, state0),
+                         (y, state0))
 
 
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

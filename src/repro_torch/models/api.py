@@ -28,7 +28,9 @@ from repro_torch.models.config import ModelConfig
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
     """Random parameters drawn from ``generator``, which lives on ``device``
-    (default-CUDA entry points pass ``"cuda"``; the CPU path ``"cpu"``)."""
+    (default-CUDA entry points pass ``"cuda"``; the CPU path ``"cpu"``).
+    With ``common.MetaDraws()`` and ``"meta"`` the parameters are meta
+    tensors: shapes and dtypes, nothing allocated or drawn (the dry run)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, expected {dev}")

@@ -32,8 +32,20 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class MetaDraws:
+    """Stands in for a `torch.Generator` when a model is built on the meta
+    device (the dry run, `repro_torch.parallel.cost_count`): every draw of
+    an init then returns a meta tensor of the drawn shape and dtype, which
+    allocates nothing and draws nothing."""
+
+    device = torch.device("meta")
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    """f32 normal draws on the generator's device, scaled, then cast."""
+    """f32 normal draws on the generator's device, scaled, then cast; on
+    the meta device (`MetaDraws`) an empty meta tensor of the dtype."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return (x * scale).to(dtype)
 

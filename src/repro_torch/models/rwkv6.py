@@ -137,18 +137,85 @@ def _ddlerp(p: TimeMix, x: torch.Tensor, xs: torch.Tensor) -> list[torch.Tensor]
     return [x + xx * (p.mu[i] + mix[i].to(x.dtype)) for i in range(5)]
 
 
+def _scan_step(rt, kt, vt, logwt, u, state):
+    """One token of `wkv6_scan`: (y_t [B,H,N], the next state)."""
+    att = state + u[None, :, :, None] * kt[..., None] * vt[..., None, :]
+    y = torch.einsum("bhn,bhnm->bhm", rt, att)
+    return y, state * torch.exp(logwt)[..., None] + kt[..., None] * vt[..., None, :]
+
+
+def _scan_step_grads(rt, kt, vt, logwt, u, state, gy, gnext):
+    """The gradients of `_scan_step`'s inputs (rt, kt, vt, logwt, u, state)
+    from those of its outputs (gy [B,H,N], gnext [B,H,N,N]): the products
+    autograd runs for one token, written out."""
+    kv = kt[..., None] * vt[..., None, :]
+    att = state + u[None, :, :, None] * kv
+    w = torch.exp(logwt)
+    g_att = torch.einsum("bhn,bhm->bhnm", rt, gy)
+    g_r = torch.einsum("bhm,bhnm->bhn", gy, att)
+    g_kv = g_att * u[None, :, :, None] + gnext
+    return (g_r, (g_kv * vt[..., None, :]).sum(-1), (g_kv * kt[..., None]).sum(-2),
+            (gnext * state).sum(-1) * w, (g_att * kv).sum((0, 3)),
+            g_att + gnext * w[..., None])
+
+
+class _CountedScan(torch.autograd.Function):
+    """`wkv6_scan` on meta tensors (the dry run,
+    `repro_torch.parallel.cost_count`): one token's step and its gradients
+    (`_scan_step_grads`) counted S times over (`cost_count.repeat`), as
+    `repro` counts a scan's body by its trip count. `looped_scan` on meta
+    counts the same work within 25 % (``tests/test_torch_dryrun.py``) but
+    runs S steps a layer in Python: rwkv6-3b's train_4k cell took 2,206 s
+    that way on one CPU core against 11 s counted
+    (``tools/torch_dryrun_scan_cost.py``). The step runs on a state split
+    as r is over batch and heads, as every state after the first is in
+    the loop; the two state-sized tensors a step keeps for backward are
+    held as one meta tensor of S steps."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0):
+        from repro_torch.parallel.cost_count import repeat, split_empty
+
+        s, shape = r.shape[1], tuple(state0.shape)
+        state = split_empty(r, shape, {0: 0, 2: 1})
+        # [S, 2, B, H, N, N], split as r [B, S, H, N] is over batch and heads
+        kept = split_empty(r, (s, 2) + shape, {0: 2, 2: 3})
+        ctx.save_for_backward(r, k, v, logw, u, state0, state, kept)
+        with repeat(s):
+            _, last = _scan_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u, state)
+        return torch.empty_like(r), last
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        from repro_torch.parallel.cost_count import repeat, split_empty
+
+        r, k, v, logw, u, state0, state, _ = ctx.saved_tensors
+        g_state = split_empty(r, tuple(state0.shape), {0: 0, 2: 1})   # the running gradient
+        with repeat(r.shape[1]):
+            _scan_step_grads(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u, state, gy[:, 0],
+                             g_state)
+        return tuple(torch.empty_like(t) for t in (r, k, v, logw, u, state0))
+
+
 def wkv6_scan(r, k, v, logw, u, state0):
     """The recurrence of `ops.wkv6` (f32 r, k, v, logw [B,S,H,N], u [H,N],
     state0 [B,H,N,N]) token by token, out of place and differentiable:
     (y [B,S,H,N] f32, the final state, a new tensor). `repro`'s
-    ``_wkv_scan``."""
-    state = state0
-    ys = []
-    for t in range(r.shape[1]):
-        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], torch.exp(logw[:, t])
-        att = state + u[None, :, :, None] * kt[..., None] * vt[..., None, :]
-        ys.append(torch.einsum("bhn,bhnm->bhm", rt, att))
-        state = state * wt[..., None] + kt[..., None] * vt[..., None, :]
+    ``_wkv_scan``. On meta tensors it is counted, not looped
+    (`_CountedScan`)."""
+    if r.device.type == "meta":
+        return _CountedScan.apply(r, k, v, logw, u, state0)
+    return looped_scan(r, k, v, logw, u, state0)
+
+
+def looped_scan(r, k, v, logw, u, state0):
+    """`wkv6_scan`'s token loop. The tokens are unbound once, so backward
+    stacks their gradients once; indexing ``r[:, t]`` would write a zero
+    [B,S,H,N] gradient a token and add S of them (S^2 bytes)."""
+    state, ys = state0, []
+    for rt, kt, vt, lt in zip(r.unbind(1), k.unbind(1), v.unbind(1), logw.unbind(1)):
+        y, state = _scan_step(rt, kt, vt, lt, u, state)
+        ys.append(y)
     return torch.stack(ys, 1), state
 
 

@@ -1,7 +1,8 @@
 """Distribution substrate of the port: sharding rules and per-rank shards,
-the roofline, the activation-sharding context, and the collectives of its
-single-process meshes (the LM collectives and the partitioner's). `repro`'s
-HLO cost analysis has no counterpart: the roofline takes counted costs."""
+the roofline, the activation-sharding context, the collectives of its
+single-process meshes (the LM collectives and the partitioner's), and the
+cost counter (`cost_count`, the counterpart of `repro`'s HLO cost
+analysis), whose counted costs the roofline takes."""
 from repro_torch.parallel.collectives import (
     ef_int8_psum,
     gather_shards,

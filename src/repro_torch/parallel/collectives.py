@@ -18,13 +18,35 @@ shards) for the group they reduce over, or ``None`` for one result.
 
 Division is by 0-dim device tensors, never by a host scalar: CUDA turns
 the latter into a multiply by the reciprocal, which rounds otherwise.
+
+`count_collective` is the cost hook of the dry run
+(`repro_torch.parallel.cost_count`): the cost counter reports through it the
+collectives a sharded step would issue (the partial sums a sharded
+contraction leaves, the flash-decode combine of a split cache). No step the
+dry run counts calls the collectives below, so they do not report. With no
+counter active it does nothing.
 """
 from __future__ import annotations
 
 import hashlib
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import torch
+
+
+# the cost counter's hook (kind, nbytes, axes) while one counts on this thread
+_HOOK = threading.local()
+
+
+def count_collective(kind: str, nbytes: float, axes=None) -> None:
+    """Report one collective (``kind`` "all-reduce", "all-gather", ...) of
+    ``nbytes`` sent by one rank over the mesh ``axes`` (None: the
+    collective's own group) to the cost counter counting on this thread;
+    nothing happens when none is."""
+    hook = getattr(_HOOK, "fn", None)
+    if hook is not None:
+        hook(kind, float(nbytes), axes)
 
 
 def _per_device(mesh, make):
@@ -281,7 +303,7 @@ def replicated_key(gen: torch.Generator, mesh) -> List[torch.Generator]:
     return out
 
 
-__all__ = ["lse_combine", "sharded_decode_attention", "ef_int8_psum",
+__all__ = ["count_collective", "lse_combine", "sharded_decode_attention", "ef_int8_psum",
            "gather_shards", "psum", "psum_delta_merge", "halo_exchange",
            "vertex_halo_exchange", "hub_gather", "hub_votes", "shard_chain_key",
            "replicated_key"]

@@ -8,9 +8,9 @@ of the TPU's:
   collective_s = collective_bytes_per_device / link_bw
 
 `repro` reads its terms from a compiled XLA module's HLO
-(``parallel/hlo_analysis.py``, not ported); the port takes them from a
-counted `Costs` record, as ``chip_smoke.py``'s kernel bounds count the
-bytes each kernel must move and the operations it must do.
+(``parallel/hlo_analysis.py``); the port takes them from a counted `Costs`
+record, which `repro_torch.parallel.cost_count` counts from one step run
+on meta tensors (`repro_torch.launch.dryrun`).
 
 MODEL_FLOPS uses `repro`'s convention: 6·N·D for training (N = active
 params, D = global tokens per step), 2·N·D for prefill, 2·N·B for decode

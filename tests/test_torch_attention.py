@@ -357,5 +357,9 @@ def test_attention_kernel_wrappers_refuse_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention.decode_attention_cuda(q[:, :, 0], k, v,
                                                torch.tensor([3], dtype=torch.int32))
+    # meta tensors take the dry run's route (shapes, the kernel's counted
+    # work); a wrapper without one still refuses them
+    out = ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
     with pytest.raises(ValueError, match="no implementation"):
-        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        ops.la_update(q.to("meta"), q.to("meta"), q.to("meta"), 0.1, 0.1)

@@ -144,6 +144,22 @@ def test_edge_split_matches_reference():
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("n_cliques,size", [(4, 8), (8, 5), (1, 3)])
+def test_ring_of_cliques_matches_reference(n_cliques, size):
+    assert_same_fields(generators.ring_of_cliques(n_cliques, size),
+                       jax_generators.ring_of_cliques(n_cliques, size))
+
+
+@pytest.mark.parametrize("name", ["WIKI", "USA", "SO", "ring"])
+def test_graph_stats_matches_reference(name):
+    from repro.graphs.csr import graph_stats as jax_graph_stats
+    from repro_torch.graphs import graph_stats
+
+    g = (generators.ring_of_cliques(6, 7) if name == "ring"
+         else datasets.load_dataset(name, scale=SCALE, seed=1))
+    assert graph_stats(g) == jax_graph_stats(g)
+
+
 def test_check_integer_weights_holds_the_span_kernels_contract():
     rows = np.array([[0, 0, 1, 2, 0, 0]], np.int32)
     ptr = blocking.slab_row_ptr(rows, np.array([[1, 2, 1, 1, 0, 0]], np.float32), 3)
