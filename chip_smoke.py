@@ -179,13 +179,14 @@ failure raises and the script exits non-zero without printing a result:
               bit-equal; rates, time to first token, peak memory, the
               device busy share over decode steps
   7f. zamba (in the same wait) zamba2-7b at full width, its depth cut
-              from 13 to 6 groups (for the script's time limit, once
-              phases 7g-7i came: 6 x [the shared attention block at 2 d =
+              from 13 to 4 groups (for the script's time limit: 6 once
+              phases 7g-7i came, then 4): 4 x [the shared attention block
+              at 2 d =
               7168, 32 heads of 224, LoRA rank 128; 5 Mamba2 layers] + 3,
               d 3584),
               random weights from seed 0 with every LoRA b drawn from N(0,
               0.02^2) after init (0 at init, which would make the LoRA path
-              vanish): its parameter count at 6 groups, and at all 13
+              vanish): its parameter count at 4 groups, and at all 13
               (6,142,959,936, `repro`'s count) from one group's; in bf16
               prefill(1024) (the chunked SSD form) + decode(token 1025)
               against prefill(1025) (the scan), gated as phase 7; then
@@ -440,15 +441,20 @@ failure raises and the script exits non-zero without printing a result:
               times and H1 (the hub reconcile kernel) once a superstep;
               H1 against its plain version at the state of 10 hub
               supersteps (winners and loads bit-equal, two calls
-              bit-equal), then timed as in phase 9 beside its bound (pass
-              1's bytes plus a shared-memory round trip per flagged slot),
-              with its slot and flagged counts; a checkpoint written by
+              bit-equal, its body and rounds those of its schedule on the
+              host), then timed as in phase 9 beside its bound (the bytes
+              it must move; the one-thread walk's chain of shared-memory
+              round trips printed beside it), with its slot, flagged and
+              round counts; a checkpoint written by
               the 8-shard hub run at superstep 20 restored onto 4 shards
               and onto 1, bit-equal there (elastic restore). Hub count,
               the vote traffic, the exchange bytes, rates and peak memory
               printed. Its legs off the full graph run in the host
               build's wait: H1 on a synthetic 90,000-slot table (ties,
-              slots without votes, pad slots, refused moves), and the
+              slots without votes, pad slots, refused moves) and on
+              tables that refuse nothing or everything, hold loads past
+              2^24 (its serial body), have k 2 or 64, one slot or no
+              flagged slot, each as the mid-run state is checked; and the
               V-cycle at WIKI 0.1, sequential and with its finest level on
               8 shards under halo with hubs, quality side by side
 
@@ -484,9 +490,10 @@ SEED = 0
 SHARDS = 8                    # phase 17: shards on the one card
 SHARD_BLOCKS = 32             # phase 17: 4 blocks a shard
 HUB_QUANTILE = 0.95           # phase 17h: hubs at or above this outdegree quantile
-# H1's serial bound: one dependent shared-memory load per flagged slot,
-# ~30 cycles on Hopper (published microbenchmarks of the H100/H800 measure
-# 29-33 cycles), at the card's maximum SM clock (nvidia-smi)
+# the one-thread walk's bound (H1 before its redesign), printed beside
+# H1's: one dependent shared-memory load per flagged slot, ~30 cycles on
+# Hopper (published microbenchmarks of the H100/H800 measure 29-33 cycles),
+# at the card's maximum SM clock (nvidia-smi)
 SMEM_ROUND_TRIP_CYCLES = 30
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
@@ -548,9 +555,9 @@ ZAMBA = "zamba2-7b"
 # DEEPSEEK_LITE_PARAMS
 H2O_PARAMS = 3_961_839_360
 ZAMBA_PARAMS = 6_142_959_936
-# phase 7f's depth: 6 of zamba2-7b's 13 groups (and its 3 trailing Mamba2
-# layers), cut so that phases 7g-7i fit the script's time limit
-ZAMBA_GROUPS = 6
+# phase 7f's depth: 4 of zamba2-7b's 13 groups (and its 3 trailing Mamba2
+# layers), cut so that the phases after it fit the script's time limit
+ZAMBA_GROUPS = 4
 # phases 7g-7i: whisper-base (64-token decoder prompts against 1500 stub
 # frames, 384 new tokens: 448 = Whisper's text context), internvl2-1b (256
 # stub patches before 768-token prompts: a cache of 1,152 rows) and
@@ -2539,52 +2546,90 @@ def h1_state_inputs(torch, sdg, state):
     return votes, cur, h.deg, h.owner, state.loads.clone(), cap
 
 
-def h1_synthetic(torch, np, dev, hub_pad: int, seed: int):
-    """A reconcile input of ``hub_pad`` slots, k 8: a tenth of the slots
-    pad (owner -1, given votes all the same), a fifth with no votes, a
-    tenth an exact tie between two labels, the rest random votes; degrees
-    1-2,000 and loads within ~6,000 of the capacity, so moves are taken and
-    refused."""
+def h1_synthetic(torch, np, dev, hub_pad: int, seed: int, *, k: int = K,
+                 headroom: float = 0.0, cap: float = 4.0e6, deg_max: int = 2000):
+    """A reconcile input of ``hub_pad`` slots (at least 10), k 8: a tenth
+    of the slots pad (owner -1, given votes all the same), a fifth with no
+    votes, a tenth an exact tie between two labels, the rest random votes;
+    degrees 1-2,000 and loads within ~6,000 of the capacity, so moves are
+    taken and refused. ``k``, ``cap``, ``deg_max`` and ``headroom`` (taken
+    off every load) change the table."""
     rng = np.random.default_rng(seed)
-    votes = rng.integers(0, 50, (hub_pad, K)).astype(np.int32)
+    votes = rng.integers(0, 50, (hub_pad, k)).astype(np.int32)
     kind = rng.random(hub_pad)
     votes[kind < 0.2] = 0
     tie = (kind >= 0.2) & (kind < 0.3)
-    ab = np.stack([rng.permutation(K)[:2] for _ in range(int(tie.sum()))])
+    ab = np.stack([rng.permutation(k)[:2] for _ in range(int(tie.sum()))])
     votes[tie] = 0
     votes[np.flatnonzero(tie), ab[:, 0]] = 60
     votes[np.flatnonzero(tie), ab[:, 1]] = 60
     owner = rng.integers(0, SHARDS, hub_pad).astype(np.int32)
     owner[-(hub_pad // 10):] = -1
-    cur = rng.integers(0, K, hub_pad).astype(np.int32)
-    deg = rng.integers(1, 2001, hub_pad).astype(np.float32)
-    cap = np.float32(4.0e6)
-    loads = (cap - rng.integers(0, 6000, K)).astype(np.float32)
+    cur = rng.integers(0, k, hub_pad).astype(np.int32)
+    deg = rng.integers(1, deg_max + 1, hub_pad).astype(np.float32)
+    cap = np.float32(cap)
+    loads = (cap - headroom - rng.integers(0, 6000, k)).astype(np.float32)
     t = [torch.from_numpy(a).to(dev) for a in (votes, cur, deg, owner, loads)]
     return (*t, torch.tensor(cap, device=dev))
 
 
-def check_h1(torch, inputs, what: str) -> dict:
+def h1_tables(torch, np, dev) -> dict:
+    """H1's other card checks, {name: (inputs, the body it must take)}:
+    tables of 20,000 slots that refuse nothing (3M of room a label,
+    degrees up to 200) or everything (every load 1M over the capacity),
+    one with loads and capacity past 2^24 (the serial body), k 2 and k 64
+    (past 32 labels: the serial body), one slot that moves, and a table
+    whose every slot already holds its vote's label (no slot flagged)."""
+    from repro_torch.kernels import hub_reconcile as h1
+
+    def synthetic(seed, **kw):
+        return h1_synthetic(torch, np, dev, 20_000, SEED + seed, **kw)
+
+    settled = list(synthetic(30))
+    settled[1] = h1.hub_candidates(settled[0], settled[1], settled[3])[0]
+    one = (torch.tensor([[0, 0, 5, 1]], dtype=torch.int32, device=dev),
+           torch.tensor([1], dtype=torch.int32, device=dev),
+           torch.tensor([7.0], device=dev), torch.tensor([0], dtype=torch.int32, device=dev),
+           torch.tensor([40.0, 30.0, 20.0, 10.0], device=dev), torch.tensor(27.5, device=dev))
+    return {"refusal_free": (synthetic(24, headroom=3.0e6, deg_max=200), "parallel"),
+            "all_refused": (synthetic(25, headroom=-1.0e6), "parallel"),
+            "loads_past_2_24": (synthetic(26, cap=3.0e7), "serial"),
+            "k_2": (synthetic(27, k=2), "parallel"),
+            "k_64": (synthetic(28, k=64), "serial"),
+            "hub_pad_1": (one, "parallel"),
+            "none_flagged": (tuple(settled), "parallel")}
+
+
+def check_h1(torch, inputs, what: str, body: str | None = None) -> dict:
     """H1 against its plain version on ``inputs`` (winners and loads
-    bit-equal), and two H1 calls bit-equal. Returns the check's row."""
+    bit-equal), and two H1 calls bit-equal; the body it took and its rounds
+    equal to its schedule's on the host (`hub_reconcile_schedule`), and the
+    body ``body`` where given. Returns the check's row."""
     from repro_torch.kernels import hub_reconcile as h1
 
     votes, cur, deg, owner, loads, cap = inputs
     runs = []
-    for fn in (h1.hub_reconcile_cuda, h1.hub_reconcile_cuda, h1.hub_reconcile_plain):
+    for fn in (h1.hub_reconcile_cuda_counts, h1.hub_reconcile_cuda, h1.hub_reconcile_plain,
+               h1.hub_reconcile_schedule):
         ld = loads.clone()
         runs.append((fn(votes, cur, deg, owner, ld, cap), ld))
     torch.cuda.synchronize()
-    (wa, la), (wb, lb), (wp, lp) = runs
+    ((wa, walk), la), (wb, lb), (wp, lp), ((ws, plan), ls) = runs
     require(torch.equal(wa, wp) and torch.equal(la, lp),
             f"H1 ({what}) differs from its plain version: winners equal "
             f"{torch.equal(wa, wp)}, loads {la.tolist()} vs {lp.tolist()}")
     require(torch.equal(wa, wb) and torch.equal(la, lb), f"H1 ({what}): two calls differ")
+    require(torch.equal(ws, wp) and torch.equal(ls, lp),
+            f"H1's schedule ({what}) differs from the plain version")
+    require(walk == plan, f"H1 ({what}): the kernel's walk {walk}, its schedule's {plan}")
+    require(body is None or walk["body"] == body,
+            f"H1 ({what}) took the {walk['body']} body, not the {body} one")
     _, flagged = h1.hub_candidates(votes, cur, owner)
     n_flagged, moved = int(flagged.sum()), int((wa != cur).sum())
     top2 = votes.topk(2, dim=1).values
-    return {"what": what, "slots": int(votes.shape[0]), "hubs": int((owner >= 0).sum()),
-            "flagged": n_flagged, "moved": moved, "refused": n_flagged - moved,
+    return {"what": what, "slots": int(votes.shape[0]), "k": int(votes.shape[1]),
+            "hubs": int((owner >= 0).sum()), "flagged": n_flagged, "moved": moved,
+            "refused": n_flagged - moved, "body": walk["body"], "rounds": walk["rounds"],
             "zero_vote_slots": int((votes.sum(1) == 0).sum()),
             "tied_slots": int(((top2[:, 0] == top2[:, 1]) & (top2[:, 0] > 0)).sum()),
             "bit_equal": True, "two_calls_bit_equal": True}
@@ -2594,9 +2639,12 @@ def h1_record(torch, inputs, flush, launches: int) -> dict:
     """H1's entry of the ``kernels`` line on ``inputs``: eager (as the
     engine calls it) and CUDA-graph-replayed device time, median of 30 with
     the L2 flushed, each call on a fresh copy of the loads (a [k] copy);
-    the plain version's time (3 calls: a host loop); the bound: pass 1's
-    bytes at the HBM rate plus one dependent shared-memory round trip per
-    flagged slot at the card's maximum SM clock."""
+    the plain version's time (3 calls: a host loop); the bound: the bytes
+    it must move at the HBM rate (the table, cur, deg, owner and winners
+    once, the loads read and written), beside the one-thread walk's bound
+    (the design before, kept for comparison): those bytes plus one
+    dependent shared-memory round trip per flagged slot at the card's
+    maximum SM clock; the walk's body and rounds."""
     from repro_torch.kernels import hub_reconcile as h1
 
     votes, cur, deg, owner, loads, cap = inputs
@@ -2612,6 +2660,7 @@ def h1_record(torch, inputs, flush, launches: int) -> dict:
 
     hub_pad, k = votes.shape
     flagged = int(h1.hub_candidates(votes, cur, owner)[1].sum())
+    walk = h1.hub_reconcile_cuda_counts(votes, cur, deg, owner, loads.clone(), cap)[1]
     nbytes = hub_pad * (4 * k + 16) + 8 * k
     t_bytes = nbytes / HBM_BYTES_PER_S
     clock = max_sm_clock_hz()
@@ -2622,17 +2671,19 @@ def h1_record(torch, inputs, flush, launches: int) -> dict:
             "launches": launches, "max_abs_err": 0.0,
             "ms": time_ms(torch, kernel, flush), "graph_ms": graph_ms(torch, kernel, flush),
             "plain_ms": time_ms(torch, plain, flush, reps=3, warmup=1),
-            "bound_ms": max(t_bytes, t_serial) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_serial else "operations",
+            "bound_ms": t_bytes * 1e3, "bound_by": "bytes",
             "library_ms": None, "slots": hub_pad, "flagged": flagged, "bytes": nbytes,
-            "bytes_ms": t_bytes * 1e3, "serial_ms": t_serial * 1e3, "max_sm_clock_hz": clock}
+            "body": walk["body"], "rounds": walk["rounds"],
+            "serial_walk_bound_ms": max(t_bytes, t_serial) * 1e3,
+            "serial_ms": t_serial * 1e3, "max_sm_clock_hz": clock}
 
 
 def hub_side_legs(torch, np, ops, dev: str = "cuda") -> dict:
     """Phase 17h's legs off the full graph (run in the host build's wait).
     (1) H1 on a synthetic table of 90,000 slots (ties, slots without votes,
-    pad slots, moves refused for capacity) against its plain version, two
-    calls bit-equal. (2) The V-cycle at WIKI 0.1, k 8, 8 blocks: the
+    pad slots, moves refused for capacity) and on `h1_tables`' tables
+    against its plain version, two calls bit-equal, its body and rounds
+    its schedule's. (2) The V-cycle at WIKI 0.1, k 8, 8 blocks: the
     sequential one, then one whose finest level runs halo with hubs
     (quantile 0.95) on 8 shards of the card, both through
     ``run_partitioner(mode="vcycle")`` on one level stack (built once here,
@@ -2648,7 +2699,9 @@ def hub_side_legs(torch, np, ops, dev: str = "cuda") -> dict:
     t0 = time.perf_counter()
     cuda = torch.device(dev, 0 if dev == "cuda" else None)
     out = {"h1_synthetic": check_h1(torch, h1_synthetic(torch, np, cuda, 90_000, SEED + 21),
-                                    "synthetic")}
+                                    "synthetic", "parallel"),
+           "h1_tables": {name: check_h1(torch, inputs, name, body)
+                         for name, (inputs, body) in h1_tables(torch, np, cuda).items()}}
     gs = load_dataset("WIKI", scale=0.1, seed=SEED)
     t = time.perf_counter()
     stack = multilevel.build_level_stack(gs, multilevel.DEFAULT_COARSE_N)
@@ -3411,7 +3464,7 @@ def serve_phase(torch, ops, cfg, model, toks, want: dict, serve: dict = SERVE,
             "repeat_bit_equal": True}, counts
 
 
-def serve_profile(torch, cfg, model, toks, steps: int = 4, serve: dict = SERVE,
+def serve_profile(torch, cfg, model, toks, steps: int = 2, serve: dict = SERVE,
                   frontend=None) -> dict:
     """Device busy share over the prefill and over a few decode steps at the
     serving shape (after the serve phase's calls warmed both up)."""
@@ -5560,7 +5613,7 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
           "seconds": time.perf_counter() - t})
     del h2o_rows
 
-    # 7f. zamba2-7b at full width and 6 of its 13 groups (the Mamba2
+    # 7f. zamba2-7b at full width and 4 of its 13 groups (the Mamba2
     # hybrid, K4 and K5 at head dim 224), in bf16 and f32, in the same wait
     t = time.perf_counter()
     zamba_rows, zamba_counts = zamba_phase(torch, ops)

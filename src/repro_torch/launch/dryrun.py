@@ -27,9 +27,10 @@ Row memory, per rank:
 
 Differences from `repro`'s dry run: costs are counted from the op sequence
 (`cost_count`) where `repro` parses the partitioned XLA module; there is
-no ``--seq-parallel`` or ``--bf16-silu``, which the port's mesh context
-dropped (they steer XLA's partitioner and nothing else); and every cell
-runs in this process, since a meta run holds no tensor storage.
+no ``--seq-parallel`` (a layout constraint for XLA's partitioner) or
+``--bf16-silu`` (SiLU in the activation dtype, which changes values and
+the bytes counted), and no ``zero_dp=False``: not ported yet; and every
+cell runs in this process, since a meta run holds no tensor storage.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k --mesh single

@@ -8,7 +8,10 @@ Three layers:
     ``engine._hub_reconcile`` with ``axis=None`` on the same numpy inputs:
     seeded tables with forced ties, slots without votes, pad slots that
     get votes, moves refused for capacity, loads past 2^24. Winners and
-    loads bit-equal.
+    loads bit-equal. H1's schedule (`hub_reconcile_schedule`, the kernel's
+    speculate-verify-commit walk on the host) held to both over windows,
+    chunks, k and tables that refuse densely, all or nothing, and its
+    exactness guard term by term.
   * Hub supersteps against `repro`'s with replayed draws: `repro` runs in a
     subprocess pinned to 8 forced host devices (``--xla_force_host_platform
     _device_count``, fixed when JAX's backend starts), this module run as a
@@ -142,38 +145,207 @@ def _reconcile_case(seed: int, k: int, base_load: float):
                 loads=loads, cap=cap, k=k, local_n=local_n)
 
 
-@pytest.mark.parametrize("seed,k,base_load", [
-    (0, 8, 1000.0), (1, 5, 1000.0), (2, 8, float(2 ** 25)), (3, 64, 200.0), (4, 2, 1000.0)])
-def test_plain_reconcile_matches_repro(seed, k, base_load):
-    c = _reconcile_case(seed, k, base_load)
+RECONCILE_CASES = [(0, 8, 1000.0), (1, 5, 1000.0), (2, 8, float(2 ** 25)), (3, 64, 200.0),
+                   (4, 2, 1000.0)]
+
+
+def _repro_reconcile(c):
+    """`repro`'s ``_hub_reconcile`` on case ``c``: (labels, loads)."""
     graph = {"hub_owner": jnp.asarray(c["owner"]), "hub_local": jnp.asarray(c["local"]),
              "hub_deg": jnp.asarray(c["deg"]), "hub_src": jnp.asarray(c["src"][None]),
              "hub_slot": jnp.asarray(c["slot"][None]), "hub_w": jnp.asarray(c["w"][None])}
-    want_labels, want_loads = jengine._hub_reconcile(
-        graph, k, jnp.float32(c["cap"]), None, jnp.zeros((), jnp.int32),
+    labels, loads = jengine._hub_reconcile(
+        graph, c["k"], jnp.float32(c["cap"]), None, jnp.zeros((), jnp.int32),
         jnp.asarray(c["labels"]), jnp.asarray(c["loads"]), c["local_n"])
+    return np.asarray(labels), np.asarray(loads)
 
+
+def _port_inputs(c):
+    """The port's reconcile inputs for case ``c``, merged as the engine
+    merges them: (votes, cur, deg, owner, loads, cap)."""
     labels = torch.from_numpy(c["labels"].copy())
     owner = torch.from_numpy(c["owner"])
     local = torch.from_numpy(c["local"]).long()
     votes = collectives.hub_votes(
         [labels], [torch.from_numpy(c["src"]).long()], [torch.from_numpy(c["slot"]).long()],
-        [torch.from_numpy(c["w"].astype(np.int32))], owner.shape[0], k, CPU)
+        [torch.from_numpy(c["w"].astype(np.int32))], owner.shape[0], c["k"], CPU)
     cur = collectives.hub_gather([labels], owner, local, None)[0]
-    loads = torch.from_numpy(c["loads"].copy())
+    return (votes, cur, torch.from_numpy(c["deg"]), owner,
+            torch.from_numpy(c["loads"].copy()), torch.tensor(c["cap"]))
+
+
+def _scatter_winners(c, winners):
+    labels = c["labels"].copy()
+    n_hubs = int((c["owner"] >= 0).sum())
+    labels[c["local"][:n_hubs]] = winners[:n_hubs].numpy()
+    return labels
+
+
+@pytest.mark.parametrize("seed,k,base_load", RECONCILE_CASES)
+def test_plain_reconcile_matches_repro(seed, k, base_load):
+    c = _reconcile_case(seed, k, base_load)
+    want_labels, want_loads = _repro_reconcile(c)
+    votes, cur, deg, owner, loads, cap = _port_inputs(c)
     ops.reset_launch_counts()
-    winners = ops.hub_reconcile(votes, cur, torch.from_numpy(c["deg"]), owner, loads,
-                                torch.tensor(c["cap"]))
+    winners = ops.hub_reconcile(votes, cur, deg, owner, loads, cap)
     assert ops.launch_counts()["hub_reconcile"] == 0       # the plain version ran
     n_hubs = int((c["owner"] >= 0).sum())
-    labels[local[:n_hubs]] = winners[:n_hubs]
-    np.testing.assert_array_equal(labels.numpy(), np.asarray(want_labels))
-    np.testing.assert_array_equal(loads.numpy(), np.asarray(want_loads))
+    np.testing.assert_array_equal(_scatter_winners(c, winners), want_labels)
+    np.testing.assert_array_equal(loads.numpy(), want_loads)
     # the case exercises every gate: moves taken, refused for capacity, ties
     cand, flagged = h1.hub_candidates(votes, cur, owner)
     moved = (winners != cur).sum().item()
     assert 0 < moved < int(flagged.sum()), (moved, int(flagged.sum()))
     assert (votes.sum(1)[:n_hubs] == 0).any() and (votes[n_hubs:].sum() > 0)
+
+
+# --------------------------------------------------------------------------
+# H1's schedule (the kernel's speculate-verify-commit walk, on the host)
+# against the plain version and `repro`
+# --------------------------------------------------------------------------
+def _schedule_equal(inputs, **kw) -> dict:
+    """The schedule and the plain version on copies of ``inputs``: winners
+    and loads bit-equal. Returns the schedule's counts."""
+    votes, cur, deg, owner, loads, cap = inputs
+    la, lb = loads.clone(), loads.clone()
+    want = h1.hub_reconcile_plain(votes, cur, deg, owner, la, cap)
+    got, counts = h1.hub_reconcile_schedule(votes, cur, deg, owner, lb, cap, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(lb.view(torch.int32), la.view(torch.int32))   # bit for bit
+    assert counts["flagged"] == int(h1.hub_candidates(votes, cur, owner)[1].sum())
+    return counts
+
+
+@pytest.mark.parametrize("window", [1, 32, h1.WINDOW, 1024])
+@pytest.mark.parametrize("seed,k,base_load", RECONCILE_CASES)
+def test_schedule_matches_repro(seed, k, base_load, window):
+    """The schedule on the cases `repro` is held to above: `repro`'s labels
+    and loads bit for bit. Loads past 2^24 and k 64 take the serial body,
+    the rest the parallel one."""
+    c = _reconcile_case(seed, k, base_load)
+    want_labels, want_loads = _repro_reconcile(c)
+    inputs = _port_inputs(c)
+    loads = inputs[4].clone()
+    winners, counts = h1.hub_reconcile_schedule(*inputs[:4], loads, inputs[5], window=window)
+    np.testing.assert_array_equal(_scatter_winners(c, winners), want_labels)
+    np.testing.assert_array_equal(loads.numpy(), want_loads)
+    serial = base_load >= 2 ** 24 or k > h1.PARALLEL_MAX_K
+    assert counts["body"] == ("serial" if serial else "parallel"), counts
+    _schedule_equal(inputs, window=window, chunk=64, serial_below=0)
+
+
+def test_guard_refuses_loads_past_2_24():
+    """The case with loads past 2^24 fails the guard on the loads alone; a
+    case below passes it."""
+    for base_load, want in ((float(2 ** 25), False), (1000.0, True)):
+        votes, cur, deg, owner, loads, cap = _port_inputs(_reconcile_case(2, 8, base_load))
+        flagged = h1.hub_candidates(votes, cur, owner)[1]
+        assert h1.parallel_walk_exact(deg[flagged].numpy(), loads.numpy(), cap) is want
+
+
+@pytest.mark.parametrize("deg,loads,cap,want", [
+    ([3.0, 5.0], [10.0, 20.0], 40.5, True),
+    ([3.5, 5.0], [10.0, 20.0], 40.0, False),                   # a fractional degree
+    ([-1.0, 5.0], [10.0, 20.0], 40.0, False),                  # a negative degree
+    ([3.0, 5.0], [-0.0, 20.0], 40.0, False),                   # a -0.0 load
+    ([3.0, float("nan")], [10.0, 20.0], 40.0, False),
+    ([3.0, 5.0], [10.0, float("inf")], 40.0, False),
+    ([3.0, 5.0], [10.0, 20.0], float("nan"), True),            # takes nothing, exactly
+    ([3.0, 5.0], [10.0, 20.0], float("inf"), False),           # floor(cap) past 2^24
+    ([16.0, 5.0], [10.0, 2.0 ** 24 - 16], 2.0 ** 24 - 16, True),    # top + max degree == 2^24
+    ([17.0, 5.0], [10.0, 2.0 ** 24 - 16], 2.0 ** 24 - 16, False),
+    ([2.0 ** 24, 2.0 ** 24, 2.0 ** 24], [0.0, 0.0], 0.0, True),   # the sum's floor holds
+    ([2.0 ** 23] * 5, [0.0, 0.0, 0.0, 0.0, 2.0 ** 23], 2.0 ** 23, False),   # no floor holds
+    ([1.0] * 5, [0.0, 0.0, 0.0, 0.0, 2.0 ** 23], 2.0 ** 23, True),   # the degrees' floor
+])
+def test_guard_terms(deg, loads, cap, want):
+    """Each term of the guard on its own."""
+    assert h1.parallel_walk_exact(np.float32(deg), np.float32(loads), np.float32(cap)) is want
+
+
+def _table(seed: int, k: int, hub_pad: int, *, room: int, deg_max: int):
+    """A reconcile input: random votes (a fifth of the slots none, a tenth
+    pad), degrees 1..deg_max and loads ``room`` below a capacity of
+    1,000,000 (``room`` < 0: above it); an odd number of flagged slots."""
+    rng = np.random.default_rng(seed)
+    votes = rng.integers(0, 9, (hub_pad, k)).astype(np.int32)
+    votes[rng.random(hub_pad) < 0.2] = 0
+    owner = rng.integers(0, 4, hub_pad).astype(np.int32)
+    owner[rng.random(hub_pad) < 0.1] = -1
+    cur = rng.integers(0, k, hub_pad).astype(np.int32)
+    deg = rng.integers(1, deg_max + 1, hub_pad).astype(np.float32)
+    cap = np.float32(1_000_000)
+    loads = (cap - room - rng.integers(0, max(abs(room), 1), k)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (votes, cur, deg, owner, loads)]
+    flagged = torch.nonzero(h1.hub_candidates(t[0], t[1], t[3])[1]).view(-1)
+    if flagged.numel() % 2 == 0 and flagged.numel():
+        t[3][flagged[0]] = -1        # an odd flagged count: no window's multiple
+    return (*t, torch.tensor(cap))
+
+
+TABLES = {  # name: (room, deg_max)
+    "refusal_dense": (2_000, 1_000),
+    "none_refused": (900_000, 100),
+    "all_refused": (-10, 100),
+    "mixed": (20_000, 2_000),
+}
+
+
+@pytest.mark.parametrize("serial_below", [0, h1.SERIAL_BELOW])
+@pytest.mark.parametrize("chunk", [700, h1.CHUNK])
+@pytest.mark.parametrize("window", [1, 32, 1024])
+@pytest.mark.parametrize("k", [1, 2, 8, 32, 64])
+@pytest.mark.parametrize("table", list(TABLES))
+def test_schedule_matches_plain(table, k, window, chunk, serial_below):
+    """The schedule bit-equal to the plain version on seeded tables: dense
+    refusals, none refused, all refused; flagged counts that are not a
+    multiple of the window, and chunks of 700 slots, so that windows meet a
+    chunk's end; with and without serial steps. k 64 takes the serial body.
+    Where the capacity refuses all or nothing, every guess holds: a window
+    a round."""
+    room, deg_max = TABLES[table]
+    inputs = _table(7 + k, k, 3_001, room=room, deg_max=deg_max)
+    counts = _schedule_equal(inputs, window=window, chunk=chunk, serial_below=serial_below)
+    n = counts["flagged"]
+    moved = int((h1.hub_reconcile_plain(*inputs[:4], inputs[4].clone(), inputs[5])
+                 != inputs[1]).sum())
+    if k == 1:
+        assert n == 0 and counts["rounds"] == 0
+        return
+    assert n % 2 == 1
+    assert counts["body"] == ("serial" if k > h1.PARALLEL_MAX_K else "parallel")
+    if table == "none_refused":
+        assert moved == n
+    elif table == "all_refused":
+        assert moved == 0
+    else:
+        assert 0 < moved < n
+    if counts["body"] == "serial":
+        assert counts["rounds"] == counts["serial_steps"] == 0
+        return
+    assert counts["rounds"] + counts["serial_steps"] <= n     # a slot a round at least
+    windows = sum(-(-min(chunk, n - q) // window) for q in range(0, n, chunk))
+    if serial_below == 0:
+        assert counts["serial_steps"] == 0 and counts["rounds"] >= windows
+    if table in ("none_refused", "all_refused") and window >= serial_below:
+        assert counts["rounds"] == windows and counts["serial_steps"] == 0
+
+
+def test_schedule_on_a_table():
+    """The hand-made table of `test_plain_reconcile_on_a_table` through the
+    schedule, windows of 1, 2 and 128."""
+    votes = torch.tensor([[0, 3, 3, 0], [0, 0, 0, 0], [5, 0, 0, 0], [0, 0, 2, 0],
+                          [0, 0, 0, 9], [0, 0, 0, 4]], dtype=torch.int32)
+    cur = torch.tensor([0, 1, 0, 2, 1, 0], dtype=torch.int32)
+    owner = torch.tensor([0, 0, -1, 0, 0, 0], dtype=torch.int32)
+    deg = torch.tensor([4, 1, 1, 1, 7, 6], dtype=torch.float32)
+    for window in (1, 2, 128):
+        loads = torch.tensor([10.0, 2.0, 0.0, 6.0])
+        winners, counts = h1.hub_reconcile_schedule(votes, cur, deg, owner, loads,
+                                                    torch.tensor(12.0), window=window)
+        assert winners.tolist() == [1, 1, 0, 2, 1, 3]
+        assert loads.tolist() == [0.0, 6.0, 0.0, 12.0]
+        assert counts["body"] == "parallel" and counts["flagged"] == 3
 
 
 def test_plain_reconcile_on_a_table():
