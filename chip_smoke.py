@@ -153,9 +153,9 @@ failure raises and the script exits non-zero without printing a result:
               (end to end printed: bf16 rounding flips near-tie routing
               picks downstream) and each layer there within relative L2
               1e-2 (each rank's routed and shared pieces' sizes printed:
-              what a psum that lost one would read), ``Engine.generate`` of 32 new tokens
+              what a psum that lost one would read), ``Engine.generate`` of 16 new tokens
               timed with K4 27 launches, a second generate of 16 tokens
-              bit-equal to its first 16, peak memory within 4 GB of 7d's,
+              bit-equal to it, peak memory within 4 GB of 7d's,
               its busy share over 2 decode steps; (e) one MoE layer across pods (mesh
               (2, 1, 4), batch 8 x 512) against the local path at dropless
               capacity, relative L2 < 5e-2; then (f) K5 with (m, l) on 4
@@ -227,6 +227,10 @@ failure raises and the script exits non-zero without printing a result:
               card's batch, on the one-rank host mesh; then tinyllama-1.1b
               at full width and depth, bf16, random weights from seed 0:
               (a) one prefill step of 32,768 tokens at batch 1 (K4 22),
+              (a') the same under the host mesh's ``bf16_silu`` (K4 22 and
+              F1, the fused bf16 SwiGLU, 22; its logits' relative L2
+              against (a)'s printed, its peak held to the dry run's
+              ``bf16_silu`` host row, its step time beside (a)'s),
               (b) a prefill of 32,760 tokens at batch 8 into a 32,768-row
               cache (5.9 GB), then 4 decode steps (K4 22, K5 88), every
               launch counter set to 0 just before each leg and read just
@@ -236,7 +240,10 @@ failure raises and the script exits non-zero without printing a result:
               K4 at S 32,768 against its plain version in query blocks of
               1,024 and K5 at kv_len 32,764 (on the leg's cache) against
               its plain version, each row within 1e-2 of its norm and
-              within ATTN_TOL["bfloat16"], timed as in phase 13 beside SDPA
+              within ATTN_TOL["bfloat16"], timed as in phase 13 beside SDPA;
+              F1 at [32768, 5632] bf16 against its plain chain (bit-equal,
+              or each differing element within one bf16 ulp), timed beside
+              the chain and the default f32 SwiGLU, with its bound
  8. graph    the paper's WIKI graph at full size (1.79M vertices), built on
               the host (by a worker process started before phase 2,
               overlapping phases 2-7, which then coarsens it for phase 11d
@@ -275,7 +282,7 @@ failure raises and the script exits non-zero without printing a result:
               host work, after which torch.profiler loses the kernel events
               of short windows, which phases 13 and 15 count)
               ``StreamRunner`` on phase 8's graph: Revolver over the
-              first 4 of 8 insertion deltas (cut from all 8 for time) in
+              first 3 of 8 insertion deltas (cut from all 8 for time) in
               random arrival order (k=8, 15 supersteps and patience 3 a
               delta, warm_sharpen 0.5), every launch counter set to 0 just
               before each delta and read just after (K1 and K2 8 times a
@@ -576,10 +583,11 @@ COHERE_PARAMS = 15_728_750_592          # at 8 layers
 COHERE_FULL_PARAMS = 103_809_822_720    # at its 64
 # the train phase: reduced legs of every arch, f32 (TF32 off), card against
 # the CPU; then tinyllama-1.1b at full width and depth through the CLI
-# phase 11c: Revolver streams the first 4 of WIKI's 8 insertion deltas, then
+# phase 11c: Revolver streams the first 3 of WIKI's 8 insertion deltas, then
 # the deleting delta (cut from all 8 for time: deltas 5-8 ran 4-8
-# supersteps each behind 16-22 s host merges on an H100 host)
-STREAM_INSERTS = 4
+# supersteps each behind 16-22 s host merges on an H100 host; the 4th, 18 s
+# of merging, cut when phase 7k's bf16_silu leg came)
+STREAM_INSERTS = 3
 TRAIN_LOSS_RTOL = 1e-5        # card vs CPU loss
 TRAIN_LEAF_TOL = 1e-4         # each gradient leaf within this of its L2 norm
 TRAIN_ZERO_TOL = 1e-6         # a leaf zero up to rounding: below this x the global norm
@@ -609,7 +617,8 @@ EP_PEAK_SLACK = 4 * 10**9
 # left out of the psum reads that piece's size (`rank_piece_sizes`)
 EP_LAYER_REL_TOL = 1e-2
 EP2D_TOKENS = 512
-EP_NEW = 32                   # the timed expert-parallel generate's new tokens
+EP_NEW = 16                   # the timed expert-parallel generate's new tokens (32 until
+#                               phase 7k's bf16_silu leg came)
 EP_REPEAT_NEW = 16            # the second expert-parallel generate's new tokens
 SHARDED_DECODE_SHARDS = 4
 EF_RANKS = 4
@@ -3868,8 +3877,8 @@ def placement_legs(torch, np, ops, cfg, model, toks, ds_serve: dict) -> dict:
         wall = time.perf_counter() - t_gen
         gen_counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        # the second generate, shorter (for time): its tokens and
-        # log-probabilities against the first generate's first EP_REPEAT_NEW
+        # the second generate: its tokens and log-probabilities against the
+        # first generate's first EP_REPEAT_NEW
         with moe.record_dispatch() as rec_gen:
             again = eng.generate(prompts, max_new=EP_REPEAT_NEW)
     expect_launches(gen_counts, gen_want, "expert-parallel generate")
@@ -4165,16 +4174,19 @@ def serve_leg(torch, ops, arch: str, serve: dict, n_params_want: int, **changes)
 # --------------------------------------------------------------------------
 def dryrun_rows(cells) -> dict:
     """`repro_torch.launch.dryrun` rows (CPU work on the meta device): each
-    of ``cells`` (arch, shape name, mesh name, ShapeSpec or None)."""
+    of ``cells`` (arch, shape name, mesh name, ShapeSpec or None[, the dry
+    run's switches on: a tuple of names, which the row's key ends with])."""
     from repro_torch.launch.dryrun import dryrun_cell
 
     rows = {}
-    for arch, shape_name, mesh_name, shape in cells:
+    for arch, shape_name, mesh_name, shape, *switches in cells:
+        on = switches[0] if switches else ()
         t = time.perf_counter()
-        row = dryrun_cell(arch, shape_name, mesh_name, shape=shape, verbose=False)
+        row = dryrun_cell(arch, shape_name, mesh_name, shape=shape, verbose=False,
+                          **dict.fromkeys(on, True))
         row.pop("provenance")
         row["wall_s"] = time.perf_counter() - t
-        rows[f"{arch}/{shape_name}/{mesh_name}"] = row
+        rows["/".join((arch, shape_name, mesh_name) + tuple(on))] = row
     return rows
 
 
@@ -4214,7 +4226,8 @@ def dryrun_phase(torch, ops) -> tuple[dict, dict]:
     """Phase 7k: tinyllama-1.1b at full width and depth (bf16, random
     weights from SEED), its dry-run rows on the one-rank host mesh beside
     the card. (a) prefill_32k at batch 1: one prefill step of 32,768
-    tokens (K4 causal at D 64, 22 launches); (b) decode_32k at batch 8:
+    tokens (K4 causal at D 64, 22 launches), and again under the host
+    mesh's ``bf16_silu`` (`bf16_silu_leg`: F1 22 launches); (b) decode_32k at batch 8:
     a prefill of 32,760 tokens into a 32,768-row cache, then 4 decode
     steps (K5 at kv_len up to 32,764, 88 launches). Every launch counter
     set to 0 just before each leg and read just after; the logits finite;
@@ -4222,8 +4235,9 @@ def dryrun_phase(torch, ops) -> tuple[dict, dict]:
     against the row's bound (`dry_run_vs_card`). Then K4 at S 32,768 held
     against its plain version in query blocks, K5 at kv_len 32,764 against
     its plain version, each timed beside the plain version and SDPA, with
-    its bound. Also the same two cells on the production single-pod mesh.
-    Returns (the phase's rows, the two kernel records)."""
+    its bound, and F1 at the prefill's FFN shape (`swiglu_record`). Also
+    the same two cells on the production single-pod mesh. Returns (the
+    phase's rows, the three kernel records)."""
     import torch.nn.functional as F
 
     from repro_torch.configs.shapes import ShapeSpec
@@ -4236,6 +4250,7 @@ def dryrun_phase(torch, ops) -> tuple[dict, dict]:
     dec_shape = ShapeSpec("decode_32k", s, DRYRUN["decode_batch"], "decode")
     t = time.perf_counter()
     rows = dryrun_rows([(arch, "prefill_32k", "host", pre_shape),
+                        (arch, "prefill_32k", "host", pre_shape, ("bf16_silu",)),
                         (arch, "decode_32k", "host", dec_shape),
                         (arch, "prefill_32k", "single", None),
                         (arch, "decode_32k", "single", None)])
@@ -4266,12 +4281,17 @@ def dryrun_phase(torch, ops) -> tuple[dict, dict]:
         require(bool(torch.isfinite(logits).all()), "7k prefill_32k: non-finite logits")
         require(tuple(logits.shape) == (pre_shape.global_batch, cfg.vocab),
                 f"7k prefill_32k: logits {tuple(logits.shape)}")
+        f32_logits = logits
         del logits, cache
     out["prefill_32k"] = {"arch": arch, "params": n_params, "batch": pre_shape.global_batch,
                           "tokens": s, "launches": pre_counts, "step_s_runs": times,
                           **dry_run_vs_card(rows[f"{arch}/prefill_32k/host"], pre_peak,
                                             min(times))}
-    del toks
+    # (a') the same prefill under the host mesh's bf16_silu: F1 once a layer
+    out["prefill_32k_bf16_silu"], f1_launches = bf16_silu_leg(
+        torch, ops, cfg, model, prefill, toks, f32_logits,
+        rows[f"{arch}/prefill_32k/host/bf16_silu"], min(times))
+    del toks, f32_logits
     next_model(torch)
 
     # (b) decode_32k at batch 8: prefill to 32,760, then 4 decode steps
@@ -4354,9 +4374,93 @@ def dryrun_phase(torch, ops) -> tuple[dict, dict]:
         f"q [{pre_shape.global_batch},{hq},{s},{d}] kv [{pre_shape.global_batch},{hkv},{s},{d}] "
         "bf16 causal", plain_reps=3)
     k4_rec["launches"] = pre_counts["flash_attention"]
-    del q, k, v, flush
+    del q, k, v
+    # F1 at the prefill's FFN shape [32768, 5632], against its plain chain
+    f1_rec = swiglu_record(torch, flush, gen, s * pre_shape.global_batch, cfg.d_ff)
+    f1_rec["launches"] = f1_launches
+    del flush
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    return out, {"flash_attention_s32768": k4_rec, "decode_attention_kv32764": k5_rec}
+    return out, {"flash_attention_s32768": k4_rec, "decode_attention_kv32764": k5_rec,
+                 "swiglu_bf16": f1_rec}
+
+
+def bf16_silu_leg(torch, ops, cfg, model, prefill, toks, f32_logits, row: dict,
+                  f32_step_s: float) -> tuple[dict, int]:
+    """Phase 7k's prefill under ``use_activation_sharding(host mesh,
+    bf16_silu=True)``: every launch counter set to 0 just before the first
+    of two runs and read just after (K4 and F1 once a layer), the logits
+    finite and their relative L2 against the f32-SiLU leg's reported, the
+    peak held to the dry run's ``bf16_silu`` host row, the step time beside
+    the default leg's. Returns (the leg's row, F1's launches)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.act_sharding import use_activation_sharding
+
+    times = []
+    with use_activation_sharding(make_host_mesh(device="cuda"), bf16_silu=True):
+        for i in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if i == 0:
+                ops.reset_launch_counts()
+            t = time.perf_counter()
+            with torch.no_grad():
+                logits, cache = prefill(model, {"tokens": toks})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if i == 0:
+                counts = ops.launch_counts()
+                peak = torch.cuda.max_memory_allocated()
+                expect_launches(counts, {"flash_attention": cfg.n_layers,
+                                         "swiglu": cfg.n_layers}, "7k prefill_32k bf16_silu")
+            require(bool(torch.isfinite(logits).all()),
+                    "7k prefill_32k bf16_silu: non-finite logits")
+            rel = float((logits - f32_logits).norm() / f32_logits.norm())
+            del logits, cache
+    return {"launches": counts, "step_s_runs": times, "f32_silu_step_s": f32_step_s,
+            "logits_rel_l2_vs_f32_silu": rel,
+            **dry_run_vs_card(row, peak, min(times))}, counts["swiglu"]
+
+
+def swiglu_record(torch, flush, gen, rows: int, d_ff: int) -> dict:
+    """F1 on bf16 gate and up [rows, d_ff] against its plain chain on the
+    card (bit-equal, or the differing elements counted, each within one
+    bf16 ulp of the chain's), two calls bit-equal, then timed beside the
+    plain chain and the default f32 SwiGLU, with its bound (gate and up
+    read, the output written: 6 bytes an element). No single PyTorch call
+    computes it: library_ms is null."""
+    from repro_torch.kernels import swiglu as f1
+
+    gate = (torch.randn((rows, d_ff), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    up = torch.randn((rows, d_ff), generator=gen, device="cuda").to(torch.bfloat16)
+    fn = lambda: f1.swiglu_bf16_cuda(gate, up)  # noqa: E731
+    plain = lambda: f1.swiglu_bf16_plain(gate, up)  # noqa: E731
+    f32 = lambda: torch.nn.functional.silu(gate.float()).to(gate.dtype) * up  # noqa: E731
+    got, want = fn(), plain()
+    require(torch.equal(got, fn()), "F1: two calls differ")
+    differ = got != want
+    n_diff = int(differ.sum())
+    if n_diff:                                   # one bf16 ulp of the chain's value
+        w = want.float()[differ]
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+        worst = float(((got.float()[differ] - w).abs() / ulp).max())
+        require(worst <= 1.0, f"F1: {n_diff} elements differ, up to {worst} bf16 ulp")
+    n = rows * d_ff
+    nbytes = 6 * n
+    b_ms, b_by = bound(nbytes, 6 * n, F32_FLOPS)
+    err = max_err(torch, got, want)
+    del got, want, differ
+    rec = {"name": "swiglu_bf16", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/swiglu.cu",
+           "replaces": "none (XLA's loop fusion of src/repro/models/common.py:110 "
+                       "under bf16_silu)",
+           "max_abs_err": err, "elements_differing": n_diff,
+           "ms": time_ms(torch, fn, flush), "plain_ms": time_ms(torch, plain, flush),
+           "f32_swiglu_ms": time_ms(torch, f32, flush),
+           "bound_ms": b_ms, "bound_by": b_by, "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "library_ms": None, "shape": f"gate, up [{rows},{d_ff}] bf16",
+           "bytes": nbytes, "deterministic": True}
+    del gate, up
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -5644,14 +5748,15 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
         del rows
     next_model(torch)
 
-    # 7k. the dry run of tinyllama-1.1b's prefill_32k and decode_32k beside
-    # the card: peak memory against its bytes, step time against its bound,
-    # K4 at S 32,768 and K5 at kv_len 32,764 against their plain versions
+    # 7k. the dry run of tinyllama-1.1b's prefill_32k (also under bf16_silu)
+    # and decode_32k beside the card: peak memory against its bytes, step
+    # time against its bound, K4 at S 32,768, K5 at kv_len 32,764 and F1 at
+    # [32768, 5632] against their plain versions
     t = time.perf_counter()
     dry, dry_records = dryrun_phase(torch, ops)
     for cell, row in dry.pop("dryrun_rows").items():
         emit({"phase": "dryrun-row", "cell": cell, **row})
-    for leg in ("prefill_32k", "decode_32k"):
+    for leg in ("prefill_32k", "prefill_32k_bf16_silu", "decode_32k"):
         emit({"phase": f"dryrun-{leg}", **dry.pop(leg)})
     emit({"phase": "dryrun", "graph_built": host.ready(), **dry,
           "seconds": time.perf_counter() - t})
@@ -5824,7 +5929,7 @@ def run_phases(torch, host: HostWorker, spawned: list, t_start: float) -> int:
         emit(rec)
     emit({"phase": "encdec-vlm-kernels",
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
-    # K4 at S 32,768 and K5 at kv_len 32,764: their launches in phase 7k
+    # K4 at S 32,768, K5 at kv_len 32,764 and F1: their launches in phase 7k
     for name, rec in dry_records.items():
         records[name] = rec
         emit(rec)

@@ -35,7 +35,8 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # tensor ops
 _EXTRA_FLAGS = {"edge_phase": (), "la_update": ("-fmad=false",),
                 "edge_histogram": (), "flash_attention": (),
-                "decode_attention": (), "wkv6": (), "hub_reconcile": ("-fmad=false",)}
+                "decode_attention": (), "wkv6": (), "hub_reconcile": ("-fmad=false",),
+                "swiglu": ()}
 _VOID = ctypes.c_void_p
 _ARGTYPES = {
     # dst, w, row_ptr, spans, hubs, labels, lam, actions, feasible, hist,
@@ -61,6 +62,8 @@ _ARGTYPES = {
     "wkv6": [_VOID] * 10 + [ctypes.c_int] * 4 + [_VOID],
     # votes, cur, deg, owner, loads, cap, winners, list; hub_pad, k; stream
     "hub_reconcile": [_VOID] * 8 + [ctypes.c_int] * 2 + [_VOID],
+    # gate, up, out; n; stream
+    "swiglu": [_VOID] * 3 + [ctypes.c_longlong, _VOID],
 }
 KERNELS = tuple(_EXTRA_FLAGS)
 

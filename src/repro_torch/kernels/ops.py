@@ -4,15 +4,16 @@ A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel or raises. There is no other route and no fallback: a
 kernel that fails to build or launch raises to the caller.
 
-The attention kernels K4 and K5 and the recurrence K6 have no backward:
-their outputs carry no ``grad_fn``. So `flash_attention`,
-`decode_attention` and `wkv6` raise a RuntimeError when grad mode is on
-and an input requires grad (`needs_grad`), on either device, rather than
-hand autograd a result whose inputs would get zero gradients. The models
-take their differentiable plain forms on that route instead
-(`repro_torch.models.attention.attend`, `repro_torch.models.rwkv6`).
+The attention kernels K4 and K5, the recurrence K6 and the bf16 SwiGLU F1
+have no backward: their outputs carry no ``grad_fn``. So
+`flash_attention`, `decode_attention`, `wkv6` and `swiglu` raise a
+RuntimeError when grad mode is on and an input requires grad
+(`needs_grad`), on either device, rather than hand autograd a result whose
+inputs would get zero gradients. The models take their differentiable
+plain forms on that route instead (`repro_torch.models.attention.attend`,
+`repro_torch.models.rwkv6`, `repro_torch.models.common.swiglu`).
 
-On a meta tensor (the dry run) those three return outputs of the right
+On a meta tensor (the dry run) those four return outputs of the right
 shapes and report their counted FLOPs and the tensors they read and write
 through `count_kernel` instead of launching; the partitioner kernels have
 no meta route and raise.
@@ -29,6 +30,7 @@ from repro_torch.kernels import edge_phase as _edge_phase
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import hub_reconcile as _hub_reconcile
 from repro_torch.kernels import la_update as _la_update
+from repro_torch.kernels import swiglu as _swiglu
 from repro_torch.kernels import wkv6 as _wkv6
 
 LAUNCH_COUNTERS = {
@@ -40,6 +42,7 @@ LAUNCH_COUNTERS = {
     "decode_attention": _decode_attention.LAUNCHES,
     "wkv6": _wkv6.LAUNCHES,
     "hub_reconcile": _hub_reconcile.LAUNCHES,
+    "swiglu": _swiglu.LAUNCHES,
 }
 
 
@@ -215,3 +218,18 @@ def hub_reconcile(votes, cur, hub_deg, hub_owner, loads, cap):
     if _route(votes, "hub_reconcile") == "cpu":
         return _hub_reconcile.hub_reconcile_plain(votes, cur, hub_deg, hub_owner, loads, cap)
     return _hub_reconcile.hub_reconcile_cuda(votes, cur, hub_deg, hub_owner, loads, cap)
+
+
+def swiglu(gate, up):
+    """SiLU(gate) * up in bf16 with `repro`'s ``bf16_silu`` roundings, gate
+    and up of one shape -> the product — see `repro_torch.kernels.swiglu`.
+    Raises under autograd."""
+    _no_backward("swiglu", gate, up)
+    route = _route(gate, "swiglu", meta=True)
+    if route == "meta":
+        out, work = _swiglu.swiglu_bf16_meta(gate, up)
+        count_kernel("swiglu", work)
+        return out
+    if route == "cpu":
+        return _swiglu.swiglu_bf16_plain(gate, up)
+    return _swiglu.swiglu_bf16_cuda(gate, up)

@@ -25,16 +25,28 @@ Row memory, per rank:
                outputs left out (``cfg.remat`` honoured)
 ``fits_hbm`` compares their sum with the card's HBM.
 
+`repro`'s three switches: ``seq_parallel`` (``--seq-parallel``) splits the
+residual stream along S over "model" between blocks and counts
+Megatron-SP's reduce-scatters and all-gathers
+(`repro_torch.parallel.cost_count`); ``bf16_silu`` (``--bf16-silu``)
+computes SwiGLU's SiLU in the activation dtype (F1,
+`repro_torch.kernels.swiglu`, in a serving step: 6 bytes an element where
+the f32 path moves 26); ``zero_dp=False`` gives the optimizer state the
+parameters' specs. The step runs under ``use_activation_sharding(mesh,
+sp=seq_parallel, bf16_silu=bf16_silu, moe_shardmap=False)``: an MoE layer
+keeps its single-device path, counted under the parameters' splits, as
+without the context (``moe_ep2d`` decides the experts' specs only).
+
 Differences from `repro`'s dry run: costs are counted from the op sequence
-(`cost_count`) where `repro` parses the partitioned XLA module; there is
-no ``--seq-parallel`` (a layout constraint for XLA's partitioner) or
-``--bf16-silu`` (SiLU in the activation dtype, which changes values and
-the bytes counted), and no ``zero_dp=False``: not ported yet; and every
-cell runs in this process, since a meta run holds no tensor storage.
+(`cost_count`) where `repro` parses the partitioned XLA module; every cell
+runs in this process, since a meta run holds no tensor storage, under a
+wall limit of its own (``--timeout``: a cell past it is a ``FAILED`` row,
+as `repro`'s subprocess timeout makes one).
 
 Usage:
-  python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k --mesh single
-  python -m repro_torch.launch.dryrun --all --out dryrun.jsonl
+  python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k --mesh single \
+      [--seq-parallel] [--bf16-silu]
+  python -m repro_torch.launch.dryrun --all [--seq-parallel] --out dryrun.jsonl
 """
 from __future__ import annotations
 
@@ -44,7 +56,9 @@ import json
 import math
 import os
 import resource
+import signal
 import sys
+import threading
 import time
 
 import torch
@@ -96,8 +110,10 @@ def _check(specs, shapes, mesh, what: str) -> None:
         raise ValueError(f"indivisible {what} shardings: {bad[:5]}")
 
 
-def build_cell(cfg, shape, mesh, *, moe_ep2d: bool = False):
-    """The cell's arguments on the meta device and the step that runs them.
+def build_cell(cfg, shape, mesh, *, moe_ep2d: bool = False, zero_dp: bool = True):
+    """The cell's arguments on the meta device and the step that runs them;
+    with ``zero_dp`` the optimizer state takes the ZeRO-DP specs
+    (`sharding.zero_dp_specs`), else the parameters'.
 
     Returns (counter, step, args, outputs_of_args): a `CostCounter` whose
     tags hold the arguments' per-rank splits, ``step()`` (run it inside
@@ -131,7 +147,8 @@ def build_cell(cfg, shape, mesh, *, moe_ep2d: bool = False):
     if shape.kind == "train":
         model.requires_grad_(True)
         opt = init_opt_state(params)
-        per_layer = _layer_specs(model, zero_dp_specs(p_specs, tree, mesh), mesh.shape)
+        opt_specs = zero_dp_specs(p_specs, tree, mesh) if zero_dp else p_specs
+        per_layer = _layer_specs(model, opt_specs, mesh.shape)
         for k in ("master", "m", "v"):
             counter.shard(opt[k], per_layer)
         state = {"params": model, "opt": opt,
@@ -169,16 +186,18 @@ def build_cell(cfg, shape, mesh, *, moe_ep2d: bool = False):
     return counter, step, args, written
 
 
-def dryrun_cell(arch: str, shape_name: str, mesh_name: str, *, moe_ep2d: bool = False,
+def dryrun_cell(arch: str, shape_name: str, mesh_name: str, *, zero_dp: bool = True,
+                seq_parallel: bool = False, bf16_silu: bool = False, moe_ep2d: bool = False,
                 verbose: bool = True, breakdown: bool = False, cfg=None, shape=None,
                 mesh=None) -> dict:
-    """One cell's row. ``cfg`` / ``shape`` / ``mesh`` (an `LMMesh`) replace
-    the registry's config, the named shape and the named mesh (reduced
-    cells in tests). The optimizer state always takes the ZeRO-DP specs:
-    no caller turns them off (`repro`'s ``zero_dp`` argument)."""
+    """One cell's row, `repro`'s switches as in its ``dryrun_cell`` (module
+    docstring). ``cfg`` / ``shape`` / ``mesh`` (an `LMMesh`) replace the
+    registry's config, the named shape and the named mesh (reduced cells in
+    tests)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.parallel import roofline
+    from repro_torch.parallel.act_sharding import use_activation_sharding
     from repro_torch.utils.provenance import bench_provenance
 
     cfg = cfg or get_config(arch)
@@ -186,9 +205,11 @@ def dryrun_cell(arch: str, shape_name: str, mesh_name: str, *, moe_ep2d: bool = 
     mesh = mesh or _mesh(mesh_name)
     chips = mesh.n_ranks
     t0 = time.monotonic()
-    counter, step, args, written = build_cell(cfg, shape, mesh, moe_ep2d=moe_ep2d)
+    counter, step, args, written = build_cell(cfg, shape, mesh, moe_ep2d=moe_ep2d,
+                                              zero_dp=zero_dp)
     with torch.no_grad() if shape.kind != "train" else contextlib.nullcontext():
-        with counter:
+        with use_activation_sharding(mesh, enabled=True, sp=seq_parallel, bf16_silu=bf16_silu,
+                                     moe_shardmap=False), counter:
             outs = step()
     t_count = time.monotonic() - t0
 
@@ -204,7 +225,8 @@ def dryrun_cell(arch: str, shape_name: str, mesh_name: str, *, moe_ep2d: bool = 
         device_mem_bytes=device_mem, n_active=active)
     row = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name, "chips": chips,
-        "status": "ok", "count_s": t_count, "moe_ep2d": moe_ep2d,
+        "status": "ok", "count_s": t_count, "seq_parallel": seq_parallel,
+        "bf16_silu": bf16_silu, "moe_ep2d": moe_ep2d, "zero_dp": zero_dp,
         "mem": {"argument_gb": argument / 1e9, "output_gb": output / 1e9, "temp_gb": temp / 1e9},
         **{k: v for k, v in roof.row().items() if k not in ("arch", "shape", "mesh", "chips")},
         "n_params": total, "n_active": active,
@@ -242,10 +264,48 @@ def _load_done(path):
                 try:
                     r = json.loads(line)
                     if r.get("status") == "ok":
-                        done.add((r["arch"], r["shape"], r["mesh"]))
+                        done.add((r["arch"], r["shape"], r["mesh"],
+                                  bool(r.get("seq_parallel", False))))
                 except json.JSONDecodeError:
                     pass
     return done
+
+
+@contextlib.contextmanager
+def time_limit(seconds: float | None):
+    """Raise TimeoutError in this (the main) thread once ``seconds`` of wall
+    time have passed inside the block (a SIGALRM timer); no limit when
+    ``seconds`` is None or off the main thread."""
+    if not seconds or threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def expire(*_):
+        raise TimeoutError(f"past the {seconds:g} s limit")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def run_cell(arch: str, shape_name: str, mesh_name: str, *, timeout: float | None = None,
+             **kw) -> dict:
+    """`dryrun_cell` under a wall limit: a cell that raises or runs past
+    ``timeout`` seconds gives a ``FAILED`` row (with the switches) instead
+    of a result."""
+    try:
+        with time_limit(timeout):
+            return dryrun_cell(arch, shape_name, mesh_name, **kw)
+    except Exception as e:                    # a failed cell is a row, not a stop
+        print(f"FAILED {arch} x {shape_name} x {mesh_name}: {type(e).__name__}: {e}")
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                "seq_parallel": kw.get("seq_parallel", False),
+                "bf16_silu": kw.get("bf16_silu", False),
+                "status": f"FAILED {type(e).__name__}: {e}"}
 
 
 def _write(path, row) -> None:
@@ -255,22 +315,26 @@ def _write(path, row) -> None:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="repro's --seq-parallel and --bf16-silu are not taken: they steer XLA's "
-               "SPMD partitioner, which the port's mesh context has no counterpart of.")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--mesh", default="single", choices=["single", "multipod", HOST_MESH])
     ap.add_argument("--all", action="store_true",
                     help="run every runnable cell x both production meshes, resumable")
     ap.add_argument("--out", default=None, help="append JSONL results here")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="split the residual stream along the sequence over 'model'")
+    ap.add_argument("--bf16-silu", action="store_true",
+                    help="SwiGLU's SiLU in the activation dtype")
     ap.add_argument("--ep2d", action="store_true",
                     help="cross-pod expert parallelism (multipod MoE)")
     ap.add_argument("--breakdown", action="store_true")
     ap.add_argument("--force", action="store_true",
                     help="with --all, rerun cells --out already holds")
+    ap.add_argument("--timeout", type=float, default=3600.0,
+                    help="wall seconds a cell may take before it is a FAILED row")
     args = ap.parse_args(argv)
+    switches = {"seq_parallel": args.seq_parallel, "bf16_silu": args.bf16_silu}
 
     if args.all:
         from repro_torch.configs.registry import all_cells
@@ -282,17 +346,13 @@ def main(argv=None):
         failures = 0
         for mesh_name in ("single", "multipod"):
             for a, s in cells:
-                if (a, s, mesh_name) in done:
+                if (a, s, mesh_name, args.seq_parallel) in done:
                     print(f"done already: {a} x {s} x {mesh_name}")
                     continue
                 print(f"--- {a} x {s} x {mesh_name} ---", flush=True)
-                try:
-                    row = dryrun_cell(a, s, mesh_name, breakdown=args.breakdown)
-                except Exception as e:                    # a failed cell is a row, not a stop
-                    failures += 1
-                    print(f"FAILED {a} x {s} x {mesh_name}: {type(e).__name__}: {e}")
-                    row = {"arch": a, "shape": s, "mesh": mesh_name,
-                           "status": f"FAILED {type(e).__name__}: {e}"}
+                row = run_cell(a, s, mesh_name, timeout=args.timeout,
+                               breakdown=args.breakdown, **switches)
+                failures += row["status"] != "ok"
                 _write(args.out, row)
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
         print(f"dry-run sweep complete; failures={failures}; peak host RSS {rss:.2f} GB")
@@ -300,9 +360,11 @@ def main(argv=None):
 
     if not args.arch or not args.shape:
         ap.error("--arch and --shape are required without --all")
-    row = dryrun_cell(args.arch, args.shape, args.mesh, moe_ep2d=args.ep2d,
-                      breakdown=args.breakdown)
+    row = run_cell(args.arch, args.shape, args.mesh, timeout=args.timeout,
+                   moe_ep2d=args.ep2d, breakdown=args.breakdown, **switches)
     _write(args.out, row)
+    if row["status"] != "ok":
+        sys.exit(1)
 
 
 if __name__ == "__main__":

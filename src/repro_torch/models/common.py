@@ -14,9 +14,10 @@ applied as ``x @ w``, as in `repro`. Parameters are made with
 `torch.inference_mode` either way.
 
 Rounding points are `repro`'s: norms take f32 statistics and apply them in
-the activation dtype, RoPE rotates in f32 and casts back, SiLU runs in f32.
-`repro`'s ``bf16_silu`` switch (SiLU in the activation dtype, a perf knob of
-its multi-device activation-sharding context) is not carried over.
+the activation dtype, RoPE rotates in f32 and casts back, SiLU runs in f32
+— or, under `repro`'s ``bf16_silu`` switch of the mesh context
+(`repro_torch.parallel.act_sharding`), in the activation dtype with a
+rounding after each step (`swiglu`).
 """
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import swiglu as _swiglu
+from repro_torch.parallel.act_sharding import get_ctx
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -166,7 +171,17 @@ def sinusoid_pos(n: int, d: int, dtype=torch.float32, device=None) -> torch.Tens
 # activation
 # --------------------------------------------------------------------------
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
+    """SiLU(gate) * up: SiLU in f32, cast back, times up; under the mesh
+    context's ``bf16_silu`` with a bf16 activation, `repro`'s chain in bf16
+    (`repro_torch.kernels.swiglu`): F1 (``ops.swiglu``) outside autograd,
+    its plain chain under it. An f32 activation takes the f32 path either
+    way, where the two coincide."""
+    ctx = get_ctx()
+    if ctx is None or not ctx.bf16_silu or gate.dtype != torch.bfloat16:
+        return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
+    if ops.needs_grad(gate, up):
+        return _swiglu.swiglu_bf16_plain(gate, up)
+    return ops.swiglu(gate, up)
 
 
 # --------------------------------------------------------------------------

@@ -14,10 +14,13 @@ ring buffer of the window's width as its cache. A parallel block (Cohere's
 embeddings (``frontend`` [B, n_patches, d]) before the token embeddings;
 positions count the patches, so the cache holds them and decode starts at
 n_patches + P. The Mamba2 hybrid is `repro_torch.models.zamba`, the
-encoder-decoder `repro_torch.models.whisper`. `repro`'s
-``maybe_gather_hidden`` / ``maybe_shard_hidden`` only constrain XLA's
-layout and have no counterpart (`repro_torch.parallel.act_sharding`); under
-a mesh context an MoE block takes its expert-parallel path.
+encoder-decoder `repro_torch.models.whisper`. The teacher-forced block
+calls `repro`'s sequence-parallel hooks where `repro` does
+(``maybe_gather_hidden`` before attention and the FFN,
+``maybe_shard_hidden`` on its output; `repro_torch.parallel.act_sharding`:
+identities that only a dry run's count reads); the prefill block, which
+shares its code, calls none, as `repro`'s ``_prefill_block``. Under a mesh
+context an MoE block takes its expert-parallel path.
 
 Paths:
   decoder_hidden       tokens -> final hidden (the teacher-forced pass;
@@ -41,6 +44,7 @@ from repro_torch.models.common import (Embed, Norm, apply_norm, chunked_cross_en
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import MLP, apply_mlp, init_mlp
 from repro_torch.models.moe import MoE, MoESpec, apply_moe, init_moe
+from repro_torch.parallel.act_sharding import maybe_gather_hidden, maybe_shard_hidden
 
 
 FAMILIES = ("dense", "moe", "vlm")
@@ -120,9 +124,11 @@ def _ffn(cfg: ModelConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
 
 
 def _apply_block(cfg: ModelConfig, p: Block, h, positions, *, return_kv=False):
-    """One block over h [B, S, d]; with ``return_kv`` also this layer's
-    cache entry: (k, v) for GQA, (c_kv, k_pe) for MLA."""
-    a = _norm(cfg, p.ln1, h)
+    """One block over h [B, S, d]; with ``return_kv`` (prefill: no
+    sequence-parallel hooks) also this layer's cache entry: (k, v) for GQA,
+    (c_kv, k_pe) for MLA."""
+    gather = (lambda x: x) if return_kv else maybe_gather_hidden
+    a = gather(_norm(cfg, p.ln1, h))
     if cfg.attn_kind == "mla":
         out = mla_mod.apply_mla(p.attn, mla_spec(cfg), a, positions, return_cache=return_kv)
     else:
@@ -132,8 +138,8 @@ def _apply_block(cfg: ModelConfig, p: Block, h, positions, *, return_kv=False):
         h = h + attn_out + _ffn(cfg, p, a)
     else:
         h = h + attn_out
-        h = h + _ffn(cfg, p, _norm(cfg, p.ln2, h))
-    return (h, kv) if return_kv else h
+        h = h + _ffn(cfg, p, gather(_norm(cfg, p.ln2, h)))
+    return (h, kv) if return_kv else maybe_shard_hidden(h)
 
 
 def _decode_block(cfg: ModelConfig, p: Block, h1, cache_a, cache_b, pos):

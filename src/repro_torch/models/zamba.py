@@ -14,6 +14,9 @@ prefill goes through `attention.attend` (K4 on the card), the decode
 through `ops.decode_attention` with kv_len = pos + 1 (K5 on the card),
 the function `repro`'s masked-softmax decode computes. The Mamba2 layers
 are plain PyTorch (`repro_torch.models.ssm`), as they are XLA in `repro`.
+The shared block gathers its normed input and a Mamba2 block gathers its
+input and splits its output under `repro`'s sequence-parallel hooks, where
+`repro` calls them (`repro_torch.parallel.act_sharding`).
 
 Parameters: ``embed``, ``shared`` (``ln1``, ``attn``, ``ln2``, ``mlp``,
 ``out``), ``lora`` (G `LoRASet`s), ``mamba`` (G groups of M `MambaBlock`s),
@@ -44,6 +47,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import MLP, apply_mlp, init_mlp
 from repro_torch.models.ssm import (Mamba2, Mamba2Spec, apply_mamba2, apply_mamba2_with_state,
                                     decode_mamba2, init_mamba2, init_mamba2_state)
+from repro_torch.parallel.act_sharding import maybe_gather_hidden, maybe_shard_hidden
 
 
 def mamba_spec(cfg: ModelConfig) -> Mamba2Spec:
@@ -177,7 +181,7 @@ def _apply_shared(cfg: ModelConfig, p: SharedBlock, lora: LoRASet, h, h0, positi
     Returns (h + block(concat(h, h0)), (k, v) or the caches)."""
     spec = shared_attn_spec(cfg)
     xin = torch.cat([h, h0], dim=-1)
-    q, k, v = _shared_qkv(p, lora, spec, _norm(cfg, p.ln1, xin))
+    q, k, v = _shared_qkv(p, lora, spec, maybe_gather_hidden(_norm(cfg, p.ln1, xin)))
     if cache is None:
         q = apply_rope(q, positions[None, None, :], theta=spec.rope_theta)
         k = apply_rope(k, positions[None, None, :], theta=spec.rope_theta)
@@ -201,7 +205,8 @@ def _apply_shared(cfg: ModelConfig, p: SharedBlock, lora: LoRASet, h, h0, positi
 
 
 def _apply_mamba_block(cfg: ModelConfig, p: MambaBlock, h):
-    return h + apply_mamba2(p.mix, mamba_spec(cfg), _norm(cfg, p.ln, h))
+    a = maybe_gather_hidden(_norm(cfg, p.ln, h))
+    return maybe_shard_hidden(h + apply_mamba2(p.mix, mamba_spec(cfg), a))
 
 
 def _prefill_mamba_block(cfg: ModelConfig, p: MambaBlock, h):

@@ -56,6 +56,31 @@ serving steps; for training it issues other resharding collectives
 autograd saves stays live until backward frees it, so ``cfg.remat``
 (`torch.utils.checkpoint`) shows as recomputation and a lower peak.
 
+Sequence parallelism (``use_activation_sharding(..., sp=True)``): the
+hooks of `repro_torch.parallel.act_sharding` split the counted residual
+stream along S over "model" (the split is named ``"model~sp"``: the model
+ranks along S) and gather it back before a block's compute, and the
+counter books Megatron-SP's plan:
+  * under SP a partial sum's all-reduce is booked as it is made, as above,
+    and its record rides the tensor through views, casts and sums; where
+    the partial lands in the split stream (a residual add with a split
+    input, the gather's backward, the shard hook) it is re-booked as a
+    reduce-scatter;
+  * the gather hook books an all-gather; a split tensor read by a product
+    or an indexed read or write, or meeting a tensor split over "model",
+    is all-gathered first, once per storage: in backward the
+    reduce-scatter's gradient (a row-parallel weight's product, an MoE
+    layer's dispatch, the embedding's scatter), at the stream's end the
+    LM head's input;
+  * a ring all-reduce is a reduce-scatter followed by an all-gather, so the
+    two halves each book half of the all-reduce's bytes N (the bytes of
+    the whole tensor on one rank), and a pair costs what the all-reduce it
+    replaces costs (repro's ``analyze_compiled`` books every collective at
+    its operand's bytes instead; XLA's SP lowering of the reduced steps is
+    not this plan: ``tests/test_torch_dryrun_switches.py``);
+  * elementwise work on the split stream, and its live bytes, count at
+    S / model a rank; a storage the hooks split or gather is re-sized.
+
 A loop too long to run op by op (RWKV6's training scan, S steps a layer)
 runs its body once under `repeat`, counted for its trip count, as `repro`
 counts a scan's body; its tensors that live across the steps are made with
@@ -98,6 +123,18 @@ _REDUCE = {aten.sum, aten.mean, aten.amax, aten.amin, aten.max, aten.min, aten.l
 _SOFTMAX = {aten._softmax, aten._log_softmax, aten.softmax, aten.log_softmax}
 _GATHER = {aten.embedding, aten.index, aten.index_select, aten.gather}
 _RESHAPE = {aten._unsafe_view, aten.view_copy, aten.reshape, aten._reshape_copy}
+# under SP a partial sum's record rides these (a sum of partial sums is one)
+_SUMS = {aten.add, aten.sub, aten.add_, aten.sub_}
+_CARRY = _RESHAPE | {aten._to_copy, aten.clone, aten.contiguous}
+# ops that read a sequence-split input whole (gathered first)
+_WHOLE = set(_MATMUL) | _GATHER | {aten.index_put, aten.index_put_}
+
+
+def _sp_on() -> bool:
+    from repro_torch.parallel.act_sharding import get_ctx
+
+    ctx = get_ctx()
+    return ctx is not None and ctx.sp
 
 
 def active() -> "CostCounter | None":
@@ -158,7 +195,43 @@ def _axes(part) -> tuple:
 
 
 def _base(axis: str) -> str:
-    return axis.split("^")[0].split("_")[0]
+    return axis.split("^")[0].split("_")[0].split("~")[0]
+
+
+def _seq(axis: str) -> str:
+    """The sequence-parallel split over mesh axis ``axis`` (module docstring)."""
+    return f"{axis}~sp"
+
+
+def _is_seq(axis: str) -> bool:
+    return "~sp" in axis
+
+
+def _seq_entries(t) -> list:
+    return [e for e in _entries(t) if any(_is_seq(a) for a in e[1])]
+
+
+def _plain_entries(t) -> list:
+    return [e for e in _entries(t) if not any(_is_seq(a) for a in e[1])]
+
+
+class _Partial:
+    """An all-reduce booked for a partial sum, which a sequence split may
+    re-book as a reduce-scatter once (`CostCounter._scatter`)."""
+
+    __slots__ = ("key", "nbytes", "axes", "done")
+
+    def __init__(self, key: str, nbytes: float, axes: tuple):
+        self.key, self.nbytes, self.axes, self.done = key, nbytes, axes, False
+
+
+def _partials(t) -> list:
+    return [r for r in getattr(t, "_cc_partial", ()) if not r.done]
+
+
+def _mark(t: torch.Tensor, recs) -> None:
+    have = _partials(t)
+    t._cc_partial = have + [r for r in recs if all(r is not h for h in have)]
 
 
 def _add(entries: list, dim: int, axes: tuple, outer: int = 1) -> None:
@@ -275,6 +348,9 @@ class CostCounter(TorchDispatchMode):
     def __init__(self, mesh=None):
         super().__init__()
         self.sizes = dict(mesh.shape) if mesh is not None else {}
+        self.sizes.update({_seq(a): n for a, n in list(self.sizes.items())})
+        self._sp_seen = False                # a sequence split was made
+        self._gathered: set = set()          # storages gathered for a read (live ones)
         self.flops = 0.0
         self.bytes = 0.0
         self.collective_bytes = 0.0
@@ -343,8 +419,11 @@ class CostCounter(TorchDispatchMode):
         output's per-rank bytes."""
         if out is not None and axes and self.factor(axes) > 1:
             nbytes = self.local_bytes(out)
+            key = f"{name} {list(out.shape)}"
             collectives.count_collective("all-reduce", nbytes, tuple(sorted(axes)))
-            self.coll_by_op[f"all-reduce {name} {list(out.shape)}"] += nbytes
+            self.coll_by_op[f"all-reduce {key}"] += nbytes
+            if _sp_on():
+                _mark(out, [_Partial(key, nbytes, tuple(sorted(axes)))])
 
     def kernel(self, name: str, flops: float, reads, writes) -> None:
         """A hand-written kernel's meta route (`kernels.ops.count_kernel`):
@@ -375,7 +454,109 @@ class CostCounter(TorchDispatchMode):
         return sorted(self.bytes_by_op.items(), key=lambda kv: -kv[1])[:n]
 
     def top_collectives(self, n: int = 12) -> list:
-        return sorted(self.coll_by_op.items(), key=lambda kv: -kv[1])[:n]
+        return sorted(((k, v) for k, v in self.coll_by_op.items() if v),
+                      key=lambda kv: -kv[1])[:n]
+
+    # ---- sequence parallelism (module docstring) ----------------------------
+    def _stream_entries(self, spec, seq: bool) -> list:
+        """The residual stream's splits under a hook's ``spec`` (dim 0 over
+        the data axes, with ``seq`` dim 1 along S): the hook states the
+        layout, whatever splits a gradient took from a forward tensor of
+        its shape (`_backward_splits`)."""
+        entries = []
+        if spec[0] is not None and self.factor(_axes(spec[0])) > 1:
+            entries.append((0, _axes(spec[0]), 1))
+        if seq and spec[1] is not None and self.factor(_axes(spec[1])) > 1:
+            entries.append((1, tuple(_seq(a) for a in _axes(spec[1])), 1))
+        return entries
+
+    def split_seq(self, t: torch.Tensor, spec) -> None:
+        """``t`` (a view a hook returns) split along dim 1 over the mesh axes
+        of ``spec[1]`` from here: a partial sum it carries is
+        reduce-scattered into the split, a whole tensor is cut where it lies
+        (no collective), and its storage counts at its split size."""
+        self._scatter(_partials(t))
+        t._cc_partial = []
+        _tag(t, self._stream_entries(spec, seq=True))
+        self._sp_seen = True
+        self._resize(t)
+
+    def gather_seq(self, t: torch.Tensor, spec) -> bool:
+        """All-gather a split ``t`` (a view a hook returns) along S: booked,
+        its splits along S dropped, its storage re-sized to the whole.
+        Returns whether ``t`` was split."""
+        if not _seq_entries(t):
+            return False
+        self._all_gather(t)
+        _tag(t, self._stream_entries(spec, seq=False))
+        self._resize(t)
+        return True
+
+    def _all_gather(self, t: torch.Tensor, nbytes: float | None = None) -> None:
+        """Book the all-gather of ``t`` along S (of ``nbytes``, its whole
+        bytes, when given: a view gathers its storage)."""
+        axes = tuple(sorted({_base(a) for _, axs, _ in _seq_entries(t) for a in axs}))
+        whole = (t.numel() * t.element_size() if nbytes is None else nbytes) / self.factor(
+            {a for _, axs, _ in _plain_entries(t) for a in axs})
+        collectives.count_collective("all-gather", whole / 2, axes)
+        self.coll_by_op[f"all-gather {list(t.shape)}"] += whole / 2
+
+    def _scatter(self, recs) -> None:
+        """Re-book the all-reduces of ``recs`` over the split's mesh axis
+        as reduce-scatters of half their bytes (module docstring)."""
+        for r in recs:
+            if r.done or {_base(a) for a in r.axes} != {"model"}:
+                continue
+            r.done = True
+            self.collective_bytes -= r.nbytes
+            self.collectives["all-reduce"]["count"] -= 1
+            self.collectives["all-reduce"]["bytes"] -= r.nbytes
+            self.coll_by_op[f"all-reduce {r.key}"] -= r.nbytes
+            collectives.count_collective("reduce-scatter", r.nbytes / 2, r.axes)
+            self.coll_by_op[f"reduce-scatter {r.key}"] += r.nbytes / 2
+
+    def _gather_conflicts(self, packet, ins) -> list:
+        """A split input read by a product or an indexed read or write, or
+        meeting a tensor split over the same mesh axis on another of its
+        axes, is all-gathered first (once per storage while it lives) and
+        read whole by this op: only elementwise work, reductions and views
+        run on the split. Returns (tensor, its splits) to restore after the
+        op."""
+        restore = []
+        whole = packet in _WHOLE or packet in flop_registry
+        for t in ins:
+            seq = _seq_entries(t)
+            if not seq:
+                continue
+            bases = {_base(a) for _, axs, _ in seq for a in axs}
+            if not whole and not any(_base(a) in bases for u in ins if u is not t
+                                     for _, axs, _ in _plain_entries(u) for a in axs):
+                continue
+            key = t.untyped_storage()._cdata
+            if key not in self._gathered:           # the whole storage, once
+                self._all_gather(t, t.untyped_storage().nbytes())
+                self._gathered.add(key)
+            restore.append((t, _entries(t)))
+            _tag(t, _plain_entries(t))
+        return restore
+
+    def _carry_partials(self, packet, view: bool, ins, outs) -> None:
+        recs = []
+        for t in ins:
+            recs += [r for r in _partials(t) if all(r is not h for h in recs)]
+        if not recs or not outs:
+            return
+        if packet in _SUMS:
+            if any(_seq_entries(t) for t in ins):   # lands in the split stream
+                self._scatter(recs)
+            else:
+                _mark(outs[0], recs)
+        elif view or packet in _CARRY:
+            for o in outs:
+                _mark(o, recs)
+        else:                           # read whole: its all-reduce stands
+            for r in recs:
+                r.done = True
 
     # ---- live bytes -------------------------------------------------------
     def _release(self, key) -> None:
@@ -386,6 +567,17 @@ class CostCounter(TorchDispatchMode):
         if entry[1] == 0:
             self.live -= entry[0]
             del self._storages[key]
+            self._gathered.discard(key)
+
+    def _resize(self, t: torch.Tensor) -> None:
+        """Re-size ``t``'s storage to its per-rank bytes under its splits now
+        (a hook split or gathered it)."""
+        entry = self._storages.get(t.untyped_storage()._cdata)
+        if entry is not None:
+            new = t.untyped_storage().nbytes() / self.factor(_all_axes(t))
+            self.live += new - entry[0]
+            entry[0] = new
+            self.peak = max(self.peak, self.live)
 
     def _track(self, t: torch.Tensor, fresh: bool) -> None:
         key = t.untyped_storage()._cdata
@@ -421,18 +613,29 @@ class CostCounter(TorchDispatchMode):
         if self._quiet:
             return out
         ins = _tensors((args, kwargs))
+        restore = self._gather_conflicts(func.overloadpacket, ins) if self._sp_seen else ()
+        try:
+            self._count(func, args, kwargs, ins, out)
+        finally:
+            for t, entries in restore:
+                _tag(t, entries)
+        return out
+
+    def _count(self, func, args, kwargs, ins, out) -> None:
         outs = _tensors(out)
         packet = func.overloadpacket
         if func.is_view:
             self._view(packet, args, outs)
             self._backward_splits(outs)
+            self._carry_partials(packet, True, ins, outs)
             for t in outs:
                 self._track(t, fresh=False)
-            return out
+            return
         name = packet.__name__
         reduced: set = set()
         self._propagate(packet, func, args, kwargs, ins, outs, reduced)
         self._backward_splits(outs)
+        self._carry_partials(packet, False, ins, outs)
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out) / \
                 self._divisor(ins + outs) * self.scale
@@ -446,7 +649,6 @@ class CostCounter(TorchDispatchMode):
         for t in outs:
             if id(t) not in in_ids:
                 self._track(t, fresh=t.untyped_storage()._cdata not in in_keys)
-        return out
 
     def _backward_splits(self, outs) -> None:
         """A gradient is split as its forward tensor is: in the forward pass
@@ -457,8 +659,8 @@ class CostCounter(TorchDispatchMode):
         for t in outs:
             entries = _entries(t)
             if not backward:
-                if entries:
-                    self._forward_splits[tuple(t.shape)] = entries
+                if _plain_entries(t):           # a split along S is not a gradient's
+                    self._forward_splits[tuple(t.shape)] = tuple(_plain_entries(t))
             elif not entries and t.dim():
                 _tag(t, self._forward_splits.get(tuple(t.shape), ()))
 
@@ -557,9 +759,9 @@ class CostCounter(TorchDispatchMode):
             return
         if packet in (aten.index_put_, aten.index_put):
             accumulate = len(args) > 3 and args[3] or kwargs.get("accumulate", False)
+            _tag(out, _entries(args[0]))
             if accumulate:                          # sums over a split: an all-reduce
                 self._reduce(name, out, _all_axes(args[2]) - _all_axes(args[0]))
-            _tag(out, _entries(args[0]))
             return
         if func._schema.is_mutable and outs and ins and outs[0] is ins[0]:
             return                                  # in place: the target keeps its splits
@@ -589,6 +791,10 @@ class CostCounter(TorchDispatchMode):
                     reduced.update(a)
                 elif d > pos[-1]:
                     _add(entries, d - len(pos) + width, a, k)
+            if torch._C._current_graph_task_id() == -1 and _on(_entries(src), pos[0]):
+                # its gradient, a scatter-add into a table of this shape,
+                # lands in the same shards (`_backward_splits`)
+                self._forward_splits[tuple(src.shape)] = _entries(src)
         else:                                        # index_select / gather along dim
             src, dim, idx = args[0], args[1] % args[0].dim(), args[2]
             entries = list(_entries(idx)) if packet is aten.gather else \

@@ -8,7 +8,9 @@
     `launch.dryrun.dryrun_cell`) against `repro`'s `analyze_compiled` on
     the same reduced step (the registry's ``reduced()`` archs: 2 layers,
     d 32-64; `reduced_shape`: batch 2, seq 32), `repro`'s step lowered
-    and compiled as its dry run does:
+    and compiled as its dry run does by default (``seq_parallel=False``:
+    ``sp=False`` is passed explicitly; the switches are
+    ``tests/test_torch_dryrun_switches.py``'s):
       - FLOPs within 1 %. Prefill and decode with the kernels' plain
         versions in their meta routes' place (their dots are what `repro`'s
         XLA attention and scans compute), one device and a (data 2,
@@ -24,6 +26,15 @@
       - collective bytes on the (2, 2) mesh within 1 %: prefill and decode
         all-reduces equal, training's within 1 % (`repro`'s step run in a
         subprocess under 4 forced host devices, this module as a program).
+        Training's all-reduces: the port's count is 80-92 B (0.03 %) under
+        XLA's (tinyllama-1.1b 296,792 against 296,884): XLA reduces the
+        loss's per-chunk row statistics as 640 B where the port's
+        ``logsumexp`` and target ``gather`` reduce 512, and its scalars
+        (the loss, the token count, the clip norm) as 52 B against the
+        port's 88. The embedding's gradient (a scatter-add into the
+        vocab-split table) is summed over "data" at the table's per-rank
+        size, as XLA does (16,384 B: the counter gives the gradient the
+        table's split before it books the sum).
     Not compared, and why: `repro`'s rwkv6-3b prefill runs its chunked
     form (``_wkv_chunked``, other dot shapes; the scan is compared by
     choosing a chunk that does not divide the prompt); internvl2-1b's
@@ -94,9 +105,11 @@ def _reduced(arch: str, shape: str):
     return cfg, get_config(arch).reduced(**changes), treg.reduced_shape(shape, seq=seq)
 
 
-def _repro_costs(arch: str, shape_name: str, dims=(1, 1)) -> dict:
+def _repro_costs(arch: str, shape_name: str, dims=(1, 1), *, sp: bool = False,
+                 zero_dp: bool = True, bf16_silu: bool = False) -> dict:
     """`repro`'s dry-run lowering of the reduced cell on a (data, model)
-    mesh of ``dims``: `analyze_compiled` and `memory_analysis`."""
+    mesh of ``dims``, under its dry run's switches (``sp`` its
+    ``seq_parallel``): `analyze_compiled` and `memory_analysis`."""
     from jax.sharding import NamedSharding
     from jax.sharding import PartitionSpec as P
 
@@ -121,11 +134,11 @@ def _repro_costs(arch: str, shape_name: str, dims=(1, 1)) -> dict:
     p_shape = jax.eval_shape(lambda k: init_lm(cfg, k), key)
     p_specs = param_specs(p_shape, cfg=cfg, mesh=mesh)
     b_in = input_specs(cfg, shape)
-    with use_activation_sharding(mesh, enabled=True):
+    with use_activation_sharding(mesh, enabled=True, sp=sp, bf16_silu=bf16_silu):
         if shape.kind == "train":
             opt = OptConfig()
             state = jax.eval_shape(lambda k: init_train_state(cfg, opt, k), key)
-            z = zero_dp_specs(p_specs, p_shape, mesh)
+            z = zero_dp_specs(p_specs, p_shape, mesh) if zero_dp else p_specs
             s_specs = {"params": p_specs, "opt": {"master": z, "m": z, "v": z, "count": P()},
                        "step": P()}
             lowered = jax.jit(make_train_step(cfg, opt),
@@ -152,10 +165,10 @@ def _repro_costs(arch: str, shape_name: str, dims=(1, 1)) -> dict:
 
 
 def _port_row(arch: str, shape_name: str, dims=(1, 1), *, plain: bool = False,
-              monkeypatch=None) -> dict:
-    """The port's dry-run row of the reduced cell; with ``plain`` the
-    kernels' meta routes run their plain versions (on meta: nothing is
-    allocated) and count those."""
+              monkeypatch=None, **switches) -> dict:
+    """The port's dry-run row of the reduced cell under ``switches``
+    (`dryrun_cell`'s); with ``plain`` the kernels' meta routes run their
+    plain versions (on meta: nothing is allocated) and count those."""
     from repro_torch.kernels import ops
 
     cfg, _, shape = _reduced(arch, shape_name)
@@ -164,7 +177,7 @@ def _port_row(arch: str, shape_name: str, dims=(1, 1), *, plain: bool = False,
         monkeypatch.setattr(ops, "_route", lambda t, what, meta=False: (
             "cpu" if t.device.type == "meta" else route(t, what, meta=meta)))
     return dryrun.dryrun_cell(arch, shape_name, "reduced", cfg=cfg, shape=shape,
-                              mesh=LMMesh(dims, ("data", "model")), verbose=False)
+                              mesh=LMMesh(dims, ("data", "model")), verbose=False, **switches)
 
 
 def _attention_recompute(cfg, shape) -> float:
@@ -418,7 +431,8 @@ def test_partitioner_kernels_raise_on_meta():
 # --------------------------------------------------------------------------
 # the production meshes
 # --------------------------------------------------------------------------
-def _repro_arguments(arch: str, shape_name: str, mesh_name: str) -> float:
+def _repro_arguments(arch: str, shape_name: str, mesh_name: str, *,
+                     zero_dp: bool = True) -> float:
     """Per-device bytes of `repro`'s dry-run step's arguments, from its spec
     functions: each leaf's bytes over the mesh sizes its spec splits it by."""
     from jax.sharding import PartitionSpec as P
@@ -453,7 +467,7 @@ def _repro_arguments(arch: str, shape_name: str, mesh_name: str) -> float:
     total = local(b_in, batch_specs(b_in, mesh)) + local(p_shape, p_specs)
     if shape.kind == "train":
         state = jax.eval_shape(lambda k: init_train_state(cfg, OptConfig(), k), key)
-        z = zero_dp_specs(p_specs, p_shape, mesh)
+        z = zero_dp_specs(p_specs, p_shape, mesh) if zero_dp else p_specs
         for k in ("master", "m", "v"):
             total += local(state["opt"][k], z)
         total += 4 + 4                                    # count, step

@@ -563,10 +563,59 @@ def test_mesh_context_is_thread_local_and_nests():
             assert current_mesh() is inner
         assert current_mesh() is outer and get_ctx().moe_shardmap and not get_ctx().moe_ep2d
     assert get_ctx() is None and seen == {"ctx": None}
-    # `repro`'s layout switches have no counterpart (act_sharding's docstring)
-    for knob in ("enabled", "sp", "bf16_silu"):
-        with pytest.raises(TypeError):
-            use_activation_sharding(outer, **{knob: True})
+    _switch_rules_match_repro(outer)
+
+
+def _one(spec) -> tuple:
+    return tuple(p[0] if isinstance(p, tuple) and len(p) == 1 else p for p in spec)
+
+
+def _switch_rules_match_repro(outer):
+    """`repro`'s ``enabled`` / ``sp`` / ``bf16_silu`` rules: ``sp`` defaults
+    to ``enabled``, ``bf16_silu`` and the MoE switches are carried as given,
+    and the hooks' layouts follow its divisibility rules (dim 0 over the
+    data axes, dim 1 over "model", each only where it divides), read from
+    the specs `repro`'s hooks hand XLA (its mesh and constraint stubbed)."""
+    import contextlib
+
+    from repro.parallel import act_sharding as J
+    from repro_torch.launch.mesh import LMMesh
+    from repro_torch.parallel import act_sharding as T
+
+    seen = []
+    stubs = pytest.MonkeyPatch()
+    stubs.setattr(jax, "set_mesh", lambda mesh: contextlib.nullcontext(), raising=False)
+    stubs.setattr(jax.lax, "with_sharding_constraint",
+                  lambda x, spec: seen.append(tuple(spec)) or x)
+    try:
+        for dims, axes in (((2, 4), ("data", "model")), ((2, 3, 4), ("pod", "data", "model"))):
+            jmesh = SimpleNamespace(shape=dict(zip(axes, dims)), axis_names=axes)
+            tmesh = LMMesh(dims, axes)
+            for kw in ({}, {"enabled": False}, {"sp": True, "enabled": False},
+                       {"sp": False}, {"bf16_silu": True, "moe_shardmap": False},
+                       {"moe_ep2d": True}):
+                with J.use_activation_sharding(jmesh, **kw):
+                    want = J.get_ctx()
+                    with T.use_activation_sharding(tmesh, **kw):
+                        got = T.get_ctx()
+                        assert got.mesh is tmesh
+                        for k in ("sp", "bf16_silu", "moe_shardmap", "moe_ep2d"):
+                            assert getattr(got, k) == getattr(want, k), (kw, k)
+                    for shape in ((4, 8, 16), (3, 8, 16), (4, 6, 16), (24, 12), (5,)):
+                        seen.clear()
+                        J.maybe_shard_hidden(np.zeros(shape))
+                        J.maybe_gather_hidden(np.zeros(shape))
+                        if want.sp:             # `P` writes a one-axis tuple as the axis
+                            split = T.shard_spec(shape, tmesh)
+                            whole = split[:1] + (None,) * (len(shape) - 1)
+                            assert seen == [_one(split), _one(whole)]
+                        else:
+                            assert seen == []
+        with T.use_activation_sharding(outer, sp=True):   # identities outside a counter
+            x = torch.ones(2, 4, 8)
+            assert T.maybe_shard_hidden(x) is x and T.maybe_gather_hidden(x) is x
+    finally:
+        stubs.undo()
 
 
 # --------------------------------------------------------------------------
